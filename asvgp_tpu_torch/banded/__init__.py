@@ -1,0 +1,50 @@
+"""Banded linear algebra (PyTorch counterpart of asvgp_tpu/banded).
+
+Storage conventions as in the JAX package: a *lower band* ``band`` of shape
+``(k+1, m)`` holds a lower-triangular-banded ``(m, m)`` matrix ``M`` with
+``band[j, i] = M[i + j, i]`` for ``i + j < m``; out-of-range slots are zero
+("right padding").  Row 0 is the main diagonal.
+
+``ops`` holds the plain-PyTorch recursions; ``core`` the two sweeps of the
+collapsed core and the posterior, as CUDA kernels on the GPU.
+"""
+
+from asvgp_tpu_torch.banded.layout import (
+    band_to_dense,
+    lower_band_to_dense,
+    shift_cols,
+    symmetrise_lower_band,
+    transpose_lower_band,
+)
+from asvgp_tpu_torch.banded.ops import (
+    band_frobenius,
+    banded_posterior,
+    cholesky_band,
+    cholesky_band_pair,
+    cholesky_solve_band,
+    collapsed_core,
+    log_det_from_cholesky,
+    solve_lower_band,
+    solve_upper_band_transpose,
+    takahashi_inverse_band,
+)
+from asvgp_tpu_torch.banded.core import factor_takahashi_solve
+
+__all__ = [
+    "band_to_dense",
+    "lower_band_to_dense",
+    "shift_cols",
+    "symmetrise_lower_band",
+    "transpose_lower_band",
+    "band_frobenius",
+    "banded_posterior",
+    "cholesky_band",
+    "cholesky_band_pair",
+    "cholesky_solve_band",
+    "collapsed_core",
+    "log_det_from_cholesky",
+    "solve_lower_band",
+    "solve_upper_band_transpose",
+    "takahashi_inverse_band",
+    "factor_takahashi_solve",
+]

@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+At first use, ``load()`` compiles ``asvgp_tpu_torch/csrc/*.cu`` with
+``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
+interface, under ``build/asvgp_tpu_torch/`` beside the package, named by a
+hash of the sources and flags so that an edited source is rebuilt.  The
+library is loaded with ctypes; every pointer and the stream are passed as
+``ctypes.c_void_p``.  Nothing here runs at import time: a machine without
+``nvcc`` or a GPU can import the port and run its CPU paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "banded_core.cu",)
+BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# (name, argument types) of every C entry point; each returns an int error
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+ENTRY_POINTS = {
+    "asvgp_chol_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
+    "asvgp_tak_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under $CUDA_HOME or
+    /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and /usr/local/cuda/bin); "
+        "the port's CUDA kernels are built from source at first use"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libbanded_core-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns {"path", "seconds", "log"}: ``seconds`` is 0.0 and ``log`` empty
+    when the library was already built; ``log`` holds nvcc's output
+    (``-Xptxas -v``: registers, spills and shared memory of each kernel)."""
+    out = library_path()
+    if out.is_file():
+        return {"path": str(out), "seconds": 0.0, "log": ""}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    return {"path": str(out), "seconds": seconds, "log": log}
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with every entry point's
+    argument and result types declared."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.asvgp_error_string.argtypes = [ctypes.c_int]
+    lib.asvgp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = lib.asvgp_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

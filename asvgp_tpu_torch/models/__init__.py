@@ -1,0 +1,15 @@
+"""Model classes: GPR1D, Matérn kernels, Gaussian likelihood."""
+
+from asvgp_tpu_torch.models.kernels import Matern, Matern12, Matern32, Matern52
+from asvgp_tpu_torch.models.likelihoods import Gaussian
+from asvgp_tpu_torch.models.gpr1d import GPR1D, Posterior1D
+
+__all__ = [
+    "Matern",
+    "Matern12",
+    "Matern32",
+    "Matern52",
+    "Gaussian",
+    "GPR1D",
+    "Posterior1D",
+]

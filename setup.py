@@ -7,7 +7,10 @@ setup(
         "TPU-native Actually Sparse Variational Gaussian Processes "
         "(JAX/Pallas rebuild of HJakeCunningham/ASVGP)"
     ),
-    packages=find_packages(include=["asvgp_tpu", "asvgp_tpu.*"]),
+    packages=find_packages(
+        include=["asvgp_tpu", "asvgp_tpu.*", "asvgp_tpu_torch", "asvgp_tpu_torch.*"]
+    ),
+    package_data={"asvgp_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "optax", "numpy"],
 )
