@@ -5,8 +5,10 @@ Storage conventions as in the JAX package: a *lower band* ``band`` of shape
 ``band[j, i] = M[i + j, i]`` for ``i + j < m``; out-of-range slots are zero
 ("right padding").  Row 0 is the main diagonal.
 
-``ops`` holds the plain-PyTorch recursions; ``core`` the two sweeps of the
-collapsed core and the posterior, as CUDA kernels on the GPU.
+``ops`` holds the plain-PyTorch recursions and the dispatch of the collapsed
+core; ``core`` the two value sweeps (K1, K2), ``tan`` the tangent-fused
+sweeps (K3, K4) and ``twist`` their two-ended form (K5, K6), as CUDA kernels
+on the GPU; ``twisted`` the float64 oracle of the two-ended factorization.
 """
 
 from asvgp_tpu_torch.banded.layout import (
@@ -23,12 +25,16 @@ from asvgp_tpu_torch.banded.ops import (
     cholesky_band_pair,
     cholesky_solve_band,
     collapsed_core,
+    collapsed_core_matern,
     log_det_from_cholesky,
     solve_lower_band,
     solve_upper_band_transpose,
     takahashi_inverse_band,
+    twist_scope,
 )
 from asvgp_tpu_torch.banded.core import factor_takahashi_solve
+from asvgp_tpu_torch.banded.tan import factor_takahashi_solve_tan
+from asvgp_tpu_torch.banded.twist import factor_takahashi_solve_tan_twist, twist_applicable
 
 __all__ = [
     "band_to_dense",
@@ -42,9 +48,14 @@ __all__ = [
     "cholesky_band_pair",
     "cholesky_solve_band",
     "collapsed_core",
+    "collapsed_core_matern",
     "log_det_from_cholesky",
     "solve_lower_band",
     "solve_upper_band_transpose",
     "takahashi_inverse_band",
+    "twist_scope",
     "factor_takahashi_solve",
+    "factor_takahashi_solve_tan",
+    "factor_takahashi_solve_tan_twist",
+    "twist_applicable",
 ]

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 At first use, ``load()`` compiles ``asvgp_tpu_torch/csrc/*.cu`` with
-``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and links the objects into one shared library with a plain C
 interface, under ``build/asvgp_tpu_torch/`` beside the package, named by a
 hash of the sources and flags so that an edited source is rebuilt.  The
 library is loaded with ctypes; every pointer and the stream are passed as
@@ -21,11 +22,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "banded_core.cu",)
+SOURCES = (_PKG / "csrc" / "banded_core.cu", _PKG / "csrc" / "banded_tan.cu")
 BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -35,6 +36,10 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "asvgp_chol_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
     "asvgp_tak_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
+    "asvgp_chol_pair_solve_tan": (_I, _I) + (_VP,) * 11,
+    "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 11,
+    "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 10,
+    "asvgp_tak_quad_solve_tan": (_I, _I, _I) + (_VP,) * 12,
 }
 
 
@@ -71,17 +76,37 @@ def build() -> dict:
     if out.is_file():
         return {"path": str(out), "seconds": 0.0, "log": ""}
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "log": log}
+    procs = []
+    try:
+        for src, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in procs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
+        os.replace(tmp, out)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return {"path": str(out), "seconds": time.perf_counter() - t0, "log": "".join(logs)}
 
 
 @functools.cache

@@ -26,7 +26,16 @@ import torch
 
 from asvgp_tpu_torch.banded import _build, ops
 
-LAUNCHES = {"chol_pair_solve": 0, "tak_pair_solve": 0}
+# one count per kernel: K1, K2 here; K3, K4 in banded/tan.py; K5, K6 in
+# banded/twist.py
+LAUNCHES = {
+    "chol_pair_solve": 0,
+    "tak_pair_solve": 0,
+    "chol_pair_solve_tan": 0,
+    "tak_pair_solve_tan": 0,
+    "chol_quad_solve_tan": 0,
+    "tak_quad_solve_tan": 0,
+}
 PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 
 MAX_K = 6
@@ -71,9 +80,11 @@ def _check_cuda(k: int, tensors) -> None:
             raise ValueError("the CUDA sweeps take contiguous tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "gradients through the banded sweeps on the GPU belong to the training "
-            "slice (the tangent and twisted sweeps with their elementwise backward), "
-            "which is not ported yet; evaluate under torch.no_grad()"
+            "the banded sweeps on the GPU are not differentiable themselves: GPR1D "
+            "training differentiates through banded.collapsed_core_matern (tangent "
+            "sweeps with an elementwise backward); the gradient of the generic "
+            "collapsed_core needs the adjoint kernels K7/K8, which are not ported "
+            "yet; evaluate it under torch.no_grad()"
         )
 
 

@@ -4,13 +4,18 @@ PyTorch counterpart of ``asvgp_tpu/banded/ops.py`` (its float64 ``lax.scan``
 path).  The sequential recursions (Cholesky, triangular solves, Takahashi)
 are Python loops over the m columns carrying a k-column window; each step is
 a few small tensor ops vectorised over the (k+1) window.  They are the plain
-versions that the hand-written GPU sweeps (banded/core.py) are held
-against, and what runs for tensors on the CPU.  They build no in-place
+versions that the hand-written GPU sweeps (banded/core.py, tan.py,
+twist.py) are held against, and what runs for tensors on the CPU.  Given a
+direction, the Cholesky and the Takahashi recursions also carry its
+forward tangent, and the Takahashi recursion can start from a seed window
+(the twisted streams).  They build no in-place
 state, so autograd can differentiate them on the CPU.
 
 ``collapsed_core`` and ``banded_posterior`` route through
 ``core.factor_takahashi_solve``: the two GPU sweeps on a CUDA tensor, these
-twins on a CPU tensor.
+twins on a CPU tensor.  ``collapsed_core_matern`` dispatches the training
+core: the tangent-fused sweeps of banded/tan.py and banded/twist.py when a
+gradient is needed, ``collapsed_core`` otherwise.
 """
 
 from __future__ import annotations
@@ -25,18 +30,24 @@ def _col_mask(i: int, k: int, m: int, like: torch.Tensor) -> torch.Tensor:
     return (i + torch.arange(k + 1, device=like.device) < m).to(like.dtype)
 
 
-def cholesky_band(a_band: torch.Tensor) -> torch.Tensor:
+def cholesky_band(a_band: torch.Tensor, t_band: torch.Tensor | None = None):
     """Banded Cholesky: lower band of L with A = L L^T.
 
     Args:
       a_band: (k+1, m) lower band of a symmetric positive-definite matrix.
+      t_band: optional (k+1, m) lower band of a symmetric direction T.
     Returns:
-      (k+1, m) lower band of L, right-padding slots zeroed.
+      (k+1, m) lower band of L, right-padding slots zeroed; with ``t_band``,
+      (L, L̇) with L̇ = ∂_ε chol(A + εT) in the same layout.  Per column,
+      with r = a − s, rv = 1/√r₀ and c = r·rv:
+        ṙ = Ṫ_col − Σ_p [ġ_p W_p + g_p Ẇ_p],  e = −½ rv² ṙ₀,  ċ = rv·ṙ + c·e.
     """
     k = a_band.shape[0] - 1
     m = a_band.shape[1]
+    tangent = t_band is not None
     if k == 0:
-        return torch.sqrt(a_band)
+        l0 = torch.sqrt(a_band)
+        return (l0, 0.5 * t_band / l0) if tangent else l0
     w = k + 1
     # window: win[(p-1)*w + r] = L[i-p+r, i-p] (band entry r of column i-p),
     # with one zero slot at the end for the entries beyond the band
@@ -47,18 +58,33 @@ def cholesky_band(a_band: torch.Tensor) -> torch.Tensor:
     ).reshape(-1)
     zero = a_band.new_zeros(1)
     win = a_band.new_zeros(k * w + 1)
-    cols = []
+    twin = a_band.new_zeros(k * w + 1)
+    cols, tcols = [], []
+    t_cols = t_band.T.unbind(0) if tangent else None
     for i, a_col in enumerate(a_band.T.unbind(0)):
         # S[p-1, j] = L[i+j, i-p]; column 0 is g_p = L[i, i-p]
         S = win.index_select(0, idx).view(k, w)
         r = a_col - S[:, 0] @ S
         l0 = torch.sqrt(r[:1])
         col = torch.cat([l0, r[1:] / l0])
+        if tangent:
+            TS = twin.index_select(0, idx).view(k, w)
+            tr = t_cols[i] - (TS[:, 0] @ S + S[:, 0] @ TS)
+            rv = 1.0 / l0
+            e = -0.5 * rv * rv * tr[:1]
+            tcol = tr * rv + col * e
         if i + k >= m:
-            col = col * _col_mask(i, k, m, col)
+            mask = _col_mask(i, k, m, col)
+            col = col * mask
+            if tangent:
+                tcol = tcol * mask
         cols.append(col)
         win = torch.cat([col, win[:(k - 1) * w], zero])
-    return torch.stack(cols, dim=1)
+        if tangent:
+            tcols.append(tcol)
+            twin = torch.cat([tcol, twin[:(k - 1) * w], zero])
+    l_band = torch.stack(cols, dim=1)
+    return (l_band, torch.stack(tcols, dim=1)) if tangent else l_band
 
 
 def cholesky_band_pair(a_band: torch.Tensor, b_band: torch.Tensor):
@@ -122,7 +148,9 @@ def cholesky_solve_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return solve_upper_band_transpose(l_band, solve_lower_band(l_band, b))
 
 
-def takahashi_inverse_band(l_band: torch.Tensor) -> torch.Tensor:
+def takahashi_inverse_band(l_band: torch.Tensor, ldot_band: torch.Tensor | None = None,
+                           seed: torch.Tensor | None = None,
+                           seed_dot: torch.Tensor | None = None):
     """Band of A^{-1} from the banded Cholesky factor L (Takahashi recursion).
 
     Computes the entries of S = A^{-1} on the band |i - j| <= k exactly
@@ -132,13 +160,24 @@ def takahashi_inverse_band(l_band: torch.Tensor) -> torch.Tensor:
     Args:
       l_band: (k+1, m) lower band of L (right-padding must be zero, as
         produced by :func:`cholesky_band`).
+      ldot_band: optional tangent L̇ of the factor (same layout).
+      seed: optional (k, k+1) window, seed[p-1, r] = S[m-1+p+r, m-1+p]: the
+        entries of S beyond the m columns given, from which the recursion
+        starts (the seeded Takahashi of the twisted streams, whose factor
+        columns spill into a middle block); nothing is masked then.
+      seed_dot: the tangent of ``seed`` (zero if omitted).
     Returns:
-      (k+1, m) lower band of A^{-1}.
+      (k+1, m) lower band of A^{-1}; with ``ldot_band``, (S, Ṡ).  Per
+      column, with aq = Σ_p CS·w_p, s_q = −aq·d, sj = d² − (Σ_q w_q s_q)·d:
+        ȧq = Σ_p [ĊS·w_p + CS·ẇ_p],  ṡ_q = −(ȧq·d + aq·ḋ),
+        ṡj = 2d·ḋ − (ẇs·d + ws·ḋ),  ẇs = Σ_q [ẇ_q s_q + w_q ṡ_q].
     """
     k = l_band.shape[0] - 1
     m = l_band.shape[1]
+    tangent = ldot_band is not None
     if k == 0:
-        return 1.0 / (l_band * l_band)
+        s = 1.0 / (l_band * l_band)
+        return (s, -2.0 * s * ldot_band / l_band) if tangent else s
     w = k + 1
     # window: cs[(p-1)*w + r] = S_band[r, j+p] (zeros beyond the end);
     # M[q-1, p-1] = S[j+max(p,q), j+min(p,q)] = S_band[|q-p|, j+min(p,q)]
@@ -147,23 +186,45 @@ def takahashi_inverse_band(l_band: torch.Tensor) -> torch.Tensor:
          for q in range(1, k + 1)],
         device=l_band.device,
     ).reshape(-1)
-    cs = l_band.new_zeros(k * w)
-    cols = []
+    taper = seed is None
+    cs = l_band.new_zeros(k * w) if seed is None else seed.reshape(-1)
+    tcs = l_band.new_zeros(k * w) if seed_dot is None else seed_dot.reshape(-1)
+    cols, tcols = [], []
     l_cols = l_band.T.unbind(0)
+    t_cols = ldot_band.T.unbind(0) if tangent else None
     for j in range(m - 1, -1, -1):
         l_col = l_cols[j]
         d = 1.0 / l_col[:1]
         wv = l_col[1:]  # wv[p-1] = L[j+p, j]
         M = cs.index_select(0, idx).view(k, k)
-        s = -d * (M @ wv)  # off-diagonal S[j+q, j], q = 1..k
-        sjj = d * d - d * (wv @ s)
-        col = torch.cat([sjj, s])
-        if j + k >= m:
-            col = col * _col_mask(j, k, m, col)
+        aq = M @ wv
+        s = -d * aq  # off-diagonal S[j+q, j], q = 1..k
+        ws = wv @ s
+        col = torch.cat([d * d - d * ws, s])
+        if tangent:
+            t_col = t_cols[j]
+            td = -d * d * t_col[:1]
+            twv = t_col[1:]
+            taq = tcs.index_select(0, idx).view(k, k) @ wv + M @ twv
+            ts = -(taq * d + aq * td)
+            tws = twv @ s + wv @ ts
+            tcol = torch.cat([2.0 * d * td - (tws * d + ws * td), ts])
+        if taper and j + k >= m:
+            mask = _col_mask(j, k, m, col)
+            col = col * mask
+            if tangent:
+                tcol = tcol * mask
         cols.append(col)
         cs = torch.cat([col, cs[:(k - 1) * w]])
+        if tangent:
+            tcols.append(tcol)
+            tcs = torch.cat([tcol, tcs[:(k - 1) * w]])
     cols.reverse()
-    return torch.stack(cols, dim=1)
+    s_band = torch.stack(cols, dim=1)
+    if not tangent:
+        return s_band
+    tcols.reverse()
+    return s_band, torch.stack(tcols, dim=1)
 
 
 def band_frobenius(a_band: torch.Tensor, b_band: torch.Tensor) -> torch.Tensor:
@@ -181,6 +242,58 @@ def collapsed_core(kuu_band, p_band, b, big_band):
     from asvgp_tpu_torch.banded import core
 
     return core.collapsed_core(kuu_band, p_band, b, big_band)
+
+
+# twisted (two-ended) sweeps for the Matérn collapsed core: on by default,
+# as in the JAX package; scoped, so a caller can force either route
+_TWIST_SCOPE: list = []
+
+
+class twist_scope:
+    """Context manager: force the twisted dispatch of
+    ``collapsed_core_matern`` on or off inside the block.  ``enabled=None``
+    is a no-op (the default: on)."""
+
+    def __init__(self, enabled):
+        self.enabled = enabled
+
+    def __enter__(self):
+        if self.enabled is not None:
+            _TWIST_SCOPE.append(bool(self.enabled))
+        return self
+
+    def __exit__(self, *exc):
+        if self.enabled is not None:
+            _TWIST_SCOPE.pop()
+        return False
+
+
+def _twist_enabled() -> bool:
+    return _TWIST_SCOPE[-1] if _TWIST_SCOPE else True
+
+
+def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
+    """``collapsed_core`` with the Matérn hyperparameter structure exposed:
+    Kuu = kuu_fn(var, ell), and kuu_fn(var, ell) = var⁻¹·G(ell) (true of
+    every Matérn RKHS Gram band, ``make_kuu``).
+
+    When a gradient is needed it runs the tangent-fused sweeps with their
+    elementwise backward: the twisted K5 + K6 (banded/twist.py) where
+    ``twist_applicable`` holds and ``twist_scope`` is on, the single-ended
+    K3 + K4 (banded/tan.py) otherwise.  Without a gradient it is the value
+    path of ``collapsed_core`` (K1 + K2), as in the JAX package's primal.
+    """
+    from asvgp_tpu_torch.banded import tan, twist
+
+    k = p_band.shape[0] - 1
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (var, ell, p_band, b, big_band)
+    )
+    if not needs_grad or k < 1:
+        return collapsed_core(kuu_fn(var, ell), p_band, b, big_band)
+    if _twist_enabled() and twist.twist_applicable(k, p_band.shape[1]):
+        return twist.collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band)
+    return tan.collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band)
 
 
 def banded_posterior(kuu_band, p_band, b):

@@ -1,8 +1,9 @@
-"""Model classes: GPR1D, Matérn kernels, Gaussian likelihood."""
+"""Model classes: GPR1D, the exact GP, Matérn kernels, Gaussian likelihood."""
 
 from asvgp_tpu_torch.models.kernels import Matern, Matern12, Matern32, Matern52
 from asvgp_tpu_torch.models.likelihoods import Gaussian
 from asvgp_tpu_torch.models.gpr1d import GPR1D, Posterior1D
+from asvgp_tpu_torch.models.exact_gp import ExactGPR
 
 __all__ = [
     "Matern",
@@ -11,5 +12,6 @@ __all__ = [
     "Matern52",
     "Gaussian",
     "GPR1D",
+    "ExactGPR",
     "Posterior1D",
 ]

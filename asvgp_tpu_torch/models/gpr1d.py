@@ -13,9 +13,10 @@ recursion), so
   mean_i = kus_iᵀ (P⁻¹ Kuf y)/σ²              — one banded solve, O(m k)
   var_i  = σ_f² + kus_iᵀ (P⁻¹ − Kuu⁻¹) kus_i   — banded gathers, O(k²) per pt
 
-On a CUDA device the banded work runs in the two hand-written sweeps of
-banded/core.py.  Gradients are not part of this module yet: on the GPU,
-evaluate the ELBO under ``torch.no_grad()``.
+On a CUDA device the banded work runs in hand-written sweeps: the ELBO's
+gradient in the tangent-fused sweeps of banded/tan.py and banded/twist.py
+(``banded.collapsed_core_matern``, with an elementwise backward), its value
+alone and the posterior in the two sweeps of banded/core.py.
 """
 
 from __future__ import annotations
@@ -77,11 +78,26 @@ def collapsed_elbo_banded(stats: SufficientStats, kuu_band, sigma2, kdiag_sum):
 
 def collapsed_elbo_matern(stats: SufficientStats, basis, nu2, var, ell,
                           sigma2, kdiag_sum):
-    """``collapsed_elbo_banded`` with Kuu assembled from the Matérn
-    hyperparameters (value only; the JAX package uses this entry point to
-    fuse the lengthscale tangent into the sweeps for its gradient)."""
-    kuu = make_kuu(Matern(var, ell, nu2=nu2), basis)
-    return collapsed_elbo_banded(stats, kuu, sigma2, kdiag_sum)
+    """As ``collapsed_elbo_banded`` but with the Matérn θ-structure exposed
+    to the banded core: its gradient runs the lengthscale direction as a
+    forward tangent inside the sweeps, and the whole backward is
+    elementwise (``banded.collapsed_core_matern``)."""
+
+    def kuu_fn(v, l):
+        return make_kuu(Matern(v, l, nu2=nu2), basis)
+
+    p_band = stats.kufkfu_band / sigma2 + kuu_fn(var, ell)
+    log_det_kuu, log_det_p, quad, trace_term = banded.collapsed_core_matern(
+        kuu_fn, var, ell, p_band, stats.kuf_y, stats.kufkfu_band
+    )
+    elbo = -0.5 * stats.n * (_LOG2PI + torch.log(sigma2))
+    elbo = elbo - 0.5 * log_det_p
+    elbo = elbo + 0.5 * log_det_kuu
+    elbo = elbo - 0.5 * stats.yty / sigma2
+    elbo = elbo + 0.5 * quad / (sigma2 * sigma2)
+    elbo = elbo - 0.5 * kdiag_sum / sigma2
+    elbo = elbo + 0.5 * trace_term / sigma2
+    return elbo
 
 
 def window_quadratic_form(band, vals, start):
@@ -158,19 +174,99 @@ class Posterior1D:
         return self.likelihood.predict_log_density(mean, var, y)
 
 
-class GPR1D(nn.Module):
+def resolve_device(device) -> torch.device:
+    """A model's device: ``None`` means the current CUDA device, and raises
+    when there is none (no silent fall back to the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "models run on the CUDA device unless told otherwise, and there "
+                'is none: pass device="cpu" to run on the CPU'
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+class MaternGaussianModel(nn.Module):
+    """The hyperparameters of a Matérn kernel with a Gaussian likelihood, as
+    unconstrained float64 ``nn.Parameter``s (``raw_variance``,
+    ``raw_lengthscales``, ``raw_noise_variance``).
+
+    A params pytree in the JAX package's layout, ``{"kernel":
+    {"raw_lengthscales", "raw_variance"}, "likelihood": {"raw_variance"}}``,
+    can stand in for them: ``params()`` returns one, ``load_jax_params`` sets
+    them from one, and the objectives take one (``None``: the module's own
+    parameters).
+    """
+
+    def _init_hyperparameters(self, kernel: Matern, noise_variance, device) -> None:
+        self.nu2 = kernel.nu2
+        self.kernel_init = kernel
+        self.noise_variance_init = noise_variance
+        params = default_params(kernel, noise_variance)
+
+        def param(value):
+            return nn.Parameter(torch.as_tensor(value, dtype=_F64, device=device))
+
+        self.raw_variance = param(params["kernel"]["raw_variance"])
+        self.raw_lengthscales = param(params["kernel"]["raw_lengthscales"])
+        self.raw_noise_variance = param(params["likelihood"]["raw_variance"])
+
+    def init_params(self) -> dict:
+        """The initial parameters in the JAX package's layout (numpy)."""
+        return default_params(self.kernel_init, self.noise_variance_init)
+
+    def params(self) -> dict:
+        """The current parameters in the JAX package's layout: detached
+        float64 copies on the model's device (``fit_lbfgs`` starts there)."""
+        return {
+            "kernel": {
+                "raw_lengthscales": self.raw_lengthscales.detach().clone(),
+                "raw_variance": self.raw_variance.detach().clone(),
+            },
+            "likelihood": {"raw_variance": self.raw_noise_variance.detach().clone()},
+        }
+
+    def load_jax_params(self, params) -> None:
+        """Set the parameters from a params pytree in the JAX package's
+        layout, of tensors (any device) or numpy arrays."""
+        with torch.no_grad():
+            for p, value in zip(self._raw(None), self._raw(params)):
+                if isinstance(value, torch.Tensor):
+                    v = value.detach()
+                else:
+                    v = torch.as_tensor(np.array(value, dtype=np.float64))
+                if v.numel() != p.numel():
+                    raise ValueError(f"parameter of {p.numel()} values given {v.numel()}")
+                p.copy_(v.reshape(p.shape))
+
+    def _raw(self, params):
+        """(raw_variance, raw_lengthscales, raw_noise_variance) of
+        ``params``, or the module's own parameters for ``None``."""
+        if params is None:
+            return self.raw_variance, self.raw_lengthscales, self.raw_noise_variance
+        return (params["kernel"]["raw_variance"], params["kernel"]["raw_lengthscales"],
+                params["likelihood"]["raw_variance"])
+
+    def _build(self, params=None):
+        raw_var, raw_ell, raw_noise = self._raw(params)
+        kernel = Matern(positive(raw_var), positive(raw_ell), nu2=self.nu2)
+        return kernel, Gaussian(positive(raw_noise))
+
+
+class GPR1D(MaternGaussianModel):
     """1-D ASVGP regression with B-spline inducing features.
 
-    The unconstrained hyperparameters are float64 ``nn.Parameter``s
-    (``raw_variance``, ``raw_lengthscales``, ``raw_noise_variance``) and the
-    sufficient statistics float64 buffers, all on ``device``; construction
-    computes the statistics there once.
+    The unconstrained hyperparameters are float64 ``nn.Parameter``s and the
+    sufficient statistics float64 buffers, all on ``device`` (default: the
+    CUDA device; pass ``device="cpu"`` for the CPU); construction computes
+    the statistics there once.
     """
 
     def __init__(self, data, kernel: Matern, basis: BSplineBasis, *,
-                 noise_variance=1.0, device="cpu"):
+                 noise_variance=1.0, device=None):
         super().__init__()
-        device = torch.device(device)
+        device = resolve_device(device)
         X_in, y_in = data
         X = torch.as_tensor(X_in, dtype=_F64, device=device)
         y = torch.as_tensor(y_in, dtype=_F64, device=device)
@@ -192,18 +288,7 @@ class GPR1D(nn.Module):
             )
         validate_kernel_basis(kernel, basis)
         self.basis = basis
-        self.nu2 = kernel.nu2
-        self.kernel_init = kernel
-        self.noise_variance_init = noise_variance
-
-        params = default_params(kernel, noise_variance)
-
-        def param(value):
-            return nn.Parameter(torch.as_tensor(value, dtype=_F64, device=device))
-
-        self.raw_variance = param(params["kernel"]["raw_variance"])
-        self.raw_lengthscales = param(params["kernel"]["raw_lengthscales"])
-        self.raw_noise_variance = param(params["likelihood"]["raw_variance"])
+        self._init_hyperparameters(kernel, noise_variance, device)
 
         stats = compute_stats(basis, X, yf)
         self.register_buffer("kuf_y", stats.kuf_y)
@@ -217,44 +302,19 @@ class GPR1D(nn.Module):
             kuf_y=self.kuf_y, kufkfu_band=self.kufkfu_band, yty=self.yty, n=self.n
         )
 
-    # ---- parameters -------------------------------------------------------
-    def init_params(self) -> dict:
-        """The initial parameters in the JAX package's layout (numpy)."""
-        return default_params(self.kernel_init, self.noise_variance_init)
-
-    def load_jax_params(self, params) -> None:
-        """Set the parameters from the JAX package's params pytree
-        ``{"kernel": {"raw_variance", "raw_lengthscales"},
-        "likelihood": {"raw_variance"}}`` given as numpy arrays."""
-        pairs = (
-            (self.raw_variance, params["kernel"]["raw_variance"]),
-            (self.raw_lengthscales, params["kernel"]["raw_lengthscales"]),
-            (self.raw_noise_variance, params["likelihood"]["raw_variance"]),
-        )
-        with torch.no_grad():
-            for p, value in pairs:
-                v = torch.as_tensor(np.array(value, dtype=np.float64))
-                if v.numel() != p.numel():
-                    raise ValueError(f"parameter of {p.numel()} values given {v.numel()}")
-                p.copy_(v.reshape(p.shape))
-
-    def _build(self):
-        kernel = Matern(
-            positive(self.raw_variance), positive(self.raw_lengthscales), nu2=self.nu2
-        )
-        return kernel, Gaussian(positive(self.raw_noise_variance))
-
     # ---- training objective ------------------------------------------------
-    def elbo(self) -> torch.Tensor:
-        kernel, lik = self._build()
+    def elbo(self, params=None) -> torch.Tensor:
+        """The collapsed ELBO at ``params`` (default: the module's own
+        parameters); differentiable on the CPU and on the GPU."""
+        kernel, lik = self._build(params)
         kdiag_sum = self.n * kernel.variance  # Σ K_diag for Matérn
         return collapsed_elbo_matern(
             self.stats, self.basis, self.nu2,
             kernel.variance, kernel.lengthscales, lik.variance, kdiag_sum,
         )
 
-    def training_loss(self) -> torch.Tensor:
-        return -self.elbo()
+    def training_loss(self, params=None) -> torch.Tensor:
+        return -self.elbo(params)
 
     # ---- prediction ---------------------------------------------------------
     @torch.no_grad()

@@ -1,13 +1,19 @@
 """Matérn kernels (1/2, 3/2, 5/2).
 
 PyTorch counterpart of ``asvgp_tpu/models/kernels.py``: ``variance`` and
-``lengthscales`` as float64 tensors, and the ``name`` tag that selects the
-RKHS-norm formula in features/spline_features.py.
+``lengthscales`` as float64 tensors, ``K``/``K_diag`` for the dense oracles
+(the exact GP), and the ``name`` tag that selects the RKHS-norm formula in
+features/spline_features.py.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+_SQRT3 = math.sqrt(3.0)
+_SQRT5 = math.sqrt(5.0)
 
 
 class Matern:
@@ -26,6 +32,26 @@ class Matern:
     @property
     def name(self) -> str:
         return {1: "matern12", 3: "matern32", 5: "matern52"}[self.nu2]
+
+    def _points(self, X) -> torch.Tensor:
+        return torch.as_tensor(X, dtype=torch.float64, device=self.variance.device).reshape(-1)
+
+    def K_diag(self, X) -> torch.Tensor:
+        n = self._points(X).shape[0]
+        return self.variance * torch.ones(n, dtype=self.variance.dtype, device=self.variance.device)
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        """Dense (n, n2) covariance on the device of the hyperparameters."""
+        x = self._points(X)[:, None]
+        x2 = x if X2 is None else self._points(X2)[:, None]
+        r = torch.abs(x - x2.T) / self.lengthscales
+        if self.nu2 == 1:
+            return self.variance * torch.exp(-r)
+        if self.nu2 == 3:
+            s = _SQRT3 * r
+            return self.variance * (1.0 + s) * torch.exp(-s)
+        s = _SQRT5 * r
+        return self.variance * (1.0 + s + s * s / 3.0) * torch.exp(-s)
 
 
 def Matern12(variance=1.0, lengthscales=1.0):

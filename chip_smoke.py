@@ -1,21 +1,33 @@
 """Smoke run of the PyTorch/CUDA port (asvgp_tpu_torch) on one NVIDIA GPU.
 
-Drives the GPR1D serving path at the north-star shape — N = 10⁶ points from
-bench.py's generator, m = 10⁴ B3-spline features on [0, 1], Matérn-3/2 —
-through the port's public entry points, on the card:
+Drives the GPR1D serving and training paths at the north-star shape —
+N = 10⁶ points from bench.py's generator, m = 10⁴ B3-spline features on
+[0, 1], Matérn-3/2 — through the port's public entry points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
-  1. build: compiles the CUDA sweeps (csrc/banded_core.cu) with nvcc
-  2. kernel parity: K1 + K2 against their plain PyTorch versions, for
-     k = 1..6 on random SPD bands, and at the main path's shapes on its
-     real Kuu and P
-  3. main path: GPR1D on the card → training_loss (held to the CPU-float64
-     value of the JAX package) → posterior → predict_f on 10⁵ held-out
-     points in batches → NLPD; predictions held against a posterior built
-     by the plain versions on a CPU copy
-  4. proof of path: the kernels' launch counters rose in phase 3 and no
-     plain version ran on a CUDA tensor
-  5. times on the card (CUDA events, median of REPS)
+  1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc; registers and
+     spills of every kernel
+  2. kernel parity: K1 + K2, K3 + K4 and K5 + K6 against their plain
+     PyTorch versions, for k = 1..6 on random SPD bands (with a random
+     symmetric tangent band), and at the main path's shapes on its real
+     Kuu, T = ∂Kuu/∂ℓ, P and Kuf·y
+  3. serving path: GPR1D on the card → training_loss (held to the
+     CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
+     held-out points in batches → NLPD; predictions held against a
+     posterior built by the plain versions on a CPU copy
+  4. proof of the serving path: K1 and K2 launched, no plain version ran on
+     a CUDA tensor
+  5. training path: training_loss().backward() on the twisted route and on
+     the single-ended one (gradients held to the JAX package's CPU-float64
+     values), fit_lbfgs for 10 iterations at the north star, the Snelson
+     fit of GPR1D and of the exact GP
+  6. proof of the training path: each step and fit runs on fresh counters
+     and launches exactly its route's kernels (K5 + K6 on the twisted
+     route, K3 + K4 on the single-ended one, once per evaluation) and no
+     plain version on a CUDA tensor
+  7. times on the card (CUDA events, median of REPS; each plain version
+     once after a warm-up; each fit REPS times on the host clock) and each
+     kernel's bound
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -29,8 +41,10 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,10 +57,25 @@ TEST_SEED = 1
 PREDICT_BATCH = 30_000  # 10⁵ points in 4 chunks: the last one is padded
 PARITY_M = 1000
 REPS = 5
+SNELSON_DIR = Path(__file__).resolve().parent / "data" / "snelson"
 
-# training_loss at bench.py's shape and init params, computed on a CPU in
-# float64 through the JAX package's lax.scan recursions
+# training_loss at bench.py's shape and init params, and its gradient in the
+# raw parameters, computed on a CPU in float64 through the JAX package's
+# lax.scan recursions
 ANCHOR_LOSS = 233371.85202107206
+ANCHOR_GRAD = {
+    "raw_lengthscales": 6194.71248362058,
+    "raw_variance": -1666.3533805085608,
+    "raw_noise_variance": 47919.1679342376,
+}
+# the JAX package's fit_lbfgs on a CPU in float64: at bench.py's shape,
+# max_iters=10, curv_rtol=10.0 (10 iterations, 13 evaluations); on Snelson
+# (B3 on [-3.5, 10.5], m = 100) with the defaults (50 iterations, 58
+# evaluations); the exact GP on Snelson with the defaults
+ANCHOR_FIT_LOSS = 230282.0107765328
+ANCHOR_FIT_ITERS = 10
+ANCHOR_SNELSON_LOSS = 60.8356177971898
+ANCHOR_EXACT_LOSS = 60.5739888147678
 # max |kernel - plain| / max |plain| over every output: random diagonally
 # dominant bands are well conditioned, so the two summation orders agree to
 # a few ulps of float64
@@ -56,12 +85,34 @@ TOL_PARITY = 1e-11
 TOL_PARITY_MAIN = 1e-8
 TOL_LOSS = 1e-7      # relative, against ANCHOR_LOSS
 TOL_PREDICT = 1e-9   # max |card - cpu| / max |cpu|, mean and variance
+TOL_GRAD = 1e-8      # relative, each component against ANCHOR_GRAD
+TOL_ROUTES = 1e-9    # relative, twisted vs single-ended loss and gradient
+TOL_FIT = 1e-8       # relative, fitted losses against the JAX package's
 
-CU_SOURCE = "asvgp_tpu_torch/csrc/banded_core.cu"
-REPLACES = {
-    "chol_pair_solve": "asvgp_tpu/banded/pallas_ds_core.py:74",
-    "tak_pair_solve": "asvgp_tpu/banded/pallas_ds_core.py:152",
+# H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor-core) peak; the
+# sweeps' arithmetic is scalar FP64 fma
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP64_PER_S = 34e12
+
+KERNELS = {
+    # name: (source, TPU kernel it replaces)
+    "chol_pair_solve": ("asvgp_tpu_torch/csrc/banded_core.cu",
+                        "asvgp_tpu/banded/pallas_ds_core.py:74"),
+    "tak_pair_solve": ("asvgp_tpu_torch/csrc/banded_core.cu",
+                       "asvgp_tpu/banded/pallas_ds_core.py:152"),
+    "chol_pair_solve_tan": ("asvgp_tpu_torch/csrc/banded_tan.cu",
+                            "asvgp_tpu/banded/pallas_ds_tan.py:82"),
+    "tak_pair_solve_tan": ("asvgp_tpu_torch/csrc/banded_tan.cu",
+                           "asvgp_tpu/banded/pallas_ds_tan.py:211"),
+    "chol_quad_solve_tan": ("asvgp_tpu_torch/csrc/banded_tan.cu",
+                            "asvgp_tpu/banded/pallas_ds_twist.py:165"),
+    "tak_quad_solve_tan": ("asvgp_tpu_torch/csrc/banded_tan.cu",
+                           "asvgp_tpu/banded/pallas_ds_twist.py:315"),
 }
+SERVING_KERNELS = ("chol_pair_solve", "tak_pair_solve")
+TRAINING_KERNELS = ("chol_pair_solve_tan", "tak_pair_solve_tan",
+                    "chol_quad_solve_tan", "tak_quad_solve_tan")
+PARAM_NAMES = ("raw_lengthscales", "raw_variance", "raw_noise_variance")
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,6 +136,14 @@ def spd_band(k: int, m: int, rng) -> np.ndarray:
     return a
 
 
+def sym_band(k: int, m: int, rng) -> np.ndarray:
+    """Random symmetric lower band (k+1, m), right-padded: a tangent."""
+    a = 0.1 * rng.randn(k + 1, m)
+    for j in range(1, k + 1):
+        a[j, m - j:] = 0.0
+    return a
+
+
 def rel_err(got, ref) -> float:
     ref = ref.detach().to("cpu")
     got = got.detach().to("cpu")
@@ -93,6 +152,10 @@ def rel_err(got, ref) -> float:
 
 def abs_err(got, ref) -> float:
     return float(torch.max(torch.abs(got.detach().cpu() - ref.detach().cpu())))
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
 
 
 def cuda_ms(fn, reps: int = REPS) -> dict:
@@ -123,45 +186,71 @@ def make_model(x, y, m: int, device):
 
 
 def model_bands(model):
-    """The main path's (Kuu, P, Kuf·y) at the model's init params."""
+    """The main path's (Kuu, T = ∂Kuu/∂ℓ, P, Kuf·y) at the model's params."""
     from asvgp_tpu_torch.features.spline_features import make_kuu
+    from asvgp_tpu_torch.models import Matern
 
     with torch.no_grad():
         kernel, lik = model._build()
-        kuu = make_kuu(kernel, model.basis)
+        var, ell = kernel.variance, kernel.lengthscales
+        kuu, tan = torch.func.jvp(
+            lambda l: make_kuu(Matern(var, l, nu2=model.nu2), model.basis),
+            (ell,), (torch.ones_like(ell),),
+        )
         p_band = model.kufkfu_band / lik.variance + kuu
-    return kuu, p_band, model.kuf_y
+    return kuu, tan, p_band, model.kuf_y
 
 
-def kernel_parity(device, m: int, bands) -> dict:
-    """K1 + K2 against their plain versions on CPU copies of the inputs.
+def _errs(name, got, ref) -> dict:
+    return {f"{name}_rel": max(rel_err(g, r) for g, r in zip(got, ref)),
+            f"{name}_abs": max(abs_err(g, r) for g, r in zip(got, ref))}
 
-    ``bands`` = (kuu, p_band, b) on ``device``.  Each kernel is given the
-    same inputs as its plain version; the chain of both is compared on all
-    seven outputs of factor_takahashi_solve."""
-    from asvgp_tpu_torch.banded import core
 
-    kuu, p_band, b = bands
+def kernel_parity(bands) -> dict:
+    """Each kernel against its plain version on CPU copies of the same
+    inputs, and each chain (K1+K2, K3+K4, K5+mid+K6) against the plain
+    chain.  ``bands`` = (kuu, tan, p_band, b) on the card."""
+    from asvgp_tpu_torch.banded import core, tan, twist
+
+    kuu, tanb, p_band, b = bands
+    dev = kuu.device
     cpu = [t.detach().to("cpu") for t in bands]
+    k, m = kuu.shape[0] - 1, kuu.shape[1]
+    res = {"k": k, "m": m}
+
     k1 = core.chol_pair_solve(kuu, p_band, b)
-    k1_ref = core.chol_pair_solve_plain(*cpu)
+    res |= _errs("chol_pair_solve", k1, core.chol_pair_solve_plain(cpu[0], cpu[2], cpu[3]))
     k2 = core.tak_pair_solve(*k1)
-    k2_ref = core.tak_pair_solve_plain(*[t.to("cpu") for t in k1])
-    chain = core.factor_takahashi_solve(kuu, p_band, b)
-    chain_ref = core.factor_takahashi_solve_plain(*cpu)
-    return {
-        "k": kuu.shape[0] - 1,
-        "m": m,
-        "chol_pair_solve_rel": max(rel_err(g, r) for g, r in zip(k1, k1_ref)),
-        "chol_pair_solve_abs": max(abs_err(g, r) for g, r in zip(k1, k1_ref)),
-        "tak_pair_solve_rel": max(rel_err(g, r) for g, r in zip(k2, k2_ref)),
-        "tak_pair_solve_abs": max(abs_err(g, r) for g, r in zip(k2, k2_ref)),
-        "chain_rel": max(rel_err(g, r) for g, r in zip(chain, chain_ref)),
-    }
+    res |= _errs("tak_pair_solve", k2, core.tak_pair_solve_plain(*[t.cpu() for t in k1]))
+    res["chain_core_rel"] = _errs("c", core.factor_takahashi_solve(kuu, p_band, b),
+                                  core.factor_takahashi_solve_plain(cpu[0], cpu[2], cpu[3]))["c_rel"]
+
+    k3 = tan.chol_pair_solve_tan(*bands)
+    res |= _errs("chol_pair_solve_tan", k3, tan.chol_pair_solve_tan_plain(*cpu))
+    k4 = tan.tak_pair_solve_tan(*k3)
+    res |= _errs("tak_pair_solve_tan", k4, tan.tak_pair_solve_tan_plain(*[t.cpu() for t in k3]))
+    res["chain_tan_rel"] = _errs("c", tan.factor_takahashi_solve_tan(*bands),
+                                 tan.factor_takahashi_solve_tan_plain(*cpu))["c_rel"]
+
+    k5 = twist.chol_quad_solve_tan(*bands)
+    res |= _errs("chol_quad_solve_tan", k5, twist.chol_quad_solve_tan_plain(*cpu))
+    k5_host = [t.cpu() for t in k5]
+    _, z, x2, _ = twist.mid_step(*cpu, k5_host[0], k5_host[1], k5_host[4])
+    k6 = twist.tak_quad_solve_tan(*k5, z.to(dev), x2.to(dev), m)
+    res |= _errs("tak_quad_solve_tan", k6, twist.tak_quad_solve_tan_plain(*k5_host, z, x2, m))
+    res["chain_twist_rel"] = _errs("c", twist.factor_takahashi_solve_tan_twist(*bands),
+                                   twist.factor_takahashi_solve_tan_twist_plain(*cpu))["c_rel"]
+    return res
 
 
-def main_path(device, x, y, x_test, y_test, m: int, batch: int) -> dict:
-    """Phase 3 and 4: the serving path on ``device`` with fresh counters."""
+def check_parity(res: dict, tol: float, where: str) -> None:
+    worst = max(v for key, v in res.items() if key.endswith("_rel"))
+    if not worst <= tol:
+        raise AssertionError(f"kernel parity {where}: {res}")
+
+
+def serving_path(device, x, y, x_test, y_test, m: int, batch: int) -> dict:
+    """Phases 3 and 4: the serving path on ``device`` with fresh counters."""
     from asvgp_tpu_torch.banded import core
     from asvgp_tpu_torch.stats import compute_stats
     from asvgp_tpu_torch.train import nlpd
@@ -175,8 +264,7 @@ def main_path(device, x, y, x_test, y_test, m: int, batch: int) -> dict:
     post = model.posterior()
     mean, var = post.predict_f(xt, batch=batch)
     score = float(nlpd(post.predict_log_density((xt, yt))))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    torch.cuda.synchronize(device)
     launches = dict(core.LAUNCHES)
     plain_calls = dict(core.PLAIN_CALLS)
 
@@ -223,6 +311,220 @@ def main_path(device, x, y, x_test, y_test, m: int, batch: int) -> dict:
     }
 
 
+def value_and_grad(model) -> tuple[float, dict]:
+    """training_loss() and its gradient by backward(), on a fresh graph."""
+    model.zero_grad(set_to_none=True)
+    loss = model.training_loss()
+    loss.backward()
+    grads = {name: float(getattr(model, name).grad) for name in PARAM_NAMES}
+    return float(loss.detach()), grads
+
+
+def snelson_data():
+    X = np.loadtxt(SNELSON_DIR / "train_inputs").reshape(-1, 1)
+    y = np.loadtxt(SNELSON_DIR / "train_outputs").reshape(-1, 1)
+    return X, y
+
+
+def read_launches(device, route: str, want: dict) -> dict:
+    """The launch counts read just after ``route`` ran on fresh counters.
+    Each kernel must have launched exactly as ``want`` says (one not named
+    there: never), and no plain version may have run on a CUDA tensor."""
+    from asvgp_tpu_torch.banded import core
+
+    torch.cuda.synchronize(device)
+    got = {name: core.LAUNCHES.get(name, 0) for name in KERNELS}
+    expected = {name: want.get(name, 0) for name in KERNELS}
+    if got != expected or core.PLAIN_CALLS.get("cuda", 0) != 0:
+        raise AssertionError(f"{route}: launches {got}, expected {expected}; "
+                             f"plain calls {dict(core.PLAIN_CALLS)}")
+    return got
+
+
+def route_step(device, model, route: str, want: dict):
+    """One value-and-grad step on fresh counters, held to ``want``."""
+    from asvgp_tpu_torch.banded import core
+
+    core.reset_counters()
+    loss, grads = value_and_grad(model)
+    return loss, grads, read_launches(device, route, want)
+
+
+def fit_runs(device, model, route: str, kernels=(), **kwargs) -> dict:
+    """``fit_lbfgs`` REPS + 1 times from the model's parameters, each on
+    fresh counters: each of ``kernels`` must launch once per evaluation and
+    nothing else at all.  The first run is the warm-up; the times (host
+    clock, the fit syncs once per evaluation) are of the other REPS."""
+    from asvgp_tpu_torch.banded import core
+    from asvgp_tpu_torch.train import fit_lbfgs
+
+    start = model.params()
+    runs = []
+    for _ in range(REPS + 1):
+        info = {}
+        core.reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, loss, iters = fit_lbfgs(model.training_loss, start, info=info, **kwargs)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        launches = read_launches(device, route, {name: info["ls_evals"] for name in kernels})
+        runs.append({"params": params, "loss": loss, "iters": iters, "info": info,
+                     "s": seconds, "launches": launches})
+    first = runs[0]
+    ms_per_iter = [r["s"] * 1e3 / r["iters"] for r in runs[1:]]
+    return {
+        "loss": first["loss"], "iters": first["iters"], "info": first["info"],
+        "launches": first["launches"],
+        "params": {a: {b: float(v) for b, v in d.items()} for a, d in first["params"].items()},
+        "losses": [r["loss"] for r in runs], "iter_counts": [r["iters"] for r in runs],
+        "ms_per_iter": float(np.median(ms_per_iter)), "ms_per_iter_all": ms_per_iter,
+    }
+
+
+def training_path(device, x, y, m: int) -> dict:
+    """Phases 5 and 6: the training path on ``device``, each route and fit
+    on fresh counters: value and gradient on the twisted route (K5, K6) and
+    the single-ended one (K3, K4), the north-star fit, the Snelson fits."""
+    from asvgp_tpu_torch.banded import twist_scope
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import GPR1D, ExactGPR, Matern32
+
+    twisted = ("chol_quad_solve_tan", "tak_quad_solve_tan")
+    single = ("chol_pair_solve_tan", "tak_pair_solve_tan")
+    model = make_model(x, y, m, device)
+    loss_tw, grad_tw, launches_tw = route_step(device, model, "twisted step",
+                                               dict.fromkeys(twisted, 1))
+    with twist_scope(False):
+        loss_se, grad_se, launches_se = route_step(device, model, "single-ended step",
+                                                   dict.fromkeys(single, 1))
+    fit = fit_runs(device, model, "north-star fit", twisted, max_iters=10, curv_rtol=10.0)
+
+    X, Y = snelson_data()
+    snelson = GPR1D((X, Y), Matern32(), B3Spline(-3.5, 10.5, 100), device=device)
+    sn_fit = fit_runs(device, snelson, "Snelson fit", twisted)
+    exact = ExactGPR((X, Y), Matern32(), device=device)
+    ex_fit = fit_runs(device, exact, "exact-GP fit")
+    return {
+        "model": model, "snelson_model": snelson,
+        "loss_twist": loss_tw, "grad_twist": grad_tw,
+        "loss_single": loss_se, "grad_single": grad_se,
+        "launches": {"twisted_step": launches_tw, "single_ended_step": launches_se,
+                     "north_star_fit": fit["launches"], "snelson_fit": sn_fit["launches"],
+                     "exact_fit": ex_fit["launches"]},
+        "fit": fit, "snelson_fit": sn_fit, "exact_fit": ex_fit,
+    }
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel<K>: registers, spill bytes' for every entry ptxas compiled."""
+    out, name = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '.*\d([a-z_]+_kernel)ILi(\d)E", line)
+        if hit:
+            name = f"{hit.group(1)}<{hit.group(2)}>"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            out.append(f"{name}: spill {spill.group(1)}/{spill.group(2)} B")
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name and out and out[-1].startswith(name + ":"):
+            out[-1] += f", {regs.group(1)} registers"
+    return out
+
+
+def sweep_ops(name: str, k: int, m: int) -> int:
+    """Floating-point operations (an fma counts 2) of a sweep's useful work,
+    per the column recursions of csrc/*.cu, over all its columns."""
+    chol = k * (k + 1) + 3 + 2 * k          # Cholesky column
+    lsolve = 2 * k + 2                      # lower-solve entry
+    chol_t = 2 * k * (k + 1) + 4 * (k + 1) + 5  # its tangent
+    tak = 2 * k * k + 3 * k + 3             # Takahashi column
+    usolve = 2 * k + 2                      # upper-solve entry
+    tak_t = 4 * k * k + 7 * k + 6           # its tangent
+    per_col = {
+        "chol_pair_solve": 2 * chol + lsolve,
+        "tak_pair_solve": 2 * tak + usolve,
+        "chol_pair_solve_tan": 2 * chol + lsolve + chol_t,
+        "tak_pair_solve_tan": 2 * tak + usolve + tak_t,
+        "chol_quad_solve_tan": 2 * chol + lsolve + chol_t,
+        "tak_quad_solve_tan": 2 * tak + usolve + tak_t,
+    }[name]
+    # the twisted sweeps walk m - k columns in two streams; the k×k middle
+    # block is the mid step's
+    cols = m - k if "quad" in name else m
+    return per_col * cols
+
+
+def bound(name: str, k: int, m: int, tensors) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once at the HBM rate, against the operations at the
+    FP64 peak; the larger one bounds."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ops = sweep_ops(name, k, m)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP64_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def once_ms(fn) -> float:
+    """One call's time (ms) between CUDA events, after one warm-up call:
+    for the plain versions, which take seconds at the main path's shape."""
+    return cuda_ms(fn, reps=1)["median_ms"]
+
+
+def backward_ms(model, reps: int = REPS) -> dict:
+    """The backward alone: a fresh forward before each timed backward."""
+    ts = []
+    for _ in range(reps + 1):
+        model.zero_grad(set_to_none=True)
+        loss = model.training_loss()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss.backward()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    ts = ts[1:]  # the first is the warm-up
+    return {"median_ms": float(np.median(ts)), "ms": ts}
+
+
+def device_profile(fn, reps: int = REPS) -> dict:
+    """Where a step's time goes: its wall time per call (host clock to a
+    synchronize, no profiler), the device time of its kernels and copies
+    per call (torch.profiler), their ratio (the device's busy share), the
+    device operations per call and the six largest by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # the device's own entries (kernels, copies); a host op's entry repeats
+    # the device time of what it launched
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    ops = sum(e.count for e in events) / reps
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms if device_ms > 0 else "not measured",
+        "busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
+        "device_ops": ops,
+        "top": [[e.key[:80], e.self_device_time_total / 1e3 / reps] for e in top],
+    }
+
+
 def main() -> None:
     # ---- phase 0: card check ------------------------------------------------
     if not torch.cuda.is_available():
@@ -230,7 +532,7 @@ def main() -> None:
             "chip_smoke: torch.cuda.is_available() is false; this script runs "
             "only on an NVIDIA GPU"
         )
-    from asvgp_tpu_torch.banded import _build, core
+    from asvgp_tpu_torch.banded import _build, core, tan, twist, twist_scope
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -241,27 +543,24 @@ def main() -> None:
     torch.cuda.set_device(device)
     card = {"name_power": smi, "kind": torch.cuda.get_device_name(0)}
     emit("0_card", **card, torch=torch.__version__, cuda=torch.version.cuda)
+    t_start = time.perf_counter()
 
     # ---- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
     info = _build.build()
     _build.load()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     emit("1_build", seconds=time.perf_counter() - t0, nvcc_seconds=info["seconds"],
-         library=info["path"], ptxas=ptxas)
+         library=info["path"], ptxas=ptxas_summary(info["log"]))
 
     # ---- phase 2: kernel parity --------------------------------------------
     rng = np.random.RandomState(SEED)
     for k in range(1, 7):
-        bands = [spd_band(k, PARITY_M, rng), spd_band(k, PARITY_M, rng),
-                 rng.randn(PARITY_M)]
-        bands = [torch.as_tensor(a, dtype=torch.float64, device=device) for a in bands]
-        res = kernel_parity(device, PARITY_M, bands)
+        host = [spd_band(k, PARITY_M, rng), sym_band(k, PARITY_M, rng),
+                spd_band(k, PARITY_M, rng), rng.randn(PARITY_M)]
+        bands = [torch.as_tensor(a, dtype=torch.float64, device=device) for a in host]
+        res = kernel_parity(bands)
         emit("2_parity_random", **res, tol=TOL_PARITY)
-        if max(res["chain_rel"], res["chol_pair_solve_rel"],
-               res["tak_pair_solve_rel"]) > TOL_PARITY:
-            raise AssertionError(f"kernel parity at k={k}: {res}")
+        check_parity(res, TOL_PARITY, f"at k={k}")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -269,16 +568,14 @@ def main() -> None:
     y_d = torch.as_tensor(y, dtype=torch.float64, device=device)
     parity_model = make_model(x_d, y_d, M, device)
     main_bands = model_bands(parity_model)
-    main_parity = kernel_parity(device, M, main_bands)
+    main_parity = kernel_parity(main_bands)
     emit("2_parity_main_shape", **main_parity, tol=TOL_PARITY_MAIN)
-    if max(main_parity["chain_rel"], main_parity["chol_pair_solve_rel"],
-           main_parity["tak_pair_solve_rel"]) > TOL_PARITY_MAIN:
-        raise AssertionError(f"kernel parity at the main path's shape: {main_parity}")
+    check_parity(main_parity, TOL_PARITY_MAIN, "at the main path's shape")
 
-    # ---- phase 3: main path --------------------------------------------------
-    run = main_path(device, x, y, x_test, y_test, M, PREDICT_BATCH)
+    # ---- phase 3: serving path ---------------------------------------------
+    run = serving_path(device, x, y, x_test, y_test, M, PREDICT_BATCH)
     loss_rel = abs(run["loss"] - ANCHOR_LOSS) / abs(ANCHOR_LOSS)
-    emit("3_main_path", n=N, m=M, n_test=N_TEST, batch=PREDICT_BATCH,
+    emit("3_serving_path", n=N, m=M, n_test=N_TEST, batch=PREDICT_BATCH,
          training_loss=run["loss"], anchor=ANCHOR_LOSS, loss_rel_err=loss_rel,
          nlpd=run["nlpd"], min_var=run["min_var"],
          mean_rel_vs_cpu=run["mean_rel_vs_cpu"], var_rel_vs_cpu=run["var_rel_vs_cpu"],
@@ -291,51 +588,159 @@ def main() -> None:
     if not run["stats_repeatable"]:
         raise AssertionError("a second stats build from the same data gave other bits")
 
-    # ---- phase 4: proof of path -------------------------------------------
-    launches, plain_calls = run["launches"], run["plain_calls"]
-    emit("4_proof_of_path", launches=launches, plain_calls=plain_calls)
+    # ---- phase 4: proof of the serving path --------------------------------
+    launches = {name: run["launches"][name] for name in SERVING_KERNELS}
+    emit("4_proof_of_serving_path", launches=launches, plain_calls=run["plain_calls"])
     if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if plain_calls.get("cuda", 0) != 0:
-        raise AssertionError(f"a plain version ran on a CUDA tensor: {plain_calls}")
+        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    if run["plain_calls"].get("cuda", 0) != 0:
+        raise AssertionError(f"a plain version ran on a CUDA tensor: {run['plain_calls']}")
 
-    # ---- phase 5: times on the card ---------------------------------------
+    # ---- phase 5: training path --------------------------------------------
+    tr = training_path(device, x, y, M)
+    fit, sn_fit, ex_fit = tr["fit"], tr["snelson_fit"], tr["exact_fit"]
+    grad_rel = {n: rel(tr["grad_twist"][n], ANCHOR_GRAD[n]) for n in PARAM_NAMES}
+    route_rel = max([rel(tr["loss_single"], tr["loss_twist"])]
+                    + [rel(tr["grad_single"][n], tr["grad_twist"][n]) for n in PARAM_NAMES])
+    fit_rel = max(rel(v, ANCHOR_FIT_LOSS) for v in fit["losses"])
+    snelson_rel = max(rel(v, ANCHOR_SNELSON_LOSS) for v in sn_fit["losses"])
+    emit("5_training_path", n=N, m=M,
+         loss_twist=tr["loss_twist"], loss_rel_err=rel(tr["loss_twist"], ANCHOR_LOSS),
+         grad_twist=tr["grad_twist"], grad_rel_err=grad_rel,
+         loss_single=tr["loss_single"], grad_single=tr["grad_single"],
+         routes_rel_err=route_rel,
+         fit_loss=fit["loss"], fit_anchor=ANCHOR_FIT_LOSS, fit_rel_err=fit_rel,
+         fit_iters=fit["iter_counts"], fit_info=fit["info"],
+         snelson_loss=sn_fit["loss"], snelson_rel_err=snelson_rel,
+         snelson_iters=sn_fit["iter_counts"], snelson_info=sn_fit["info"],
+         snelson_params=sn_fit["params"],
+         snelson_elbo=-sn_fit["loss"], exact_log_marginal=-ex_fit["loss"],
+         exact_rel_err=rel(ex_fit["loss"], ANCHOR_EXACT_LOSS),
+         exact_iters=ex_fit["iters"])
+    if not rel(tr["loss_twist"], ANCHOR_LOSS) <= TOL_LOSS:
+        raise AssertionError(f"training loss with grad {tr['loss_twist']} vs {ANCHOR_LOSS}")
+    if not max(grad_rel.values()) <= TOL_GRAD:
+        raise AssertionError(f"gradient vs the CPU-float64 anchors: {grad_rel}")
+    if not route_rel <= TOL_ROUTES:
+        raise AssertionError(f"twisted and single-ended routes differ: {route_rel}")
+    if not (fit_rel <= TOL_FIT and set(fit["iter_counts"]) == {ANCHOR_FIT_ITERS}):
+        raise AssertionError(f"north-star fits {fit['losses']} in {fit['iter_counts']} iterations")
+    if not snelson_rel <= TOL_FIT:
+        raise AssertionError(f"Snelson fits {sn_fit['losses']} vs {ANCHOR_SNELSON_LOSS}")
+    if not -sn_fit["loss"] <= -ex_fit["loss"]:
+        raise AssertionError(f"ELBO {-sn_fit['loss']} above exact logZ {-ex_fit['loss']}")
+
+    # ---- phase 6: proof of the training path -------------------------------
+    # each route's counts were read and held exactly in training_path; the
+    # kernels line reports the north star's: K3/K4 from the single-ended
+    # step, K5/K6 from the fit (the default, twisted route)
+    emit("6_proof_of_training_path", launches=tr["launches"])
+    path_launches = {**launches,
+                     **{n: tr["launches"]["single_ended_step"][n] for n in TRAINING_KERNELS[:2]},
+                     **{n: tr["launches"]["north_star_fit"][n] for n in TRAINING_KERNELS[2:]}}
+    if min(path_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {path_launches}")
+
+    # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch.stats import compute_stats
 
     model, post, xt = run["model"], run["posterior"], run["x_test"]
-    kuu, p_band, b = main_bands
-    k1_out = core.chol_pair_solve(kuu, p_band, b)
+    tmodel = tr["model"]
+    kuu, tanb, p_band, b = main_bands
+    k, m = kuu.shape[0] - 1, kuu.shape[1]
+    k1 = core.chol_pair_solve(kuu, p_band, b)
+    k2 = core.tak_pair_solve(*k1)
+    k3 = tan.chol_pair_solve_tan(*main_bands)
+    k4 = tan.tak_pair_solve_tan(*k3)
+    k5 = twist.chol_quad_solve_tan(*main_bands)
+    _, z, x2, _ = twist.mid_step(*main_bands, k5[0], k5[1], k5[4])
+    z, x2 = z.contiguous(), x2.contiguous()
+    k6 = twist.tak_quad_solve_tan(*k5, z, x2, m)
+    io = {  # (inputs, outputs) of each kernel at the main path's shape
+        "chol_pair_solve": ((kuu, p_band, b), k1),
+        "tak_pair_solve": (k1, k2),
+        "chol_pair_solve_tan": (main_bands, k3),
+        "tak_pair_solve_tan": (k3, k4),
+        "chol_quad_solve_tan": (main_bands, k5),
+        "tak_quad_solve_tan": ((*k5, z, x2), k6),
+    }
+    calls = {
+        "chol_pair_solve": (lambda: core.chol_pair_solve(kuu, p_band, b),
+                            lambda: core.chol_pair_solve_plain(kuu, p_band, b)),
+        "tak_pair_solve": (lambda: core.tak_pair_solve(*k1),
+                           lambda: core.tak_pair_solve_plain(*k1)),
+        "chol_pair_solve_tan": (lambda: tan.chol_pair_solve_tan(*main_bands),
+                                lambda: tan.chol_pair_solve_tan_plain(*main_bands)),
+        "tak_pair_solve_tan": (lambda: tan.tak_pair_solve_tan(*k3),
+                               lambda: tan.tak_pair_solve_tan_plain(*k3)),
+        "chol_quad_solve_tan": (lambda: twist.chol_quad_solve_tan(*main_bands),
+                                lambda: twist.chol_quad_solve_tan_plain(*main_bands)),
+        "tak_quad_solve_tan": (lambda: twist.tak_quad_solve_tan(*k5, z, x2, m),
+                               lambda: twist.tak_quad_solve_tan_plain(*k5, z, x2, m)),
+    }
 
     def elbo_value():
         with torch.no_grad():
             model.training_loss()
+
+    def step_single():
+        with twist_scope(False):
+            value_and_grad(tmodel)
 
     times = {
         "stats_build": cuda_ms(lambda: compute_stats(model.basis, x_d, y_d)),
         "elbo_value": cuda_ms(elbo_value),
         "posterior": cuda_ms(model.posterior),
         "predict_1e5": cuda_ms(lambda: post.predict_f(xt, batch=PREDICT_BATCH)),
-        "chol_pair_solve": cuda_ms(lambda: core.chol_pair_solve(kuu, p_band, b)),
-        "tak_pair_solve": cuda_ms(lambda: core.tak_pair_solve(*k1_out)),
         "factor_takahashi_solve": cuda_ms(lambda: core.factor_takahashi_solve(kuu, p_band, b)),
-        "chol_pair_solve_plain": cuda_ms(lambda: core.chol_pair_solve_plain(kuu, p_band, b)),
-        "tak_pair_solve_plain": cuda_ms(lambda: core.tak_pair_solve_plain(*k1_out)),
+        "value_and_grad_twisted": cuda_ms(lambda: value_and_grad(tmodel)),
+        "value_and_grad_single_ended": cuda_ms(step_single),
+        "backward_twisted": backward_ms(tmodel),
+        "mid_step": cuda_ms(lambda: twist.mid_step(*main_bands, k5[0], k5[1], k5[4])),
+        "twisted_sweeps_k5_mid_k6": cuda_ms(
+            lambda: twist.factor_takahashi_solve_tan_twist(*main_bands)),
+        "tan_sweeps_k3_k4": cuda_ms(lambda: tan.factor_takahashi_solve_tan(*main_bands)),
     }
+    for name, (kernel_fn, _) in calls.items():
+        times[name] = cuda_ms(kernel_fn)
     for name, t in times.items():
-        emit("5_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
+        emit("7_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
+    plain_ms = {}
+    for name, (_, plain_fn) in calls.items():
+        plain_ms[name] = once_ms(plain_fn)
+        emit("7_time", what=f"{name}_plain", card=smi, once_ms=plain_ms[name])
+    profiles = {
+        "value_and_grad_twisted": device_profile(lambda: value_and_grad(tmodel)),
+        "value_and_grad_single_ended": device_profile(step_single),
+        "value_and_grad_snelson_m100": device_profile(lambda: value_and_grad(tr["snelson_model"])),
+    }
+    for name, prof in profiles.items():
+        emit("7_profile", what=name, card=smi, **prof)
+    for name, run_fit in (("fit_north_star", fit), ("fit_snelson", sn_fit),
+                          ("fit_exact_snelson", ex_fit)):
+        emit("7_time", what=name, card=smi, median_ms_per_iter=run_fit["ms_per_iter"],
+             ms_per_iter=run_fit["ms_per_iter_all"], evals=run_fit["info"]["ls_evals"],
+             evals_per_iter=run_fit["info"].get("evals_per_iter"))
 
     kernels = []
-    for name in ("chol_pair_solve", "tak_pair_solve"):
+    for name, (source, replaces) in KERNELS.items():
+        ins, outs = io[name]
+        bnd = bound(name, k, m, (*ins, *outs))
+        emit("7_bound", what=name, k=k, m=m, **bnd)
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": CU_SOURCE,
-            "replaces": REPLACES[name],
-            "launches": launches[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": path_launches[name],
             "max_abs_err": main_parity[f"{name}_abs"],
             "ms": times[name]["median_ms"],
-            "plain_ms": times[f"{name}_plain"]["median_ms"],
+            "plain_ms": plain_ms[name],
+            "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"],
+            "library_ms": None,  # no PyTorch call computes a banded sweep
         })
+    emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

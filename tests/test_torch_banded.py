@@ -136,7 +136,8 @@ def test_cpu_tensors_run_the_plain_versions():
     args = [torch.from_numpy(a) for a in (spd_band(2, 20, rng), spd_band(2, 20, rng), rng.randn(20))]
     core.reset_counters()
     core.factor_takahashi_solve(*args)
-    assert core.LAUNCHES == {"chol_pair_solve": 0, "tak_pair_solve": 0}
+    assert set(core.LAUNCHES) >= {"chol_pair_solve", "tak_pair_solve"}
+    assert all(count == 0 for count in core.LAUNCHES.values())
     assert core.PLAIN_CALLS["cpu"] == 2 and core.PLAIN_CALLS["cuda"] == 0
 
 
@@ -205,7 +206,8 @@ def test_cuda_kernels_match_plain(cuda_device, k):
     core.reset_counters()
     got = core.factor_takahashi_solve(*[t.to(cuda_device) for t in host])
     torch.cuda.synchronize()
-    assert core.LAUNCHES == {"chol_pair_solve": 1, "tak_pair_solve": 1}
+    assert core.LAUNCHES["chol_pair_solve"] == 1 and core.LAUNCHES["tak_pair_solve"] == 1
+    assert sum(core.LAUNCHES.values()) == 2
     assert core.PLAIN_CALLS["cuda"] == 0
     want = core.factor_takahashi_solve_plain(*host)
     for g, w in zip(got, want):

@@ -79,7 +79,7 @@ def _assert_serving_matches(model, jmodel, params, Xt, Xd, yd, batch=None):
 @pytest.mark.parametrize("params", [None, raw_params(0.7, 0.8, 0.2)], ids=["init", "fitted-scale"])
 def test_snelson_matches_jax(params):
     X, y, Xt = snelson()
-    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100))
+    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100), device="cpu")
     jmodel = JGPR1D((jnp.asarray(X), jnp.asarray(y)), JMatern32(), JB3Spline(-3.5, 10.5, 100))
     if params is None:
         params = jmodel.init_params()
@@ -92,7 +92,8 @@ def test_bench_generator_matches_jax():
     x, y = bench_data(20_000, 0)
     xt, yt = bench_data(2_000, 1)
     kernel_args = dict(variance=1.0, lengthscales=1e-3)
-    model = GPR1D((x, y), Matern32(**kernel_args), B3Spline(0.0, 1.0, 500), noise_variance=0.1)
+    model = GPR1D((x, y), Matern32(**kernel_args), B3Spline(0.0, 1.0, 500), noise_variance=0.1,
+                  device="cpu")
     jmodel = JGPR1D((jnp.asarray(x), jnp.asarray(y)), JMatern32(**kernel_args),
                     JB3Spline(0.0, 1.0, 500), noise_variance=0.1)
     params = jmodel.init_params()
@@ -102,7 +103,7 @@ def test_bench_generator_matches_jax():
 
 def test_batch_keeps_the_remainder_chunk():
     X, y, Xt = snelson()
-    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100))
+    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100), device="cpu")
     post = model.posterior()
     assert isinstance(post, Posterior1D)
     mean, var = post.predict_f(Xt)
@@ -116,7 +117,7 @@ def test_batch_keeps_the_remainder_chunk():
 
 def test_full_cov_raises():
     X, y, Xt = snelson()
-    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100))
+    model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100), device="cpu")
     with pytest.raises(NotImplementedError):
         model.predict_f(Xt, full_cov=True)
     with pytest.raises(NotImplementedError):
@@ -130,7 +131,7 @@ def test_domain_errors_match_jax(case):
          "length_mismatch": X}[case]
     yy = y[:-1] if case == "length_mismatch" else y
     with pytest.raises(ValueError):
-        GPR1D((X, yy), Matern32(), B3Spline(-3.5, 10.5, 100))
+        GPR1D((X, yy), Matern32(), B3Spline(-3.5, 10.5, 100), device="cpu")
     with pytest.raises(ValueError):
         JGPR1D((jnp.asarray(X), jnp.asarray(yy)), JMatern32(), JB3Spline(-3.5, 10.5, 100))
 
@@ -138,16 +139,17 @@ def test_domain_errors_match_jax(case):
 def test_capability_errors_match_jax():
     X, y, _ = snelson()
     with pytest.raises(ValueError):
-        GPR1D((X, y), Matern52(), B2Spline(-3.5, 10.5, 100))
+        GPR1D((X, y), Matern52(), B2Spline(-3.5, 10.5, 100), device="cpu")
     with pytest.raises(ValueError):
         JGPR1D((jnp.asarray(X), jnp.asarray(y)), JMatern52(), JB2Spline(-3.5, 10.5, 100))
     with pytest.raises(TypeError):
-        GPR1D((X, y), object(), B3Spline(-3.5, 10.5, 100))
+        GPR1D((X, y), object(), B3Spline(-3.5, 10.5, 100), device="cpu")
 
 
 def test_parameters_and_buffers():
     X, y, _ = snelson()
-    model = GPR1D((X, y), Matern32(0.5, 2.0), B3Spline(-3.5, 10.5, 100), noise_variance=0.3)
+    model = GPR1D((X, y), Matern32(0.5, 2.0), B3Spline(-3.5, 10.5, 100), noise_variance=0.3,
+                  device="cpu")
     want = jdefault_params(JMatern32(0.5, 2.0), 0.3)
     got = model.init_params()
     for path in (("kernel", "raw_variance"), ("kernel", "raw_lengthscales"), ("likelihood", "raw_variance")):
@@ -169,11 +171,11 @@ def test_parameters_and_buffers():
 
 
 def test_elbo_is_differentiable_on_cpu():
-    """Gradients are not ported to the GPU yet; on the CPU autograd runs
-    through the plain recursions and agrees with JAX's gradient."""
+    """On the CPU the gradient runs the plain versions of the tangent
+    sweeps with their elementwise backward, and agrees with JAX's."""
     X, y, _ = snelson()
     basis_args = (-3.5, 10.5, 30)
-    model = GPR1D((X, y), Matern32(), B3Spline(*basis_args))
+    model = GPR1D((X, y), Matern32(), B3Spline(*basis_args), device="cpu")
     model.training_loss().backward()
     jmodel = JGPR1D((jnp.asarray(X), jnp.asarray(y)), JMatern32(), JB3Spline(*basis_args))
     g = jax.grad(jmodel.training_loss)(jmodel.init_params())
@@ -187,10 +189,8 @@ def test_gpr1d_on_cuda_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA sweeps have no CPU mode")
     X, y, Xt = snelson()
-    cpu = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100))
+    cpu = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100), device="cpu")
     gpu = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100), device="cuda")
-    with pytest.raises(NotImplementedError):
-        gpu.training_loss()
     core.reset_counters()
     with torch.no_grad():
         assert _rel(gpu.elbo().cpu(), cpu.elbo().numpy()) <= TOL
@@ -198,3 +198,9 @@ def test_gpr1d_on_cuda_matches_cpu():
     cmean, cvar = cpu.predict_f(Xt)
     assert _rel(mean.cpu(), cmean.numpy()) <= TOL and _rel(var.cpu(), cvar.numpy()) <= TOL
     assert core.LAUNCHES["chol_pair_solve"] == 2 and core.PLAIN_CALLS["cuda"] == 0
+    # with grad: the twisted tangent sweeps, no value sweep
+    gpu.training_loss().backward()
+    cpu.training_loss().backward()
+    assert core.LAUNCHES["chol_quad_solve_tan"] == 1 and core.LAUNCHES["chol_pair_solve"] == 2
+    for name, p in gpu.named_parameters():
+        assert _rel(p.grad.cpu(), dict(cpu.named_parameters())[name].grad.numpy()) <= 1e-9, name
