@@ -4,13 +4,13 @@ Actually Sparse Variational Gaussian Processes with B-spline inducing
 features and banded linear algebra, for an NVIDIA Hopper GPU.  It mirrors
 the JAX package's layout:
 
-  banded/    banded linear algebra: plain-PyTorch recursions and the two
-             hand-written CUDA sweeps of the collapsed core (csrc/)
+  banded/    banded linear algebra: plain-PyTorch recursions and the
+             hand-written CUDA sweeps and adjoints (csrc/)
   basis/     B-spline basis engine (orders 1-6) on a uniform mesh
   features/  RKHS Gram (Kuu) assembly + sparse design (Kuf) features
   stats/     sufficient-statistic assembly on the data's device
-  models/    GPR1D, Matérn kernels, Gaussian likelihood
-  train/     metrics (NLPD, MSE)
+  models/    GPR1D, SVGP1D, the exact GP, Matérn kernels, Gaussian likelihood
+  train/     L-BFGS, minibatch Adam, metrics (NLPD, MSE)
 
 Everything is float64.  Tensors on the CPU run the plain versions of the
 kernels; tensors on a CUDA device run the kernels, built with nvcc at first

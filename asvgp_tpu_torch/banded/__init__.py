@@ -5,15 +5,20 @@ Storage conventions as in the JAX package: a *lower band* ``band`` of shape
 ``band[j, i] = M[i + j, i]`` for ``i + j < m``; out-of-range slots are zero
 ("right padding").  Row 0 is the main diagonal.
 
-``ops`` holds the plain-PyTorch recursions and the dispatch of the collapsed
-core; ``core`` the two value sweeps (K1, K2), ``tan`` the tangent-fused
-sweeps (K3, K4) and ``twist`` their two-ended form (K5, K6), as CUDA kernels
-on the GPU; ``twisted`` the float64 oracle of the two-ended factorization.
+``ops`` holds the plain-PyTorch recursions (``*_plain``) and the public ops,
+which run the plain recursion on a CPU tensor and a kernel on a CUDA one;
+``core`` the two value sweeps (K1, K2) and the collapsed core's adjoint
+(K7, K8), ``single`` the single-matrix Cholesky and Takahashi and their
+adjoints (K9–K12), ``tan`` the tangent-fused sweeps (K3, K4) and ``twist``
+their two-ended form (K5, K6), as CUDA kernels on the GPU; ``twisted`` the
+float64 oracle of the two-ended factorization.
 """
 
 from asvgp_tpu_torch.banded.layout import (
     band_to_dense,
     lower_band_to_dense,
+    mask_band,
+    mask_lower_band,
     shift_cols,
     symmetrise_lower_band,
     transpose_lower_band,
@@ -27,6 +32,9 @@ from asvgp_tpu_torch.banded.ops import (
     collapsed_core,
     collapsed_core_matern,
     log_det_from_cholesky,
+    matvec_band,
+    matvec_symmetric_band,
+    product_band_band,
     solve_lower_band,
     solve_upper_band_transpose,
     takahashi_inverse_band,
@@ -39,6 +47,8 @@ from asvgp_tpu_torch.banded.twist import factor_takahashi_solve_tan_twist, twist
 __all__ = [
     "band_to_dense",
     "lower_band_to_dense",
+    "mask_band",
+    "mask_lower_band",
     "shift_cols",
     "symmetrise_lower_band",
     "transpose_lower_band",
@@ -50,6 +60,9 @@ __all__ = [
     "collapsed_core",
     "collapsed_core_matern",
     "log_det_from_cholesky",
+    "matvec_band",
+    "matvec_symmetric_band",
+    "product_band_band",
     "solve_lower_band",
     "solve_upper_band_transpose",
     "takahashi_inverse_band",

@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "banded_core.cu", _PKG / "csrc" / "banded_tan.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("banded_core.cu", "banded_tan.cu", "banded_adjoint.cu"))
 BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,6 +41,10 @@ ENTRY_POINTS = {
     "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 11,
     "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 10,
     "asvgp_tak_quad_solve_tan": (_I, _I, _I) + (_VP,) * 12,
+    "asvgp_chol_fwd": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_chol_bwd": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_tak_fwd": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_tak_bwd": (_I, _I, _I) + (_VP,) * 6,
 }
 
 

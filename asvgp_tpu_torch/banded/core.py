@@ -1,7 +1,7 @@
-"""The banded core of the collapsed ELBO and the posterior: two sweeps.
+"""The banded core of the collapsed ELBO and the posterior, and its adjoint.
 
-PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds_core.py`` (its value
-path).  ``factor_takahashi_solve`` runs
+PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds_core.py``.
+``factor_takahashi_solve`` runs
 
   K1 ``chol_pair_solve`` (forward sweep): banded Cholesky of Kuu and of P,
      the lower solve L_P c₀ = b, and the reciprocal pivots of both;
@@ -15,6 +15,15 @@ it never falls back.  Everything the ELBO value and the posterior need is
 elementwise in the outputs: log|Kuu| and log|P| from the factor diagonals,
 bᵀP⁻¹b = ‖c₀‖², tr(Kuu⁻¹B) = band-Frobenius(S_Kuu, B).
 
+``CollapsedCore`` makes those four scalars differentiable, as
+``collapsed_core_ds`` does: its backward is elementwise in the saved bands
+except for the trace term, which runs
+
+  K7 ``tak_bwd_vec``: the Takahashi adjoint L̄ from (L, S, S̄) and K1's
+     reciprocal pivots (csrc/banded_adjoint.cu ``tak_bwd<K>``);
+  K8 ``chol_bwd_pair``: the Cholesky adjoint K̄uu from (L, L̄), batched and
+     called on one matrix (``chol_bwd<K>``).
+
 ``LAUNCHES`` counts the kernel launches of each wrapper and
 ``PLAIN_CALLS`` the calls of the plain versions by device type, so that a
 run can show which path it took.
@@ -26,8 +35,9 @@ import torch
 
 from asvgp_tpu_torch.banded import _build, ops
 
-# one count per kernel: K1, K2 here; K3, K4 in banded/tan.py; K5, K6 in
-# banded/twist.py
+# one count per kernel: K1, K2, K7, K8 here; K3, K4 in banded/tan.py; K5, K6
+# in banded/twist.py; K9-K12 in banded/single.py.  K7 and K12 share one CUDA
+# kernel, and so do K8 and K10: each wrapper keeps its own count
 LAUNCHES = {
     "chol_pair_solve": 0,
     "tak_pair_solve": 0,
@@ -35,6 +45,12 @@ LAUNCHES = {
     "tak_pair_solve_tan": 0,
     "chol_quad_solve_tan": 0,
     "tak_quad_solve_tan": 0,
+    "tak_bwd_vec": 0,
+    "chol_bwd_pair": 0,
+    "chol_fwd": 0,
+    "chol_bwd": 0,
+    "tak_fwd": 0,
+    "tak_bwd": 0,
 }
 PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 
@@ -80,12 +96,22 @@ def _check_cuda(k: int, tensors) -> None:
             raise ValueError("the CUDA sweeps take contiguous tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the banded sweeps on the GPU are not differentiable themselves: GPR1D "
-            "training differentiates through banded.collapsed_core_matern (tangent "
-            "sweeps with an elementwise backward); the gradient of the generic "
-            "collapsed_core needs the adjoint kernels K7/K8, which are not ported "
-            "yet; evaluate it under torch.no_grad()"
+            "a banded sweep on the GPU is not differentiable by itself: differentiate "
+            "through the autograd Functions that run it (banded.collapsed_core, "
+            "cholesky_band, takahashi_inverse_band, collapsed_core_matern), or call "
+            "it under torch.no_grad()"
         )
+
+
+def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device``, raise on its error code, and count the launch."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    _build.check(lib, rc, counter)
+    LAUNCHES[counter] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +122,9 @@ def _check_cuda(k: int, tensors) -> None:
 def chol_pair_solve_plain(kuu_band, p_band, b):
     """Plain version of K1: (l_kuu, l_p, iv (2, m), c0)."""
     _count_plain(kuu_band)
-    l_kuu, l_p = ops.cholesky_band_pair(kuu_band, p_band)
+    l_kuu, l_p = ops.cholesky_band_plain(kuu_band), ops.cholesky_band_plain(p_band)
     iv = torch.stack([1.0 / l_kuu[0], 1.0 / l_p[0]], dim=0)
-    c0 = ops.solve_lower_band(l_p, b)
+    c0 = ops.solve_lower_band_plain(l_p, b)
     return l_kuu, l_p, iv, c0
 
 
@@ -136,9 +162,9 @@ def tak_pair_solve_plain(l_kuu, l_p, iv, c0):
     """Plain version of K2: (s_kuu, s_p, u).  ``iv`` is implied by the
     factors' diagonals and is not read."""
     _count_plain(l_kuu)
-    s_kuu = ops.takahashi_inverse_band(l_kuu)
-    s_p = ops.takahashi_inverse_band(l_p)
-    u = ops.solve_upper_band_transpose(l_p, c0)
+    s_kuu = ops.takahashi_inverse_band_plain(l_kuu)
+    s_p = ops.takahashi_inverse_band_plain(l_p)
+    u = ops.solve_upper_band_transpose_plain(l_p, c0)
     return s_kuu, s_p, u
 
 
@@ -194,14 +220,124 @@ def factor_takahashi_solve_plain(kuu_band, p_band, b):
     return _assemble(k1, tak_pair_solve_plain(*k1))
 
 
+# ---------------------------------------------------------------------------
+# K7: Takahashi adjoint from K1's reciprocal pivots
+# ---------------------------------------------------------------------------
+
+
+def tak_bwd_vec_plain(l_band, s_band, cot, iv):
+    """Plain version of K7: L̄ from (L, S, S̄, 1/diag L)."""
+    _count_plain(l_band)
+    return ops.takahashi_bwd_plain(l_band, s_band, cot, iv)
+
+
+def tak_bwd_vec(l_band, s_band, cot, iv):
+    """K7 on CUDA tensors, its plain version on CPU tensors.
+
+    L̄ from L, S = its Takahashi band, S̄ and iv = 1/diag(L) (K1's
+    reciprocal pivots): the Takahashi adjoint with no divide.  It shares the
+    CUDA kernel ``tak_bwd<K>`` with K12, which divides instead."""
+    k, m = _check_shapes((l_band, s_band, cot), (iv,))
+    if l_band.device.type == "cpu":
+        return tak_bwd_vec_plain(l_band, s_band, cot, iv)
+    _check_cuda(k, (l_band, s_band, cot, iv))
+    l_bar = torch.empty_like(l_band)
+    _launch("tak_bwd_vec", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
+            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr())
+    return l_bar
+
+
+# ---------------------------------------------------------------------------
+# K8: Cholesky adjoint, batched (the collapsed core calls it on one matrix)
+# ---------------------------------------------------------------------------
+
+
+def chol_bwd_pair_plain(l_band, l_bar):
+    """Plain version of K8: Ā from (L, L̄), per matrix of the batch."""
+    _count_plain(l_band)
+    if l_band.ndim == 2:
+        return ops.cholesky_band_bwd_plain(l_band, l_bar)
+    return torch.stack([ops.cholesky_band_bwd_plain(l, c) for l, c in zip(l_band, l_bar)])
+
+
+def chol_bwd_pair(l_band, l_bar):
+    """K8 on CUDA tensors, its plain version on CPU tensors.
+
+    Ā from L = chol(A) and L̄, for one (k+1, m) band or a batch (n, k+1, m)
+    of them, one chain per matrix.  The JAX package runs two matrices in
+    one pass and feeds the collapsed core's one with a dead second lane;
+    here the batch is one.  It shares the CUDA kernel ``chol_bwd<K>`` with
+    K10."""
+    if l_band.ndim not in (2, 3) or l_band.shape != l_bar.shape:
+        raise ValueError(f"L and L̄ must be one (k+1, m) or (n, k+1, m) shape, got "
+                         f"{tuple(l_band.shape)} and {tuple(l_bar.shape)}")
+    k, m = _check_shapes((l_band, l_bar) if l_band.ndim == 2 else (l_band[0], l_bar[0]), ())
+    if l_band.device.type == "cpu":
+        return chol_bwd_pair_plain(l_band, l_bar)
+    _check_cuda(k, (l_band, l_bar))
+    a_bar = torch.empty_like(l_band)
+    nb = 1 if l_band.ndim == 2 else l_band.shape[0]
+    _launch("chol_bwd_pair", "asvgp_chol_bwd", l_band.device, k, m, nb, l_band.data_ptr(),
+            l_bar.data_ptr(), a_bar.data_ptr())
+    return a_bar
+
+
+# ---------------------------------------------------------------------------
+# the collapsed core: K1 + K2 forward, K7 + K8 backward
+# ---------------------------------------------------------------------------
+
+
+class CollapsedCore(torch.autograd.Function):
+    """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹B)), differentiable in Kuu, P, b
+    and B (banded Kuf·Kufᵀ): ``collapsed_core_ds`` with its ``_cc_fwd`` and
+    ``_cc_bwd``, term by term.
+
+    The forward runs K1 + K2 and keeps (L_Kuu, S_Kuu, S_P, u = P⁻¹b, B,
+    1/diag L_Kuu).  The backward, with w = 2 − δ_{j0}:
+      P̄ = g_ldp·(w∘S_P) − g_quad·(w∘band(uuᵀ)),  b̄ = 2·g_quad·u,
+      B̄ = g_tr·(w∘S_Kuu),
+      K̄uu = K8(L_Kuu, K7(L_Kuu, S_Kuu, g_tr·(w∘B), iv)) + g_ldk·(w∘S_Kuu):
+    the trace term through the Takahashi adjoint (K7) and the Cholesky
+    adjoint (K8), the log-det in closed form.  A missing output cotangent
+    counts as zero.  On CPU tensors the plain versions of all four kernels
+    run, so the CPU exercises the same wiring.
+    """
+
+    @staticmethod
+    def forward(ctx, kuu_band, p_band, b, big_band):
+        l_kuu, l_p, s_kuu, s_p, c0, u, iv_kuu = factor_takahashi_solve(kuu_band, p_band, b)
+        ctx.save_for_backward(l_kuu, s_kuu, s_p, u, big_band, iv_kuu)
+        return (
+            ops.log_det_from_cholesky(l_kuu),
+            ops.log_det_from_cholesky(l_p),
+            torch.sum(torch.square(c0)),
+            ops.band_frobenius(s_kuu, big_band),
+        )
+
+    @staticmethod
+    def backward(ctx, g_ldk, g_ldp, g_quad, g_tr):
+        from asvgp_tpu_torch.banded.tan import band_weights, outer_band
+
+        l_kuu, s_kuu, s_p, u, big_band, iv_kuu = ctx.saved_tensors
+        g_ldk, g_ldp, g_quad, g_tr = (
+            torch.zeros_like(u[0]) if g is None else g for g in (g_ldk, g_ldp, g_quad, g_tr)
+        )
+        k, m = l_kuu.shape[0] - 1, l_kuu.shape[1]
+        w = band_weights(k, m, l_kuu)
+        need_kuu, need_p, need_b, need_big = ctx.needs_input_grad
+        p_bar = g_ldp * (w * s_p) - g_quad * (w * outer_band(u, k)) if need_p else None
+        b_bar = (2.0 * g_quad) * u if need_b else None
+        big_bar = g_tr * (w * s_kuu) if need_big else None
+        kuu_bar = None
+        if need_kuu:
+            l_bar = tak_bwd_vec(l_kuu, s_kuu, g_tr * (w * big_band), iv_kuu)
+            kuu_bar = chol_bwd_pair(l_kuu, l_bar) + g_ldk * (w * s_kuu)
+        return kuu_bar, p_bar, b_bar, big_bar
+
+
 def collapsed_core(kuu_band, p_band, b, big_band):
-    """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹ B)), value only.
+    """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹ B)), differentiable in all four
+    inputs (``CollapsedCore``).
 
     ``big_band`` is B = banded Kuf·Kufᵀ (same lower bandwidth as Kuu)."""
-    l_kuu, l_p, s_kuu, _, c0, _, _ = factor_takahashi_solve(kuu_band, p_band, b)
-    return (
-        ops.log_det_from_cholesky(l_kuu),
-        ops.log_det_from_cholesky(l_p),
-        torch.sum(torch.square(c0)),
-        ops.band_frobenius(s_kuu, big_band),
-    )
+    return CollapsedCore.apply(kuu_band, p_band, b, big_band)

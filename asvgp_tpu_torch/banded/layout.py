@@ -9,6 +9,24 @@ from __future__ import annotations
 import torch
 
 
+def _validity_mask(l: int, u: int, m: int, like: torch.Tensor) -> torch.Tensor:
+    """Mask of in-range band slots for a general (l, u) band of an m×m matrix."""
+    r = torch.arange(l + u + 1, device=like.device)[:, None]
+    i = torch.arange(m, device=like.device)[None, :]
+    row = i + r - u
+    return ((row >= 0) & (row < m)).to(like.dtype)
+
+
+def mask_band(band: torch.Tensor, l: int, u: int) -> torch.Tensor:
+    """Zero the out-of-range slots of a general (l, u) band."""
+    return band * _validity_mask(l, u, band.shape[1], band)
+
+
+def mask_lower_band(band: torch.Tensor) -> torch.Tensor:
+    """Zero the out-of-range (right-padding) slots of a lower band."""
+    return mask_band(band, band.shape[0] - 1, 0)
+
+
 def band_to_dense(band: torch.Tensor, l: int, u: int) -> torch.Tensor:
     """Expand a general (l, u) band of shape (l+u+1, m) to dense (m, m)."""
     m = band.shape[1]

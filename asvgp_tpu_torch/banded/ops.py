@@ -1,28 +1,38 @@
-"""Core banded linear-algebra ops: plain-PyTorch twins of the recursions.
+"""Core banded linear-algebra ops and their plain-PyTorch recursions.
 
-PyTorch counterpart of ``asvgp_tpu/banded/ops.py`` (its float64 ``lax.scan``
-path).  The sequential recursions (Cholesky, triangular solves, Takahashi)
-are Python loops over the m columns carrying a k-column window; each step is
-a few small tensor ops vectorised over the (k+1) window.  They are the plain
-versions that the hand-written GPU sweeps (banded/core.py, tan.py,
-twist.py) are held against, and what runs for tensors on the CPU.  Given a
-direction, the Cholesky and the Takahashi recursions also carry its
-forward tangent, and the Takahashi recursion can start from a seed window
-(the twisted streams).  They build no in-place
-state, so autograd can differentiate them on the CPU.
+PyTorch counterpart of ``asvgp_tpu/banded/ops.py``.  Two layers:
 
-``collapsed_core`` and ``banded_posterior`` route through
-``core.factor_takahashi_solve``: the two GPU sweeps on a CUDA tensor, these
-twins on a CPU tensor.  ``collapsed_core_matern`` dispatches the training
-core: the tangent-fused sweeps of banded/tan.py and banded/twist.py when a
-gradient is needed, ``collapsed_core`` otherwise.
+* The plain recursions, ``*_plain``: Python loops over the m columns
+  carrying a k-column window, each step a few small tensor ops vectorised
+  over the (k+1) window.  The Cholesky (``cholesky_band_plain``), the
+  Takahashi band of the inverse (``takahashi_inverse_band_plain``), the two
+  triangular solves, and the explicit reverse-mode adjoints of the first two
+  (``cholesky_band_bwd_plain``, ``takahashi_bwd_plain``).  Given a
+  direction, the Cholesky and the Takahashi recursions also carry its
+  forward tangent, and the Takahashi recursion can start from a seed window
+  (the twisted streams).  They launch no kernel on any device: they are the
+  plain versions that the hand-written GPU sweeps are held against.  The
+  forward ones build no in-place state, so autograd can differentiate them.
+* The public ops, which dispatch as the JAX package's ``ops`` does: a CPU
+  tensor runs the plain recursion, a CUDA tensor its kernel.
+  ``cholesky_band`` and ``takahashi_inverse_band`` are the differentiable
+  ``single.CholeskyBand`` (K9 forward, K10 backward) and
+  ``single.TakahashiInverseBand`` (K11, K12).  The solves have no kernel
+  yet (K13, K14) and raise on a CUDA tensor.  ``collapsed_core`` is
+  ``core.CollapsedCore`` (K1 + K2, backward K7 + K8) and
+  ``banded_posterior`` runs K1 + K2.  ``collapsed_core_matern`` dispatches
+  the training core: the tangent-fused sweeps of banded/tan.py and
+  banded/twist.py when a gradient is needed, ``collapsed_core`` otherwise.
+
+Band products and matvecs are parallel diagonal convolutions over static
+offsets: plain tensor ops on any device, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
-from asvgp_tpu_torch.banded.layout import shift_cols
+from asvgp_tpu_torch.banded.layout import mask_band, shift_cols
 
 
 def _col_mask(i: int, k: int, m: int, like: torch.Tensor) -> torch.Tensor:
@@ -30,7 +40,7 @@ def _col_mask(i: int, k: int, m: int, like: torch.Tensor) -> torch.Tensor:
     return (i + torch.arange(k + 1, device=like.device) < m).to(like.dtype)
 
 
-def cholesky_band(a_band: torch.Tensor, t_band: torch.Tensor | None = None):
+def cholesky_band_plain(a_band: torch.Tensor, t_band: torch.Tensor | None = None):
     """Banded Cholesky: lower band of L with A = L L^T.
 
     Args:
@@ -87,9 +97,103 @@ def cholesky_band(a_band: torch.Tensor, t_band: torch.Tensor | None = None):
     return (l_band, torch.stack(tcols, dim=1)) if tangent else l_band
 
 
+def cholesky_band_bwd_plain(l_band: torch.Tensor, cot: torch.Tensor) -> torch.Tensor:
+    """Ā from L = chol(A) and L̄: the reverse-mode recursion of
+    ``cholesky_band_plain``, written out (the plain version of K10 and K8).
+
+    Columns i = m−1..0; P carries the adjoint that later columns sent to
+    the k columns before them (P[r] for column i−1−r).  Per column, with
+    l̄ = (cot + P[0])·mask and iv = 1/L[i, i]:
+      ā₀ = ½·iv·(l̄₀ − iv·Σ_{r≥1} l̄_r L[i+r, i]),  ā_r = l̄_r·iv,  s̄ = −ā,
+    and for p = 1..k, with g_p = L[i, i−p] and W_p[r] = L[i−p+r, i−p]:
+      W̄_p[r] += s̄[r−p]·g_p (r ≥ p),  W̄_p[p] += Σ_j s̄_j W_p[p+j].
+    Right-padding slots take no cotangent and get zero, as in the JAX VJP.
+    """
+    k = l_band.shape[0] - 1
+    m = l_band.shape[1]
+    if k == 0:
+        return cot / (2.0 * l_band)
+    w = k + 1
+    dev = l_band.device
+    mask = mask_band(torch.ones_like(l_band), k, 0)
+    # column i-p of L at lpad[:, i + k - p]; zeros before column 0
+    lpad = torch.cat([l_band.new_zeros((w, k)), l_band], dim=1)
+    # flat window W (k, k+1) plus one zero slot: g[p-1] = W[p-1, p],
+    # wsh[p-1, j] = W[p-1, p+j] (0 beyond the band)
+    zero_slot = k * w
+    g_idx = torch.tensor([(p - 1) * w + p for p in range(1, k + 1)], device=dev)
+    wsh_idx = torch.tensor([[(p - 1) * w + p + j if p + j <= k else zero_slot for j in range(w)]
+                            for p in range(1, k + 1)], device=dev).reshape(-1)
+    # sbr[p-1, r] = s̄[r-p] for r >= p, else the zero slot w
+    sb_idx = torch.tensor([[r - p if r >= p else w for r in range(w)]
+                           for p in range(1, k + 1)], device=dev).reshape(-1)
+    at_p = torch.zeros((k, w), dtype=l_band.dtype, device=dev)
+    for p in range(1, k + 1):
+        at_p[p - 1, p] = 1.0
+    zero = l_band.new_zeros(1)
+    P = l_band.new_zeros((k, w))
+    cols = []
+    for i in range(m - 1, -1, -1):
+        lc = l_band[:, i]
+        lb = (cot[:, i] + P[0]) * mask[:, i]
+        iv = 1.0 / lc[0]
+        t1 = lb[1:] @ lc[1:]
+        db = (lb[0] - t1 * iv) * (0.5 * iv)
+        ab = torch.cat([db[None], lb[1:] * iv])
+        cols.append(ab)
+        sb = torch.cat([-ab, zero])
+        W = torch.cat([lpad[:, i: i + k].flip(1).T.reshape(-1), zero])
+        g = W.index_select(0, g_idx)
+        gbar = sb[:w] @ W.index_select(0, wsh_idx).view(k, w).T
+        wbar = sb.index_select(0, sb_idx).view(k, w) * g[:, None] + gbar[:, None] * at_p
+        P = torch.cat([P[1:], l_band.new_zeros((1, w))]) + wbar
+    cols.reverse()
+    return torch.stack(cols, dim=1)
+
+
 def cholesky_band_pair(a_band: torch.Tensor, b_band: torch.Tensor):
-    """Factor two independent banded SPD matrices."""
+    """Factor two independent banded SPD matrices: on a CUDA tensor two K9
+    launches (the JAX package's route off its pair path)."""
     return cholesky_band(a_band), cholesky_band(b_band)
+
+
+def cholesky_band(a_band: torch.Tensor) -> torch.Tensor:
+    """Banded Cholesky, differentiable: the plain recursion on a CPU tensor,
+    K9 (backward K10) on a CUDA tensor (``single.CholeskyBand``)."""
+    from asvgp_tpu_torch.banded import single
+
+    return single.CholeskyBand.apply(a_band)
+
+
+def takahashi_inverse_band(l_band: torch.Tensor) -> torch.Tensor:
+    """Band of A⁻¹ from the banded Cholesky factor L, differentiable: the
+    plain recursion on a CPU tensor, K11 (backward K12) on a CUDA tensor
+    (``single.TakahashiInverseBand``)."""
+    from asvgp_tpu_torch.banded import single
+
+    return single.TakahashiInverseBand.apply(l_band)
+
+
+def _no_kernel_yet(t: torch.Tensor, what: str, kernel: str) -> None:
+    if t.device.type != "cpu":
+        raise NotImplementedError(
+            f"{what} on a {t.device.type} tensor needs the kernel {kernel}, which is not "
+            f"ported yet; the plain recursion runs on CPU tensors only"
+        )
+
+
+def solve_lower_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L x = b: the plain recursion on a CPU tensor; raises on a CUDA
+    tensor (its kernel, K13 ``_solve_lower_ds_kernel``, is not ported)."""
+    _no_kernel_yet(l_band, "solve_lower_band", "K13 (pallas_ds._solve_lower_ds_kernel)")
+    return solve_lower_band_plain(l_band, b)
+
+
+def solve_upper_band_transpose(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve Lᵀ x = b: the plain recursion on a CPU tensor; raises on a CUDA
+    tensor (its kernel, K14 ``_solve_upper_t_ds_kernel``, is not ported)."""
+    _no_kernel_yet(l_band, "solve_upper_band_transpose", "K14 (pallas_ds._solve_upper_t_ds_kernel)")
+    return solve_upper_band_transpose_plain(l_band, b)
 
 
 def log_det_from_cholesky(l_band: torch.Tensor) -> torch.Tensor:
@@ -97,7 +201,7 @@ def log_det_from_cholesky(l_band: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(l_band[0]))
 
 
-def solve_lower_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_lower_band_plain(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve L x = b for banded lower-triangular L (forward substitution).
 
     Args:
@@ -124,7 +228,7 @@ def solve_lower_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x[:, 0] if vec else x
 
 
-def solve_upper_band_transpose(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_upper_band_transpose_plain(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve L^T x = b for banded lower-triangular L (backward substitution)."""
     k = l_band.shape[0] - 1
     vec = b.ndim == 1
@@ -148,9 +252,9 @@ def cholesky_solve_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return solve_upper_band_transpose(l_band, solve_lower_band(l_band, b))
 
 
-def takahashi_inverse_band(l_band: torch.Tensor, ldot_band: torch.Tensor | None = None,
-                           seed: torch.Tensor | None = None,
-                           seed_dot: torch.Tensor | None = None):
+def takahashi_inverse_band_plain(l_band: torch.Tensor, ldot_band: torch.Tensor | None = None,
+                                 seed: torch.Tensor | None = None,
+                                 seed_dot: torch.Tensor | None = None):
     """Band of A^{-1} from the banded Cholesky factor L (Takahashi recursion).
 
     Computes the entries of S = A^{-1} on the band |i - j| <= k exactly
@@ -227,6 +331,60 @@ def takahashi_inverse_band(l_band: torch.Tensor, ldot_band: torch.Tensor | None 
     return s_band, torch.stack(tcols, dim=1)
 
 
+def takahashi_bwd_plain(l_band: torch.Tensor, s_band: torch.Tensor, cot: torch.Tensor,
+                        iv: torch.Tensor | None = None) -> torch.Tensor:
+    """L̄ from L, S = takahashi_inverse_band(L) and S̄: the reverse-mode
+    recursion of ``takahashi_inverse_band_plain``, written out (the plain
+    version of K12 and, given the reciprocal pivots ``iv`` = 1/diag(L), of
+    K7, which then takes d from ``iv`` instead of dividing).
+
+    Columns j = 0..m−1; Q carries the adjoint sent to the S columns
+    j+1..j+k (Q[c] for column j+1+c).  Per column, with c̄ = (cot + Q[0])·mask,
+    d = 1/L[j, j], w_q = L[j+q, j], s_q = S[j+q, j], t_q = −s_q·L[j, j],
+    M[q, p] = S[j+max(p,q), j+min(p,q)] and m₁ = d·c̄₀:
+      d̄ = 2m₁ − c̄₀·Σ w_q s_q − Σ s̄_q t_q,   s̄_q = c̄_q − m₁ w_q,
+      t̄_q = −d s̄_q,  w̄_p = −m₁ s_p + Σ_q t̄_q M[q, p],  L̄[j, j] = −d̄ d²,
+    and Q[min(p,q)−1][|q−p|] += t̄_q w_p.  Right-padding slots of S take no
+    cotangent and those of L̄ come out zero, as in the JAX VJP.
+    """
+    k = l_band.shape[0] - 1
+    m = l_band.shape[1]
+    if k == 0:
+        return -2.0 * cot * (iv ** 3 if iv is not None else 1.0 / l_band ** 3)
+    w = k + 1
+    dev = l_band.device
+    mask = mask_band(torch.ones_like(l_band), k, 0)
+    # S columns j+1..j+k at spad[:, j+1 : j+1+k]; zeros beyond the end
+    spad = torch.cat([s_band, s_band.new_zeros((w, k))], dim=1)
+    # gather of the flat window cs[c*w + r] = S_band[r, j+1+c] into M (k, k),
+    # M[q-1, p-1] = cs[(min(p,q)-1)*w + |q-p|]; its transpose scatters back
+    gather = torch.zeros((k * k, k * w), dtype=l_band.dtype, device=dev)
+    for q in range(1, k + 1):
+        for p in range(1, k + 1):
+            gather[(q - 1) * k + (p - 1), (min(p, q) - 1) * w + abs(q - p)] = 1.0
+    Q = l_band.new_zeros((k, w))
+    cols = []
+    for j in range(m):
+        lc = l_band[:, j]
+        l0 = lc[0]
+        d = iv[j] if iv is not None else 1.0 / l0
+        cb = (cot[:, j] + Q[0]) * mask[:, j]
+        wv = lc[1:]
+        sv = s_band[1:, j]
+        t = -sv * l0
+        m1 = d * cb[0]
+        db = 2.0 * m1 - (wv @ sv) * cb[0]
+        sbar = cb[1:] - m1 * wv
+        db = db - sbar @ t
+        tbar = -d * sbar
+        M = (gather @ spad[:, j + 1: j + 1 + k].T.reshape(-1)).view(k, k)
+        wbar = -m1 * sv + tbar @ M
+        cols.append(torch.cat([(-db * d * d)[None], wbar]))
+        csbar = (torch.outer(tbar, wv).reshape(-1) @ gather).view(k, w)
+        Q = torch.cat([Q[1:], l_band.new_zeros((1, w))]) + csbar
+    return torch.stack(cols, dim=1)
+
+
 def band_frobenius(a_band: torch.Tensor, b_band: torch.Tensor) -> torch.Tensor:
     """trace(A @ B) for symmetric A, B given as lower bands:
     tr(AB) = sum_i a0_i b0_i + 2 sum_{j>=1,i} aj_i bj_i."""
@@ -236,9 +394,48 @@ def band_frobenius(a_band: torch.Tensor, b_band: torch.Tensor) -> torch.Tensor:
     return torch.sum(a[0] * b[0]) + 2.0 * torch.sum(a[1:] * b[1:])
 
 
+def product_band_band(a_band: torch.Tensor, b_band: torch.Tensor, *, a_lower: int,
+                      a_upper: int, b_lower: int, b_upper: int, out_lower: int,
+                      out_upper: int) -> torch.Tensor:
+    """C = A @ B restricted to the output band (out_lower, out_upper), all in
+    general-band storage: a parallel diagonal convolution, no recursion."""
+    m = a_band.shape[1]
+    rows = []
+    for c in range(-out_upper, out_lower + 1):
+        row = a_band.new_zeros(m)
+        for s in range(-b_upper, b_lower + 1):
+            a_off = c - s
+            if not -a_upper <= a_off <= a_lower:
+                continue
+            # C[j + c, j] += A[j + c, j + s] * B[j + s, j]
+            row = row + shift_cols(a_band[a_off + a_upper], s) * b_band[s + b_upper]
+        rows.append(row)
+    return mask_band(torch.stack(rows, dim=0), out_lower, out_upper)
+
+
+def matvec_band(band: torch.Tensor, x: torch.Tensor, *, lower: int, upper: int) -> torch.Tensor:
+    """y = M x for M in general-band storage; x is (m,)."""
+    y = torch.zeros_like(x)
+    for r in range(lower + upper + 1):
+        off = r - upper  # y[i + off] += band[r, i] * x[i]
+        y = y + shift_cols(band[r] * x, -off)
+    return y
+
+
+def matvec_symmetric_band(lower_band: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = M x for symmetric M given as a lower band; x is (m,)."""
+    k = lower_band.shape[0] - 1
+    y = lower_band[0] * x
+    for j in range(1, k + 1):
+        row = lower_band[j]
+        y = y + shift_cols(row * x, -j)  # lower part: y[i+j] += row[i] x[i]
+        y = y + row * shift_cols(x, j)   # upper part: y[i] += row[i] x[i+j]
+    return y
+
+
 def collapsed_core(kuu_band, p_band, b, big_band):
-    """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹ B)), value only, from the two
-    banded sweeps of ``core.factor_takahashi_solve``."""
+    """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹ B)), differentiable in all four
+    inputs: ``core.CollapsedCore`` (K1 + K2, backward K7 + K8)."""
     from asvgp_tpu_torch.banded import core
 
     return core.collapsed_core(kuu_band, p_band, b, big_band)

@@ -1,0 +1,175 @@
+"""Single-matrix banded Cholesky and Takahashi, and their adjoints: K9–K12.
+
+PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds.py`` (its Cholesky and
+Takahashi kernels and their custom VJPs).  Four wrappers:
+
+  K9  ``chol_fwd``: L = chol(A) from the lower band of A;
+  K10 ``chol_bwd``: Ā from (L, L̄), the adjoint of K9;
+  K11 ``tak_fwd``: the band of A⁻¹ from L (the Takahashi recursion);
+  K12 ``tak_bwd``: L̄ from (L, S, S̄), the adjoint of K11, dividing by the
+      pivots itself (K7 in banded/core.py is the same recursion fed with
+      K1's reciprocal pivots);
+
+as hand-written CUDA kernels (csrc/banded_adjoint.cu ``chol_fwd<K>``,
+``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``) on CUDA tensors, and as
+their plain versions on CPU tensors: the recursions of banded/ops.py,
+forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
+raises.  Bandwidth k = 0 is elementwise and runs in torch ops on either
+device, as the JAX wrappers do; the kernels take k = 1..6.
+
+``CholeskyBand`` (K9 forward, K10 backward) and ``TakahashiInverseBand``
+(K11, K12) are the autograd Functions behind ``ops.cholesky_band`` and
+``ops.takahashi_inverse_band``.  As in the JAX VJPs, the cotangent of a
+band treats each stored entry as an independent variable, and the
+right-padding slots get a zero cotangent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from asvgp_tpu_torch.banded import core, ops
+
+LAUNCHES = core.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# K9: Cholesky
+# ---------------------------------------------------------------------------
+
+
+def chol_fwd_plain(a_band):
+    """Plain version of K9."""
+    core._count_plain(a_band)
+    return ops.cholesky_band_plain(a_band)
+
+
+def chol_fwd(a_band):
+    """K9 on CUDA tensors, its plain version on CPU tensors: the lower band
+    of L = chol(A), right-padding slots zeroed."""
+    k, m = core._check_shapes((a_band,), ())
+    if k == 0:
+        return torch.sqrt(a_band)
+    if a_band.device.type == "cpu":
+        return chol_fwd_plain(a_band)
+    core._check_cuda(k, (a_band,))
+    l_band = torch.empty_like(a_band)
+    core._launch("chol_fwd", "asvgp_chol_fwd", a_band.device, k, m, 1,
+                 a_band.data_ptr(), l_band.data_ptr())
+    return l_band
+
+
+# ---------------------------------------------------------------------------
+# K10: Cholesky adjoint
+# ---------------------------------------------------------------------------
+
+
+def chol_bwd_plain(l_band, l_bar):
+    """Plain version of K10: the explicit reverse-mode recursion."""
+    core._count_plain(l_band)
+    return ops.cholesky_band_bwd_plain(l_band, l_bar)
+
+
+def chol_bwd(l_band, l_bar):
+    """K10 on CUDA tensors, its plain version on CPU tensors: Ā from L and
+    L̄ (``pallas_ds._chol_ds_b``)."""
+    k, m = core._check_shapes((l_band, l_bar), ())
+    if k == 0:
+        return l_bar / (2.0 * l_band)
+    if l_band.device.type == "cpu":
+        return chol_bwd_plain(l_band, l_bar)
+    core._check_cuda(k, (l_band, l_bar))
+    a_bar = torch.empty_like(l_band)
+    core._launch("chol_bwd", "asvgp_chol_bwd", l_band.device, k, m, 1,
+                 l_band.data_ptr(), l_bar.data_ptr(), a_bar.data_ptr())
+    return a_bar
+
+
+# ---------------------------------------------------------------------------
+# K11: Takahashi band of the inverse
+# ---------------------------------------------------------------------------
+
+
+def tak_fwd_plain(l_band):
+    """Plain version of K11."""
+    core._count_plain(l_band)
+    return ops.takahashi_inverse_band_plain(l_band)
+
+
+def tak_fwd(l_band):
+    """K11 on CUDA tensors, its plain version on CPU tensors: the band of
+    A⁻¹ from the factor L of A (right padding of L must be zero)."""
+    k, m = core._check_shapes((l_band,), ())
+    if k == 0:
+        return 1.0 / (l_band * l_band)
+    if l_band.device.type == "cpu":
+        return tak_fwd_plain(l_band)
+    core._check_cuda(k, (l_band,))
+    s_band = torch.empty_like(l_band)
+    core._launch("tak_fwd", "asvgp_tak_fwd", l_band.device, k, m, 1,
+                 l_band.data_ptr(), s_band.data_ptr())
+    return s_band
+
+
+# ---------------------------------------------------------------------------
+# K12: Takahashi adjoint
+# ---------------------------------------------------------------------------
+
+
+def tak_bwd_plain(l_band, s_band, s_bar):
+    """Plain version of K12: the explicit reverse-mode recursion."""
+    core._count_plain(l_band)
+    return ops.takahashi_bwd_plain(l_band, s_band, s_bar)
+
+
+def tak_bwd(l_band, s_band, s_bar):
+    """K12 on CUDA tensors, its plain version on CPU tensors: L̄ from L,
+    S = tak_fwd(L) and S̄ (``pallas_ds._tak_ds_b``)."""
+    k, m = core._check_shapes((l_band, s_band, s_bar), ())
+    if k == 0:
+        return -2.0 * s_bar / (l_band ** 3)
+    if l_band.device.type == "cpu":
+        return tak_bwd_plain(l_band, s_band, s_bar)
+    core._check_cuda(k, (l_band, s_band, s_bar))
+    l_bar = torch.empty_like(l_band)
+    core._launch("tak_bwd", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
+                 s_band.data_ptr(), s_bar.data_ptr(), None, l_bar.data_ptr())
+    return l_bar
+
+
+# ---------------------------------------------------------------------------
+# the differentiable ops
+# ---------------------------------------------------------------------------
+
+
+class CholeskyBand(torch.autograd.Function):
+    """Banded Cholesky L = chol(A): K9 forward, K10 backward
+    (``pallas_ds.cholesky_band_ds``)."""
+
+    @staticmethod
+    def forward(ctx, a_band):
+        l_band = chol_fwd(a_band.contiguous())
+        ctx.save_for_backward(l_band)
+        return l_band
+
+    @staticmethod
+    def backward(ctx, l_bar):
+        (l_band,) = ctx.saved_tensors
+        return chol_bwd(l_band, l_bar.contiguous())
+
+
+class TakahashiInverseBand(torch.autograd.Function):
+    """Band of A⁻¹ from L: K11 forward, K12 backward
+    (``pallas_ds.takahashi_inverse_band_ds``)."""
+
+    @staticmethod
+    def forward(ctx, l_band):
+        l_band = l_band.contiguous()
+        s_band = tak_fwd(l_band)
+        ctx.save_for_backward(l_band, s_band)
+        return s_band
+
+    @staticmethod
+    def backward(ctx, s_bar):
+        l_band, s_band = ctx.saved_tensors
+        return tak_bwd(l_band, s_band, s_bar.contiguous())

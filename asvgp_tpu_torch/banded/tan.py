@@ -24,8 +24,8 @@ outputs (w = 2 − δ_{j0} counts the symmetric band twice off the diagonal):
 so ``collapsed_core_matern`` is a ``torch.autograd.Function`` whose backward
 is elementwise: no adjoint sweep runs in a training step.
 
-The tangent recursions are written out in ``ops.cholesky_band`` and
-``ops.takahashi_inverse_band`` (their ``t_band``/``ldot_band`` forms), the
+The tangent recursions are written out in ``ops.cholesky_band_plain`` and
+``ops.takahashi_inverse_band_plain`` (their ``t_band``/``ldot_band`` forms), the
 tangent of a reciprocal pivot is i̇v = −iv²·L̇₀.  K3 and K4 are hand-written
 CUDA kernels (csrc/banded_tan.cu) on CUDA tensors; on CPU tensors their
 plain versions (``*_plain``, composed from those recursions) run.  A CUDA
@@ -49,10 +49,10 @@ LAUNCHES = core.LAUNCHES
 def chol_pair_solve_tan_plain(kuu_band, tan_band, p_band, b):
     """Plain version of K3: (l_kuu, l_p, iv (2, m), c0, ldot_kuu, ivdot_kuu)."""
     core._count_plain(kuu_band)
-    l_kuu, ldot = ops.cholesky_band(kuu_band, tan_band)
-    l_p = ops.cholesky_band(p_band)
+    l_kuu, ldot = ops.cholesky_band_plain(kuu_band, tan_band)
+    l_p = ops.cholesky_band_plain(p_band)
     iv = torch.stack([1.0 / l_kuu[0], 1.0 / l_p[0]], dim=0)
-    c0 = ops.solve_lower_band(l_p, b)
+    c0 = ops.solve_lower_band_plain(l_p, b)
     return l_kuu, l_p, iv, c0, ldot, -iv[0] * iv[0] * ldot[0]
 
 
@@ -93,9 +93,9 @@ def tak_pair_solve_tan_plain(l_kuu, l_p, iv, c0, ldot, ivdot):
     """Plain version of K4: (s_kuu, s_p, u, sdot_kuu).  The reciprocal
     pivots and their tangent are implied by the factors and not read."""
     core._count_plain(l_kuu)
-    s_kuu, sdot = ops.takahashi_inverse_band(l_kuu, ldot)
-    s_p = ops.takahashi_inverse_band(l_p)
-    u = ops.solve_upper_band_transpose(l_p, c0)
+    s_kuu, sdot = ops.takahashi_inverse_band_plain(l_kuu, ldot)
+    s_p = ops.takahashi_inverse_band_plain(l_p)
+    u = ops.solve_upper_band_transpose_plain(l_p, c0)
     return s_kuu, s_p, u, sdot
 
 

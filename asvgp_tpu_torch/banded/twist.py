@@ -93,14 +93,14 @@ def chol_quad_solve_tan_plain(kuu_band, tan_band, p_band, b):
         (g, (flip_band(kuu_band), flip_band(tan_band), flip_band(p_band), b.flip(0))),
     ):
         # the factor of the first n+k columns is untapered on its first n
-        l_k, ld = (t[:, :n] for t in ops.cholesky_band(kb[:, : n + k], tb[:, : n + k]))
-        l_p = ops.cholesky_band(pb[:, : n + k])[:, :n]
+        l_k, ld = (t[:, :n] for t in ops.cholesky_band_plain(kb[:, : n + k], tb[:, : n + k]))
+        l_p = ops.cholesky_band_plain(pb[:, : n + k])[:, :n]
         iv_k, iv_p = 1.0 / l_k[0], 1.0 / l_p[0]
         ls += [_pad(l_k, h), _pad(l_p, h)]
         ldots.append(_pad(ld, h))
         ivs += [_pad(iv_k, h), _pad(iv_p, h)]
         ivdots.append(_pad(-iv_k * iv_k * ld[0], h))
-        ys.append(_pad(ops.solve_lower_band(l_p, bb[:n]), h))
+        ys.append(_pad(ops.solve_lower_band_plain(l_p, bb[:n]), h))
     return (torch.stack(ls), torch.stack(ldots), torch.stack(ivs),
             torch.stack(ivdots), torch.stack(ys))
 
@@ -183,7 +183,7 @@ def tak_quad_solve_tan_plain(l, ldot, iv, ivdot, y, z, x2, m: int):
     h = l.shape[2]
     g = m - h - k
     z_kuu, z_p, zdot = z
-    tak = ops.takahashi_inverse_band
+    tak = ops.takahashi_inverse_band_plain
     sF_k, tF = tak(l[0, :, :h], ldot[0, :, :h], seed=_seed_from_mid(z_kuu),
                    seed_dot=_seed_from_mid(zdot))
     sF_p = tak(l[1, :, :h], seed=_seed_from_mid(z_p))

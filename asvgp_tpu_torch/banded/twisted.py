@@ -91,9 +91,9 @@ def _takahashi_seeded(l_band: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     middle inverse: seed (k, k+1) with seed[p-1, r] = Z[h-1+p+r, h-1+p]
     (entries with p+r > k are never read; pass zeros).  No end-of-matrix
     masking: columns near h spill into the middle rows."""
-    from asvgp_tpu_torch.banded.ops import takahashi_inverse_band
+    from asvgp_tpu_torch.banded.ops import takahashi_inverse_band_plain
 
-    return takahashi_inverse_band(l_band, seed=seed)
+    return takahashi_inverse_band_plain(l_band, seed=seed)
 
 
 def _seed_from_mid(z_mid: torch.Tensor) -> torch.Tensor:
@@ -119,7 +119,7 @@ def twisted_pieces(band: torch.Tensor, h: int):
     factor over columns 0..h+k-1, the same for the reversed matrix (g+k
     columns), the k×k dense middle Schur complement and the flipped band.
     """
-    from asvgp_tpu_torch.banded.ops import cholesky_band
+    from asvgp_tpu_torch.banded.ops import cholesky_band_plain
 
     k = band.shape[0] - 1
     m = band.shape[1]
@@ -127,8 +127,8 @@ def twisted_pieces(band: torch.Tensor, h: int):
     if not (k >= 1 and h >= k and g >= k):
         raise ValueError(f"twisted split needs h,g >= k >= 1; got m={m}, k={k}, h={h}, g={g}")
     fb = flip_band(band)
-    l_left = cholesky_band(band[:, : h + k])
-    l_right = cholesky_band(fb[:, : g + k])
+    l_left = cholesky_band_plain(band[:, : h + k])
+    l_right = cholesky_band_plain(fb[:, : g + k])
     l21_f = _lower_tail_dense(l_left[:, h - k: h])
     l21_r = _lower_tail_dense(l_right[:, g - k: g])
     c_f = l21_f @ l21_f.T
@@ -180,7 +180,7 @@ def _assemble_band(zl, zr, z_mid, m):
 
 def twisted_solve_core(band: torch.Tensor, b: torch.Tensor, h: int | None = None):
     """(log|A|, bᵀA⁻¹b, A⁻¹b, band of A⁻¹) in twisted form.  Exact."""
-    from asvgp_tpu_torch.banded.ops import solve_lower_band
+    from asvgp_tpu_torch.banded.ops import solve_lower_band_plain
 
     k = band.shape[0] - 1
     m = band.shape[1]
@@ -192,8 +192,8 @@ def twisted_solve_core(band: torch.Tensor, b: torch.Tensor, h: int | None = None
     l21_r = _lower_tail_dense(l_right[:, g - k: g])
 
     bf = b.flip(0)
-    y1 = solve_lower_band(l_left[:, :h], b[:h])
-    y3 = solve_lower_band(l_right[:, :g], bf[:g])
+    y1 = solve_lower_band_plain(l_left[:, :h], b[:h])
+    y3 = solve_lower_band_plain(l_right[:, :g], bf[:g])
     b2c = b[h: h + k] - l21_f @ y1[h - k:] - (l21_r @ y3[g - k:]).flip(0)
 
     ld_mid, z_mid, m_chol = _mid_inverse(s_mid)

@@ -231,7 +231,7 @@ class MaternGaussianModel(nn.Module):
         """Set the parameters from a params pytree in the JAX package's
         layout, of tensors (any device) or numpy arrays."""
         with torch.no_grad():
-            for p, value in zip(self._raw(None), self._raw(params)):
+            for p, value in zip(self._tensors(None), self._tensors(params)):
                 if isinstance(value, torch.Tensor):
                     v = value.detach()
                 else:
@@ -247,6 +247,11 @@ class MaternGaussianModel(nn.Module):
             return self.raw_variance, self.raw_lengthscales, self.raw_noise_variance
         return (params["kernel"]["raw_variance"], params["kernel"]["raw_lengthscales"],
                 params["likelihood"]["raw_variance"])
+
+    def _tensors(self, params):
+        """Every parameter of ``params`` (None: the module's own), in the
+        order ``load_jax_params`` pairs them."""
+        return self._raw(params)
 
     def _build(self, params=None):
         raw_var, raw_ell, raw_noise = self._raw(params)

@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (asvgp_tpu_torch) on one NVIDIA GPU.
 
-Drives the GPR1D serving and training paths at the north-star shape —
-N = 10⁶ points from bench.py's generator, m = 10⁴ B3-spline features on
-[0, 1], Matérn-3/2 — through the port's public entry points, on the card:
+Drives the GPR1D serving and training paths, minibatch Adam and SVGP1D at
+the north-star shape — N = 10⁶ points from bench.py's generator, m = 10⁴
+B3-spline features on [0, 1], Matérn-3/2 — through the port's public entry
+points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
   1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc; registers and
@@ -10,7 +11,8 @@ N = 10⁶ points from bench.py's generator, m = 10⁴ B3-spline features on
   2. kernel parity: K1 + K2, K3 + K4 and K5 + K6 against their plain
      PyTorch versions, for k = 1..6 on random SPD bands (with a random
      symmetric tangent band), and at the main path's shapes on its real
-     Kuu, T = ∂Kuu/∂ℓ, P and Kuf·y
+     Kuu, T = ∂Kuu/∂ℓ, P and Kuf·y; K7–K12 for k = 1..6 on random SPD
+     bands and cotangents
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -25,9 +27,24 @@ N = 10⁶ points from bench.py's generator, m = 10⁴ B3-spline features on
      and launches exactly its route's kernels (K5 + K6 on the twisted
      route, K3 + K4 on the single-ended one, once per evaluation) and no
      plain version on a CUDA tensor
+  6a. minibatch Adam (fit_adam_minibatch) at the north star: batch 4096,
+     learning rate 1e-2, 20 steps on a fixed index stream; the step-1 loss
+     and gradient and the step-20 loss and parameters held to the JAX
+     package's CPU-float64 run of the same loop on the same indices
+  6b. its proof: a step launches K1, K2, K7, K8 once each, the fit 20 times
+     each, nothing else, and no plain version on a CUDA tensor
+  6c. SVGP1D (fit_svgp) at the same data and width: batch 100, learning rate
+     1e-3, 20 steps from init_params() with the C* seeding; losses at steps
+     1 and 20 held to the JAX package's CPU-float64 values; predict_f and
+     NLPD on the held-out points against the plain versions on a CPU copy
+  6d. its proof: the seeding launches K9 once, a step K9 ×4, K10 ×4, K11 ×3,
+     K12 ×3, a prediction K9 ×2, K11 ×2, nothing else
+  6e. K7–K12 against their plain versions at the main path's shapes, on the
+     inputs the paths gave them (the north-star Kuu, the Λ of the seeded
+     SVGP, the actual cotangents of CollapsedCore and of the SVGP step)
   7. times on the card (CUDA events, median of REPS; each plain version
-     once after a warm-up; each fit REPS times on the host clock) and each
-     kernel's bound
+     once after a warm-up, with no kernel launched by any of them; each fit
+     REPS times on the host clock) and each kernel's bound
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -88,6 +105,36 @@ TOL_PREDICT = 1e-9   # max |card - cpu| / max |cpu|, mean and variance
 TOL_GRAD = 1e-8      # relative, each component against ANCHOR_GRAD
 TOL_ROUTES = 1e-9    # relative, twisted vs single-ended loss and gradient
 TOL_FIT = 1e-8       # relative, fitted losses against the JAX package's
+# the new kernels (K7-K12) against their plain versions at m = PARITY_M on
+# random bands: relative to the largest value of each output
+TOL_PARITY_ADJOINT = 1e-13
+
+# minibatch Adam at the north star (experiments/large_regression/
+# synthetic_1m.py's --batch, the JAX package's default learning rate) and
+# the SVGP baseline (synthetic_1m.py's --svgp-batch, the reference's Adam
+# default), each on indices drawn with numpy from its own seed
+ADAM_STEPS, ADAM_BATCH, ADAM_LR, ADAM_INDEX_SEED = 20, 4096, 1e-2, 2
+SVGP_STEPS, SVGP_BATCH, SVGP_LR, SVGP_INDEX_SEED = 20, 100, 1e-3, 3
+# the same loops run by the JAX package on a CPU in float64 (lax.scan
+# recursions, optax.adam) on the same indices: the step-1 loss and its
+# gradient, the step-20 loss and the final parameters
+ANCHOR_ADAM_LOSS_1 = -132856.28487561457
+ANCHOR_ADAM_GRAD_1 = {
+    "raw_lengthscales": 72862.16893929032,
+    "raw_variance": -16027.979633740617,
+    "raw_noise_variance": 414226.92808208877,
+}
+ANCHOR_ADAM_LOSS_20 = -230279.5564658884
+ANCHOR_ADAM_PARAMS = {
+    "raw_lengthscales": -7.105764511649853,
+    "raw_variance": 0.7391621332951891,
+    "raw_noise_variance": -2.452380962579647,
+}
+ANCHOR_SVGP_LOSS_1 = 3739292.7939086454
+ANCHOR_SVGP_LOSS_20 = 4151146.415940038
+TOL_ADAM_LOSS = 1e-9   # relative, step-1 and step-20 losses
+TOL_ADAM_GRAD = 1e-8   # relative, each step-1 gradient component and final parameter
+TOL_SVGP_LOSS = 1e-9   # relative, step-1 and step-20 losses
 
 # H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor-core) peak; the
 # sweeps' arithmetic is scalar FP64 fma
@@ -108,10 +155,28 @@ KERNELS = {
                             "asvgp_tpu/banded/pallas_ds_twist.py:165"),
     "tak_quad_solve_tan": ("asvgp_tpu_torch/csrc/banded_tan.cu",
                            "asvgp_tpu/banded/pallas_ds_twist.py:315"),
+    "tak_bwd_vec": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                    "asvgp_tpu/banded/pallas_ds_core.py:270"),
+    "chol_bwd_pair": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                      "asvgp_tpu/banded/pallas_ds_pair.py:152"),
+    "chol_fwd": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                 "asvgp_tpu/banded/pallas_ds.py:63"),
+    "chol_bwd": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                 "asvgp_tpu/banded/pallas_ds.py:127"),
+    "tak_fwd": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                "asvgp_tpu/banded/pallas_ds.py:237"),
+    "tak_bwd": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                "asvgp_tpu/banded/pallas_ds.py:435"),
 }
 SERVING_KERNELS = ("chol_pair_solve", "tak_pair_solve")
 TRAINING_KERNELS = ("chol_pair_solve_tan", "tak_pair_solve_tan",
                     "chol_quad_solve_tan", "tak_quad_solve_tan")
+ADAM_KERNELS = ("chol_pair_solve", "tak_pair_solve", "tak_bwd_vec", "chol_bwd_pair")
+# launches of one SVGP step (elbo calls kl, which factors again), of the C*
+# seeding and of one prediction
+SVGP_STEP = {"chol_fwd": 4, "chol_bwd": 4, "tak_fwd": 3, "tak_bwd": 3}
+SVGP_SEED = {"chol_fwd": 1}
+SVGP_PREDICT = {"chol_fwd": 2, "tak_fwd": 2}
 PARAM_NAMES = ("raw_lengthscales", "raw_variance", "raw_noise_variance")
 
 
@@ -247,6 +312,229 @@ def check_parity(res: dict, tol: float, where: str) -> None:
     worst = max(v for key, v in res.items() if key.endswith("_rel"))
     if not worst <= tol:
         raise AssertionError(f"kernel parity {where}: {res}")
+
+
+def adjoint_calls():
+    """(kernel, plain version) of K7-K12, each taking the same arguments."""
+    from asvgp_tpu_torch.banded import core, single
+
+    return {
+        "tak_bwd_vec": (core.tak_bwd_vec, core.tak_bwd_vec_plain),
+        "chol_bwd_pair": (core.chol_bwd_pair, core.chol_bwd_pair_plain),
+        "chol_fwd": (single.chol_fwd, single.chol_fwd_plain),
+        "chol_bwd": (single.chol_bwd, single.chol_bwd_plain),
+        "tak_fwd": (single.tak_fwd, single.tak_fwd_plain),
+        "tak_bwd": (single.tak_bwd, single.tak_bwd_plain),
+    }
+
+
+def adjoint_parity(calls: dict) -> dict:
+    """Each of K7-K12 on the card against its plain version on CPU copies of
+    the same inputs; ``calls`` maps a kernel's name to the argument lists
+    (tensors on the card) to hold it on."""
+    res = {}
+    for name, arg_lists in calls.items():
+        kernel, plain = adjoint_calls()[name]
+        errs = [_errs(name, (kernel(*args),), (plain(*[t.cpu() for t in args]),))
+                for args in arg_lists]
+        res[f"{name}_rel"] = max(e[f"{name}_rel"] for e in errs)
+        res[f"{name}_abs"] = max(e[f"{name}_abs"] for e in errs)
+    return res
+
+
+def random_adjoint_inputs(k: int, m: int, rng, device) -> dict:
+    """K7-K12's arguments at a random SPD band A = L Lᵀ, S its Takahashi
+    band, and random cotangents."""
+    from asvgp_tpu_torch.banded import ops
+
+    a = torch.as_tensor(spd_band(k, m, rng), dtype=torch.float64)
+    l = ops.cholesky_band_plain(a)
+    s = ops.takahashi_inverse_band_plain(l)
+    l_bar, s_bar = (torch.as_tensor(rng.randn(k + 1, m)) for _ in range(2))
+    a, l, s, l_bar, s_bar = (t.to(device) for t in (a, l, s, l_bar, s_bar))
+    iv = (1.0 / l[0]).contiguous()
+    return {"tak_bwd_vec": [(l, s, s_bar, iv)], "chol_bwd_pair": [(l, l_bar)],
+            "chol_fwd": [(a,)], "chol_bwd": [(l, l_bar)], "tak_fwd": [(l,)],
+            "tak_bwd": [(l, s, s_bar)]}
+
+
+class capture:
+    """Context manager: record the arguments of every call of
+    ``module.name`` (cloned, in call order) into ``store[name]`` while
+    calling through.  It launches nothing itself."""
+
+    def __init__(self, store: dict, module, *names):
+        self.store, self.module, self.names = store, module, names
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.module, name)
+            self.store.setdefault(name, [])
+
+            def spy(*args, _fn=fn, _name=name):
+                self.store[_name].append(tuple(t.detach().clone() for t in args))
+                return _fn(*args)
+
+            setattr(self.module, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+        return False
+
+
+def index_stream(seed: int, steps: int, batch: int, n: int) -> np.ndarray:
+    """(steps, batch) minibatch indices drawn with numpy from ``seed``."""
+    return np.random.RandomState(seed).randint(0, n, size=(steps, batch))
+
+
+def timed_runs(device, route: str, want: dict, fn) -> dict:
+    """``fn()`` REPS + 1 times, each on fresh counters held exactly to
+    ``want``; the first run is the warm-up.  Returns every run's result
+    (the first one's is ``out``) and the host-clock seconds of the other
+    REPS."""
+    from asvgp_tpu_torch.banded import core
+
+    outs, seconds = [], []
+    for _ in range(REPS + 1):
+        core.reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+        launches = read_launches(device, route, want)
+    return {"out": outs[0], "outs": outs, "launches": launches, "seconds": seconds[1:]}
+
+
+def repeat_rel(runs: dict) -> float:
+    """The largest relative difference of any run's losses from the first
+    run's: 0.0 when the loop repeats bit for bit on the card."""
+    first = runs["outs"][0][1]
+    return max(float(torch.max(torch.abs(out[1] - first) / torch.abs(first)))
+               for out in runs["outs"])
+
+
+def adam_path(device, x_d, y_d) -> dict:
+    """Phases 6a and 6b: one step (loss and gradient) and the 20-step fit of
+    ``fit_adam_minibatch`` at the north star, each on fresh counters; the
+    arguments K7 and K8 got in the step are kept for phase 6e."""
+    from asvgp_tpu_torch.banded import core
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import Matern32
+    from asvgp_tpu_torch.models.gpr1d import default_params
+    from asvgp_tpu_torch.train import fit_adam_minibatch
+    from asvgp_tpu_torch.train.adam import minibatch_loss
+
+    basis = B3Spline(0.0, 1.0, M)
+    params0 = default_params(Matern32(variance=1.0, lengthscales=1e-3), 0.1)
+    idx = index_stream(ADAM_INDEX_SEED, ADAM_STEPS, ADAM_BATCH, N)
+    idx0 = torch.as_tensor(idx[0], device=device)
+    names = {"kernel": {"raw_lengthscales": "raw_lengthscales", "raw_variance": "raw_variance"},
+             "likelihood": {"raw_variance": "raw_noise_variance"}}
+
+    args: dict = {}
+    core.reset_counters()
+    p = {g: {k: torch.tensor(float(v), dtype=torch.float64, device=device, requires_grad=True)
+             for k, v in d.items()} for g, d in params0.items()}
+    with capture(args, core, "tak_bwd_vec", "chol_bwd_pair"):
+        loss = minibatch_loss(basis, 3, N, p, x_d[idx0], y_d[idx0])
+        loss.backward()
+    step_launches = read_launches(device, "Adam step", dict.fromkeys(ADAM_KERNELS, 1))
+    grad1 = {names[g][k]: float(t.grad) for g, d in p.items() for k, t in d.items()}
+
+    def fit():
+        return fit_adam_minibatch(basis, 3, x_d, y_d, params0, batch_size=ADAM_BATCH,
+                                  steps=ADAM_STEPS, learning_rate=ADAM_LR, indices=idx)
+
+    runs = timed_runs(device, "Adam fit", dict.fromkeys(ADAM_KERNELS, ADAM_STEPS), fit)
+    params, losses = runs["out"]
+    final = {names[g][k]: float(t) for g, d in params.items() for k, t in d.items()}
+    return {
+        "loss1": float(loss.detach()), "grad1": grad1, "losses": losses.tolist(),
+        "params": final, "args": args, "repeat_rel": repeat_rel(runs),
+        "launches": {"step": step_launches, "fit": runs["launches"]},
+        "ms_per_step": float(np.median([s * 1e3 / ADAM_STEPS for s in runs["seconds"]])),
+        "ms_per_step_all": [s * 1e3 / ADAM_STEPS for s in runs["seconds"]],
+    }
+
+
+def svgp_path(device, x_d, y_d, x_test, y_test) -> dict:
+    """Phases 6c and 6d: ``SVGP1D`` and ``fit_svgp`` at the north star's data
+    and width, each stage on fresh counters: the C* seeding alone
+    (``fit_svgp`` from ``init_params()`` for 0 steps), one step (its K9-K12
+    arguments kept for phase 6e), the 20-step fit, the prediction on the
+    held-out points, and the same prediction by the plain versions on a
+    CPU copy."""
+    from asvgp_tpu_torch.banded import core, single
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import Matern32, SVGP1D, fit_svgp
+    from asvgp_tpu_torch.train import nlpd
+
+    def build(dev):
+        return SVGP1D(Matern32(variance=1.0, lengthscales=1e-3), B3Spline(0.0, 1.0, M),
+                      noise_variance=0.1, num_data=N, device=dev)
+
+    model = build(device)
+    idx = index_stream(SVGP_INDEX_SEED, SVGP_STEPS, SVGP_BATCH, N)
+    core.reset_counters()
+    seeded, _ = fit_svgp(model, x_d, y_d, model.init_params(), steps=0,
+                         batch_size=SVGP_BATCH)
+    seed_launches = read_launches(device, "SVGP C* seeding", SVGP_SEED)
+
+    args: dict = {}
+    idx0 = torch.as_tensor(idx[0], device=device)
+    p = {g: ({k: v.clone().requires_grad_() for k, v in d.items()} if isinstance(d, dict)
+             else d.clone().requires_grad_()) for g, d in seeded.items()}
+    core.reset_counters()
+    with capture(args, single, *SVGP_STEP):
+        model.training_loss(x_d[idx0], y_d[idx0], p).backward()
+    step_launches = read_launches(device, "SVGP step", SVGP_STEP)
+
+    # the fit from the seeded parameters: the same loop as from
+    # init_params(), whose seeding gives the same C* bit for bit, so the
+    # host clock times the steps alone
+    def fit():
+        return fit_svgp(model, x_d, y_d, seeded, batch_size=SVGP_BATCH,
+                        steps=SVGP_STEPS, learning_rate=SVGP_LR, indices=idx)
+
+    want = {name: SVGP_STEPS * n for name, n in SVGP_STEP.items()}
+    runs = timed_runs(device, "SVGP fit", want, fit)
+    params, losses = runs["out"]
+
+    xt = torch.as_tensor(x_test, dtype=torch.float64, device=device)
+    yt = torch.as_tensor(y_test, dtype=torch.float64, device=device)
+    core.reset_counters()
+    mean, var = model.predict_f(xt, params=params)
+    predict_launches = read_launches(device, "SVGP predict", SVGP_PREDICT)
+    core.reset_counters()
+    score = float(nlpd(model.predict_log_density((xt, yt), params=params)))
+    read_launches(device, "SVGP predict_log_density", SVGP_PREDICT)
+    if not (mean.shape == var.shape == (x_test.shape[0], 1)):
+        raise AssertionError(f"SVGP predict_f shapes {tuple(mean.shape)}, {tuple(var.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and math.isfinite(score)):
+        raise AssertionError("non-finite SVGP predictions or NLPD")
+
+    cpu_model = build("cpu")
+    cpu_params = {g: ({k: v.cpu() for k, v in d.items()} if isinstance(d, dict) else d.cpu())
+                  for g, d in params.items()}
+    t0 = time.perf_counter()
+    mean_c, var_c = cpu_model.predict_f(torch.as_tensor(x_test), params=cpu_params)
+    cpu_s = time.perf_counter() - t0
+    return {
+        "losses": losses.tolist(), "args": args, "nlpd": score,
+        "repeat_rel": repeat_rel(runs),
+        "min_var": float(var.min()),
+        "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
+        "cpu_plain_predict_s": cpu_s,
+        "launches": {"seeding": seed_launches, "step": step_launches, "fit": runs["launches"],
+                     "predict": predict_launches},
+        "ms_per_step": float(np.median([s * 1e3 / SVGP_STEPS for s in runs["seconds"]])),
+        "ms_per_step_all": [s * 1e3 / SVGP_STEPS for s in runs["seconds"]],
+    }
 
 
 def serving_path(device, x, y, x_test, y_test, m: int, batch: int) -> dict:
@@ -441,6 +729,8 @@ def sweep_ops(name: str, k: int, m: int) -> int:
     tak = 2 * k * k + 3 * k + 3             # Takahashi column
     usolve = 2 * k + 2                      # upper-solve entry
     tak_t = 4 * k * k + 7 * k + 6           # its tangent
+    chol_b = 2 * k * (k + 1) + 6 * k + 7    # Cholesky adjoint column
+    tak_b = 4 * k * k + 11 * k + 10         # Takahashi adjoint column
     per_col = {
         "chol_pair_solve": 2 * chol + lsolve,
         "tak_pair_solve": 2 * tak + usolve,
@@ -448,6 +738,12 @@ def sweep_ops(name: str, k: int, m: int) -> int:
         "tak_pair_solve_tan": 2 * tak + usolve + tak_t,
         "chol_quad_solve_tan": 2 * chol + lsolve + chol_t,
         "tak_quad_solve_tan": 2 * tak + usolve + tak_t,
+        "tak_bwd_vec": tak_b,
+        "chol_bwd_pair": chol_b,
+        "chol_fwd": chol,
+        "chol_bwd": chol_b,
+        "tak_fwd": tak + 1,
+        "tak_bwd": tak_b + 1,
     }[name]
     # the twisted sweeps walk m - k columns in two streams; the k×k middle
     # block is the mid step's
@@ -561,6 +857,10 @@ def main() -> None:
         res = kernel_parity(bands)
         emit("2_parity_random", **res, tol=TOL_PARITY)
         check_parity(res, TOL_PARITY, f"at k={k}")
+    for k in range(1, 7):
+        res = adjoint_parity(random_adjoint_inputs(k, PARITY_M, rng, device))
+        emit("2_parity_adjoint_random", k=k, m=PARITY_M, **res, tol=TOL_PARITY_ADJOINT)
+        check_parity(res, TOL_PARITY_ADJOINT, f"of K7-K12 at k={k}")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -638,8 +938,57 @@ def main() -> None:
     path_launches = {**launches,
                      **{n: tr["launches"]["single_ended_step"][n] for n in TRAINING_KERNELS[:2]},
                      **{n: tr["launches"]["north_star_fit"][n] for n in TRAINING_KERNELS[2:]}}
+    # ---- phase 6a: minibatch Adam -------------------------------------------
+    ad = adam_path(device, x_d, y_d)
+    adam_rel = {
+        "loss_1": rel(ad["loss1"], ANCHOR_ADAM_LOSS_1),
+        "fit_loss_1": rel(ad["losses"][0], ANCHOR_ADAM_LOSS_1),
+        "fit_loss_20": rel(ad["losses"][-1], ANCHOR_ADAM_LOSS_20),
+        "grad_1": max(rel(ad["grad1"][n], ANCHOR_ADAM_GRAD_1[n]) for n in PARAM_NAMES),
+        "params_20": max(rel(ad["params"][n], ANCHOR_ADAM_PARAMS[n]) for n in PARAM_NAMES),
+    }
+    emit("6a_adam_path", n=N, m=M, batch=ADAM_BATCH, steps=ADAM_STEPS, lr=ADAM_LR,
+         loss_1=ad["loss1"], grad_1=ad["grad1"], losses=ad["losses"], params=ad["params"],
+         rel_err=adam_rel, repeat_rel=ad["repeat_rel"])
+    if not max(adam_rel["loss_1"], adam_rel["fit_loss_1"], adam_rel["fit_loss_20"]) <= TOL_ADAM_LOSS:
+        raise AssertionError(f"Adam losses vs the CPU-float64 anchors: {adam_rel}")
+    if not max(adam_rel["grad_1"], adam_rel["params_20"]) <= TOL_ADAM_GRAD:
+        raise AssertionError(f"Adam gradient or parameters vs the anchors: {adam_rel}")
+
+    # ---- phase 6b: proof of the Adam path ----------------------------------
+    # held exactly in adam_path: the step K1 = K2 = K7 = K8 = 1, the fit 20
+    emit("6b_proof_of_adam_path", launches=ad["launches"])
+
+    # ---- phase 6c: SVGP ------------------------------------------------------
+    sv = svgp_path(device, x_d, y_d, x_test, y_test)
+    svgp_rel = {"loss_1": rel(sv["losses"][0], ANCHOR_SVGP_LOSS_1),
+                "loss_20": rel(sv["losses"][-1], ANCHOR_SVGP_LOSS_20)}
+    emit("6c_svgp_path", n=N, m=M, batch=SVGP_BATCH, steps=SVGP_STEPS, lr=SVGP_LR,
+         losses=sv["losses"], rel_err=svgp_rel, repeat_rel=sv["repeat_rel"],
+         nlpd=sv["nlpd"], min_var=sv["min_var"],
+         mean_rel_vs_cpu=sv["mean_rel_vs_cpu"], var_rel_vs_cpu=sv["var_rel_vs_cpu"],
+         cpu_plain_predict_s=sv["cpu_plain_predict_s"])
+    if not max(svgp_rel.values()) <= TOL_SVGP_LOSS:
+        raise AssertionError(f"SVGP losses vs the CPU-float64 anchors: {svgp_rel}")
+    if not max(sv["mean_rel_vs_cpu"], sv["var_rel_vs_cpu"]) <= TOL_PREDICT:
+        raise AssertionError(f"SVGP predictions differ from the plain CPU ones: {sv}")
+
+    # ---- phase 6d: proof of the SVGP path ----------------------------------
+    # held exactly in svgp_path: seeding K9 = 1; a step K9 = K10 = 4,
+    # K11 = K12 = 3; the fit 20 steps of that; a prediction K9 = K11 = 2
+    emit("6d_proof_of_svgp_path", launches=sv["launches"])
+    path_launches |= {n: ad["launches"]["fit"][n] for n in ("tak_bwd_vec", "chol_bwd_pair")}
+    path_launches |= {n: sv["launches"]["fit"][n] for n in SVGP_STEP}
     if min(path_launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {path_launches}")
+
+    # ---- phase 6e: K7-K12 at the main path's shapes -------------------------
+    main_args = {**{n: ad["args"][n] for n in ("tak_bwd_vec", "chol_bwd_pair")}, **sv["args"]}
+    main_adjoint = adjoint_parity(main_args)
+    emit("6e_parity_adjoint_main_shape", **main_adjoint,
+         calls={n: len(a) for n, a in main_args.items()}, tol=TOL_PARITY_MAIN)
+    check_parity(main_adjoint, TOL_PARITY_MAIN, "of K7-K12 at the main path's shapes")
+    main_parity |= main_adjoint
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch.stats import compute_stats
@@ -678,6 +1027,12 @@ def main() -> None:
         "tak_quad_solve_tan": (lambda: twist.tak_quad_solve_tan(*k5, z, x2, m),
                                lambda: twist.tak_quad_solve_tan_plain(*k5, z, x2, m)),
     }
+    # K7-K12 on the first arguments each got on the main path (the Adam
+    # step's and the SVGP step's), k = 3, m = 10⁴
+    for name, (kernel_fn, plain_fn) in adjoint_calls().items():
+        args = main_args[name][0]
+        io[name] = (args, (kernel_fn(*args),))
+        calls[name] = (lambda f=kernel_fn, a=args: f(*a), lambda f=plain_fn, a=args: f(*a))
 
     def elbo_value():
         with torch.no_grad():
@@ -705,10 +1060,22 @@ def main() -> None:
         times[name] = cuda_ms(kernel_fn)
     for name, t in times.items():
         emit("7_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
+    for name, path in (("adam_step", ad), ("svgp_step", sv)):
+        emit("7_time", what=name, card=smi, median_ms=path["ms_per_step"],
+             ms=path["ms_per_step_all"], clock="host, per step of a 20-step fit")
+    # the plain versions on CUDA tensors: each once after a warm-up, and
+    # none of them may launch a kernel
     plain_ms = {}
+    core.reset_counters()
     for name, (_, plain_fn) in calls.items():
         plain_ms[name] = once_ms(plain_fn)
         emit("7_time", what=f"{name}_plain", card=smi, once_ms=plain_ms[name])
+    torch.cuda.synchronize(device)
+    if any(core.LAUNCHES.values()) or core.PLAIN_CALLS.get("cuda", 0) == 0:
+        raise AssertionError(f"the plain versions on the card launched {dict(core.LAUNCHES)}, "
+                             f"plain calls {dict(core.PLAIN_CALLS)}")
+    emit("7_plain_versions_launch_nothing", launches=dict(core.LAUNCHES),
+         plain_calls=dict(core.PLAIN_CALLS))
     profiles = {
         "value_and_grad_twisted": device_profile(lambda: value_and_grad(tmodel)),
         "value_and_grad_single_ended": device_profile(step_single),

@@ -30,7 +30,8 @@ def test_sources_found():
     assert len(SOURCES) > 15 and (ROOT / "asvgp_tpu_torch" / "banded" / "core.py") in SOURCES
     pkg = ROOT / "asvgp_tpu_torch"
     for rel in ("banded/tan.py", "banded/twist.py", "banded/twisted.py", "models/exact_gp.py",
-                "train/lbfgs.py", "train/fused_lbfgs.py"):
+                "train/lbfgs.py", "train/fused_lbfgs.py", "banded/single.py", "train/adam.py",
+                "models/svgp.py"):
         assert pkg / rel in SOURCES, rel
 
 
