@@ -9,9 +9,11 @@ Storage conventions as in the JAX package: a *lower band* ``band`` of shape
 which run the plain recursion on a CPU tensor and a kernel on a CUDA one;
 ``core`` the two value sweeps (K1, K2) and the collapsed core's adjoint
 (K7, K8), ``single`` the single-matrix Cholesky and Takahashi and their
-adjoints (K9–K12), ``tan`` the tangent-fused sweeps (K3, K4) and ``twist``
-their two-ended form (K5, K6), as CUDA kernels on the GPU; ``twisted`` the
-float64 oracle of the two-ended factorization.
+adjoints (K9–K12) and the pair Cholesky (K15), ``tan`` the tangent-fused
+sweeps (K3, K4) and ``twist`` their two-ended form (K5, K6), as CUDA
+kernels on the GPU; ``twisted`` the float64 oracle of the two-ended
+factorization.  ``block`` holds the block-banded algebra of the Kronecker
+model, whose diagonal-block step is K16 (``dense_block``).
 """
 
 from asvgp_tpu_torch.banded.layout import (
@@ -41,6 +43,16 @@ from asvgp_tpu_torch.banded.ops import (
     twist_scope,
 )
 from asvgp_tpu_torch.banded.core import factor_takahashi_solve
+from asvgp_tpu_torch.banded.block import (
+    block_band_to_dense,
+    cholesky_block_banded,
+    cholesky_solve_block_banded,
+    dense_to_block_band,
+    log_det_from_block_cholesky,
+    solve_lower_block_banded,
+    solve_upper_block_banded_transpose,
+    takahashi_inverse_block_banded,
+)
 from asvgp_tpu_torch.banded.tan import factor_takahashi_solve_tan
 from asvgp_tpu_torch.banded.twist import factor_takahashi_solve_tan_twist, twist_applicable
 
@@ -71,4 +83,12 @@ __all__ = [
     "factor_takahashi_solve_tan",
     "factor_takahashi_solve_tan_twist",
     "twist_applicable",
+    "block_band_to_dense",
+    "cholesky_block_banded",
+    "cholesky_solve_block_banded",
+    "dense_to_block_band",
+    "log_det_from_block_cholesky",
+    "solve_lower_block_banded",
+    "solve_upper_block_banded_transpose",
+    "takahashi_inverse_block_banded",
 ]

@@ -24,6 +24,8 @@ except for the trace term, which runs
   K8 ``chol_bwd_pair``: the Cholesky adjoint K̄uu from (L, L̄), batched and
      called on one matrix (``chol_bwd<K>``).
 
+``tak_bwd_pair`` (K23) is K7 for two matrices in one launch.
+
 ``LAUNCHES`` counts the kernel launches of each wrapper and
 ``PLAIN_CALLS`` the calls of the plain versions by device type, so that a
 run can show which path it took.
@@ -35,9 +37,10 @@ import torch
 
 from asvgp_tpu_torch.banded import _build, ops
 
-# one count per kernel: K1, K2, K7, K8 here; K3, K4 in banded/tan.py; K5, K6
-# in banded/twist.py; K9-K12 in banded/single.py.  K7 and K12 share one CUDA
-# kernel, and so do K8 and K10: each wrapper keeps its own count
+# one count per kernel: K1, K2, K7, K8, K23 here; K3, K4 in banded/tan.py;
+# K5, K6 in banded/twist.py; K9-K12, K15 in banded/single.py; K16 in
+# banded/dense_block.py.  K7, K12 and K23 share one CUDA kernel, K8 and K10
+# another, K9 and K15 a third: each wrapper keeps its own count
 LAUNCHES = {
     "chol_pair_solve": 0,
     "tak_pair_solve": 0,
@@ -51,6 +54,9 @@ LAUNCHES = {
     "chol_bwd": 0,
     "tak_fwd": 0,
     "tak_bwd": 0,
+    "chol_fwd_pair": 0,
+    "tak_bwd_pair": 0,
+    "chol_inv_dense": 0,
 }
 PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 
@@ -243,6 +249,33 @@ def tak_bwd_vec(l_band, s_band, cot, iv):
     _check_cuda(k, (l_band, s_band, cot, iv))
     l_bar = torch.empty_like(l_band)
     _launch("tak_bwd_vec", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
+            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr())
+    return l_bar
+
+
+def tak_bwd_pair_plain(l_band, s_band, cot, iv):
+    """Plain version of K23: K7's recursion on each of the two matrices."""
+    _count_plain(l_band)
+    return torch.stack([ops.takahashi_bwd_plain(l, s, c, v)
+                        for l, s, c, v in zip(l_band, s_band, cot, iv)])
+
+
+def tak_bwd_pair(l_band, s_band, cot, iv):
+    """K23 on CUDA tensors, its plain version on CPU tensors.
+
+    K7 for two matrices in one launch (``takahashi_bwd_pair_ds``): L̄ from
+    (2, k+1, m) stacks of L, S and S̄ and the (2, m) reciprocal pivots of
+    the two factors, one chain per matrix of ``tak_bwd<K>``."""
+    if l_band.ndim != 3 or l_band.shape[0] != 2:
+        raise ValueError(f"L must be a (2, k+1, m) pair of bands, got {tuple(l_band.shape)}")
+    k, m = _check_shapes((l_band[0], s_band[0], cot[0]), (iv[0],))
+    if not (l_band.shape == s_band.shape == cot.shape) or tuple(iv.shape) != (2, m):
+        raise ValueError("L, S and S̄ must be (2, k+1, m) and iv (2, m)")
+    if l_band.device.type == "cpu":
+        return tak_bwd_pair_plain(l_band, s_band, cot, iv)
+    _check_cuda(k, (l_band, s_band, cot, iv))
+    l_bar = torch.empty_like(l_band)
+    _launch("tak_bwd_pair", "asvgp_tak_bwd", l_band.device, k, m, 2, l_band.data_ptr(),
             s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr())
     return l_bar
 

@@ -17,7 +17,9 @@ PyTorch counterpart of ``asvgp_tpu/banded/ops.py``.  Two layers:
   tensor runs the plain recursion, a CUDA tensor its kernel.
   ``cholesky_band`` and ``takahashi_inverse_band`` are the differentiable
   ``single.CholeskyBand`` (K9 forward, K10 backward) and
-  ``single.TakahashiInverseBand`` (K11, K12).  The solves have no kernel
+  ``single.TakahashiInverseBand`` (K11, K12); ``cholesky_band_pair`` of two
+  bands of one shape is ``single.CholeskyBandPair`` (K15, backward K8 with
+  a batch of two).  The solves have no kernel
   yet (K13, K14) and raise on a CUDA tensor.  ``collapsed_core`` is
   ``core.CollapsedCore`` (K1 + K2, backward K7 + K8) and
   ``banded_posterior`` runs K1 + K2.  ``collapsed_core_matern`` dispatches
@@ -152,8 +154,14 @@ def cholesky_band_bwd_plain(l_band: torch.Tensor, cot: torch.Tensor) -> torch.Te
 
 
 def cholesky_band_pair(a_band: torch.Tensor, b_band: torch.Tensor):
-    """Factor two independent banded SPD matrices: on a CUDA tensor two K9
-    launches (the JAX package's route off its pair path)."""
+    """Factor two independent banded SPD matrices, differentiable: for two
+    bands of one shape ``single.CholeskyBandPair`` (on a CUDA tensor one
+    K15 launch forward, K8 with a batch of two backward), else two
+    ``cholesky_band`` calls, as in the JAX package."""
+    from asvgp_tpu_torch.banded import single
+
+    if a_band.shape == b_band.shape:
+        return single.CholeskyBandPair.apply(a_band, b_band)
     return cholesky_band(a_band), cholesky_band(b_band)
 
 

@@ -1,9 +1,12 @@
-"""Single-matrix banded Cholesky and Takahashi, and their adjoints: K9–K12.
+"""Single-matrix banded Cholesky and Takahashi, and their adjoints: K9–K12,
+and the pair Cholesky K15.
 
 PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds.py`` (its Cholesky and
-Takahashi kernels and their custom VJPs).  Four wrappers:
+Takahashi kernels and their custom VJPs) and of the forward pair kernel of
+``pallas_ds_pair.py``.  Five wrappers:
 
   K9  ``chol_fwd``: L = chol(A) from the lower band of A;
+  K15 ``chol_fwd_pair``: two of them, of one shape, in one launch;
   K10 ``chol_bwd``: Ā from (L, L̄), the adjoint of K9;
   K11 ``tak_fwd``: the band of A⁻¹ from L (the Takahashi recursion);
   K12 ``tak_bwd``: L̄ from (L, S, S̄), the adjoint of K11, dividing by the
@@ -17,9 +20,10 @@ forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
 raises.  Bandwidth k = 0 is elementwise and runs in torch ops on either
 device, as the JAX wrappers do; the kernels take k = 1..6.
 
-``CholeskyBand`` (K9 forward, K10 backward) and ``TakahashiInverseBand``
-(K11, K12) are the autograd Functions behind ``ops.cholesky_band`` and
-``ops.takahashi_inverse_band``.  As in the JAX VJPs, the cotangent of a
+``CholeskyBand`` (K9 forward, K10 backward), ``CholeskyBandPair`` (K15,
+and K8 with a batch of two) and ``TakahashiInverseBand`` (K11, K12) are the
+autograd Functions behind ``ops.cholesky_band``, ``ops.cholesky_band_pair``
+and ``ops.takahashi_inverse_band``.  As in the JAX VJPs, the cotangent of a
 band treats each stored entry as an independent variable, and the
 right-padding slots get a zero cotangent.
 """
@@ -57,6 +61,35 @@ def chol_fwd(a_band):
     core._launch("chol_fwd", "asvgp_chol_fwd", a_band.device, k, m, 1,
                  a_band.data_ptr(), l_band.data_ptr())
     return l_band
+
+
+# ---------------------------------------------------------------------------
+# K15: two Choleskys in one launch
+# ---------------------------------------------------------------------------
+
+
+def chol_fwd_pair_plain(a_band, b_band):
+    """Plain version of K15: the two factors, one after the other."""
+    core._count_plain(a_band)
+    return ops.cholesky_band_plain(a_band), ops.cholesky_band_plain(b_band)
+
+
+def chol_fwd_pair(a_band, b_band):
+    """K15 on CUDA tensors, its plain version on CPU tensors: the lower
+    bands of chol(A) and chol(B) for two bands of one shape, from one
+    launch of K9's kernel with a batch of two, one chain per matrix
+    (``pallas_ds_pair.cholesky_band_pair_fwd_ds``)."""
+    k, m = core._check_shapes((a_band, b_band), ())
+    if k == 0:
+        return torch.sqrt(a_band), torch.sqrt(b_band)
+    if a_band.device.type == "cpu":
+        return chol_fwd_pair_plain(a_band, b_band)
+    core._check_cuda(k, (a_band, b_band))
+    a2 = torch.stack([a_band, b_band])
+    l2 = torch.empty_like(a2)
+    core._launch("chol_fwd_pair", "asvgp_chol_fwd", a_band.device, k, m, 2,
+                 a2.data_ptr(), l2.data_ptr())
+    return l2[0], l2[1]
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +189,27 @@ class CholeskyBand(torch.autograd.Function):
     def backward(ctx, l_bar):
         (l_band,) = ctx.saved_tensors
         return chol_bwd(l_band, l_bar.contiguous())
+
+
+class CholeskyBandPair(torch.autograd.Function):
+    """Two banded Choleskys of one shape: K15 forward, K8 (the pair
+    Cholesky adjoint, batch of two) backward, as
+    ``pallas_ds_pair.cholesky_band_pair_ds`` and its VJP."""
+
+    @staticmethod
+    def forward(ctx, a_band, b_band):
+        l_a, l_b = chol_fwd_pair(a_band.contiguous(), b_band.contiguous())
+        ctx.save_for_backward(l_a, l_b)
+        return l_a, l_b
+
+    @staticmethod
+    def backward(ctx, bar_a, bar_b):
+        l_a, l_b = ctx.saved_tensors
+        bars = [torch.zeros_like(l) if g is None else g for g, l in ((bar_a, l_a), (bar_b, l_b))]
+        if l_a.shape[0] == 1:  # k = 0: elementwise
+            return bars[0] / (2.0 * l_a), bars[1] / (2.0 * l_b)
+        a_bar = core.chol_bwd_pair(torch.stack([l_a, l_b]), torch.stack(bars))
+        return a_bar[0], a_bar[1]
 
 
 class TakahashiInverseBand(torch.autograd.Function):

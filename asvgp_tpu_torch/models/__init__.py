@@ -1,10 +1,11 @@
-"""Model classes: GPR1D, SVGP1D, the exact GP, Matérn kernels, Gaussian likelihood."""
+"""Model classes: GPR1D, GPRKron, SVGP1D, the exact GP, Matérn kernels, Gaussian likelihood."""
 
 from asvgp_tpu_torch.models.kernels import Matern, Matern12, Matern32, Matern52
 from asvgp_tpu_torch.models.likelihoods import Gaussian
 from asvgp_tpu_torch.models.gpr1d import GPR1D, Posterior1D
 from asvgp_tpu_torch.models.exact_gp import ExactGPR
 from asvgp_tpu_torch.models.svgp import SVGP1D, fit_svgp
+from asvgp_tpu_torch.models.kron import GPRKron, PosteriorKron
 
 __all__ = [
     "Matern",
@@ -17,4 +18,6 @@ __all__ = [
     "Posterior1D",
     "SVGP1D",
     "fit_svgp",
+    "GPRKron",
+    "PosteriorKron",
 ]

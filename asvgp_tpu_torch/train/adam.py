@@ -59,9 +59,8 @@ def adam_loop(loss_fn, x, y, params, *, batch_size: int, steps: int, learning_ra
     (steps,) on the CPU)."""
     device = x.device
     n = x.shape[0]
-    paths, values = zip(*_leaves(params))
     leaves = [torch.as_tensor(v, dtype=_F64, device=device).detach().clone().requires_grad_()
-              for v in values]
+              for v in _leaves(params)]
     opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
     if indices is None:
         gen = torch.Generator(device=device)
@@ -78,13 +77,13 @@ def adam_loop(loss_fn, x, y, params, *, batch_size: int, steps: int, learning_ra
         else:
             idx = indices[step]
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(_unflatten(paths, leaves), x[idx], y[idx])
+        loss = loss_fn(_unflatten(params, iter(leaves)), x[idx], y[idx])
         loss.backward()
         opt.step()
         losses[step] = loss.detach()
         if log_every and (step + 1) % log_every == 0:
             print(f"step {step + 1}: loss {float(loss):.10g}", flush=True)
-    return _unflatten(paths, [p.detach() for p in leaves]), losses.cpu()
+    return _unflatten(params, (p.detach() for p in leaves)), losses.cpu()
 
 
 def fit_adam_minibatch(basis, nu2, X, y, params, *, batch_size=1024, steps=1000,

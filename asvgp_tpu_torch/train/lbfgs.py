@@ -19,34 +19,40 @@ import torch
 from asvgp_tpu_torch.train.fused_lbfgs import make_fused_run
 
 
-def _leaves(tree, path=()):
-    """(path, leaf) pairs of a nested dict in sorted-key order: the order in
-    which JAX flattens the same pytree, so dot products sum alike."""
+def _leaves(tree):
+    """The leaves of a pytree of dicts, lists and tuples in the order in
+    which JAX flattens it (dict keys sorted, list and tuple items in index
+    order), so that dot products over the flat vector sum alike."""
     if isinstance(tree, dict):
         for key in sorted(tree):
-            yield from _leaves(tree[key], path + (key,))
+            yield from _leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            yield from _leaves(item)
     else:
-        yield path, tree
+        yield tree
 
 
-def _unflatten(paths, values):
-    tree: dict = {}
-    for path, value in zip(paths, values):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-    return tree
+def _unflatten(tree, values):
+    """A pytree shaped like ``tree`` whose leaves are taken from the
+    iterator ``values`` in ``_leaves`` order; dicts come back with sorted
+    keys, lists and tuples as lists and tuples."""
+    if isinstance(tree, dict):
+        return {key: _unflatten(tree[key], values) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(item, values) for item in tree)
+    return next(values)
 
 
 def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
               memory_size: int = 20, info: dict | None = None, restarts: int = 0,
               max_linesearch_steps: int = 30, curv_rtol: float = 0.9,
               ls_guess: str = "keep"):
-    """Minimize ``loss_fn(params)`` over the ``params`` pytree (nested dicts
-    of float64 tensors or numpy arrays) with L-BFGS and a zoom line search.
-    Returns (params, final_loss, num_iters): the parameters as tensors on
-    the device of the given ones (the CPU for numpy), the loss as a float.
+    """Minimize ``loss_fn(params)`` over the ``params`` pytree (nested dicts,
+    lists and tuples of float64 tensors or numpy arrays) with L-BFGS and a
+    zoom line search.  Returns (params, final_loss, num_iters): the
+    parameters in the same tree, as tensors on the device of the given ones
+    (the CPU for numpy), the loss as a float.
 
     ``info``: optional dict; records ``grad_norm`` (final gradient norm),
     ``converged`` (grad_norm < tol), ``restarts`` (restarts used),
@@ -63,21 +69,20 @@ def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
     curvature test off (the large-scale protocols pass 10.0).
     """
     leaves = list(_leaves(params))
-    paths = [p for p, _ in leaves]
-    tensors = [v for _, v in leaves if isinstance(v, torch.Tensor)]
+    tensors = [v for v in leaves if isinstance(v, torch.Tensor)]
     devices = {t.device for t in tensors}
     if len(devices) > 1:
         raise ValueError(f"all parameters must lie on one device, got {sorted(map(str, devices))}")
     device = devices.pop() if devices else torch.device("cpu")
     host = [np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, dtype=np.float64)
-            for _, v in leaves]
+            for v in leaves]
     shapes = [a.shape for a in host]
     sizes = [a.size for a in host]
     flat0 = np.concatenate([a.reshape(-1) for a in host])
 
     def to_tree(vec: torch.Tensor):
         parts = torch.split(vec, sizes)
-        return _unflatten(paths, [p.view(s) for p, s in zip(parts, shapes)])
+        return _unflatten(params, iter([p.view(s) for p, s in zip(parts, shapes)]))
 
     def value_and_grad(q: np.ndarray):
         x = torch.tensor(q, dtype=torch.float64, device=device, requires_grad=True)

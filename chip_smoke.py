@@ -2,7 +2,9 @@
 
 Drives the GPR1D serving and training paths, minibatch Adam and SVGP1D at
 the north-star shape — N = 10⁶ points from bench.py's generator, m = 10⁴
-B3-spline features on [0, 1], Matérn-3/2 — through the port's public entry
+B3-spline features on [0, 1], Matérn-3/2 — and GPRKron at the eNATL60
+protocol's shape (experiments/spatial_2d/ocean_ssh.py: N = 2·10⁶ 2-D
+points, 100 × 100 B4-spline features), through the port's public entry
 points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
@@ -42,9 +44,27 @@ points, on the card:
   6e. K7–K12 against their plain versions at the main path's shapes, on the
      inputs the paths gave them (the north-star Kuu, the Λ of the seeded
      SVGP, the actual cotangents of CollapsedCore and of the SVGP step)
+  6f. K15 (pair Cholesky) and K23 (pair Takahashi adjoint) against their
+     plain versions for k = 1..6, then each on fresh counters at the north
+     star's Kuu and P: banded.cholesky_band_pair with a gradient launches
+     K15 and K8 once, core.tak_bwd_pair K23 once
+  6g. K16 (dense-block Cholesky ⊗ inverse) against its plain version on
+     random SPD blocks, B = 1..200 (128: the TPU's limit; 200: past shared
+     memory), κ = 1, 1e4, 1e10; strict upper triangles exactly zero
+  6h. GPRKron: the statistics (built twice: the same bits; held to the JAX
+     package's CPU-float64 values), the loss and its gradient by
+     backward(), fit_lbfgs (10 iterations, curv_rtol 10, REPS + 1 times),
+     the posterior, predictions on 10⁵ held-out points, MSE and NLPD, all
+     held to tools/kron_anchors.py's values; predictions against a
+     posterior built by the plain versions on a CPU copy
+  6i. its proof: construction and prediction launch nothing, a step K9,
+     K10, K11, K12 twice each and K16 once per block column (100), the fit
+     that per evaluation, the posterior K9 = K11 = 2 and K16 = 100; K16
+     against its plain version on the 100 diagonal blocks the step gave it
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock) and each kernel's bound
+     REPS times on the host clock), each kernel's bound, and K16's library
+     counterpart (torch.linalg.cholesky, then solve_triangular against I)
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -167,6 +187,12 @@ KERNELS = {
                 "asvgp_tpu/banded/pallas_ds.py:237"),
     "tak_bwd": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
                 "asvgp_tpu/banded/pallas_ds.py:435"),
+    "chol_fwd_pair": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                      "asvgp_tpu/banded/pallas_ds_pair.py:86"),
+    "tak_bwd_pair": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                     "asvgp_tpu/banded/pallas_ds_core.py:447"),
+    "chol_inv_dense": ("asvgp_tpu_torch/csrc/block_chol_inv.cu",
+                       "asvgp_tpu/banded/pallas_ds_block.py:47"),
 }
 SERVING_KERNELS = ("chol_pair_solve", "tak_pair_solve")
 TRAINING_KERNELS = ("chol_pair_solve_tan", "tak_pair_solve_tan",
@@ -178,6 +204,57 @@ SVGP_STEP = {"chol_fwd": 4, "chol_bwd": 4, "tak_fwd": 3, "tak_bwd": 3}
 SVGP_SEED = {"chol_fwd": 1}
 SVGP_PREDICT = {"chol_fwd": 2, "tak_fwd": 2}
 PARAM_NAMES = ("raw_lengthscales", "raw_variance", "raw_noise_variance")
+
+# GPRKron at the eNATL60 protocol of experiments/spatial_2d/ocean_ssh.py:
+# synthetic_ssh(N_KRON + N_KRON_TEST) from KRON_SEED, the first N_KRON_TEST
+# points held out, 2 × BSplineBasis(0, 1, 100, 4), 2 × Matern32(ℓ = 0.1),
+# noise 0.1; only the iteration count is cut (10, as at the north star)
+N_KRON, N_KRON_TEST, KRON_SEED = 2_000_000, 100_000, 1997
+KRON_M, KRON_ORDER, KRON_ELL, KRON_NOISE = 100, 4, 0.1, 0.1
+# the same model built by the JAX package on a CPU in float64
+# (tools/kron_anchors.py): the statistics as that script's stat_summary
+# gives them, the loss and its gradient at the initial parameters (order:
+# kernels[0] ℓ and σ², kernels[1] ℓ and σ², noise), fit_lbfgs(max_iters=10,
+# curv_rtol=10.0), and the MSE and NLPD of its posterior on the held-out points
+ANCHOR_KRON_STATS = {
+    "kuf_y": {"sum": 65556.69205098292, "abs_sum": 1412646.605229095,
+              "sumsq": 313530657.1867012, "proj": -1827.132858930665,
+              "proj_abs": 1115813.802874701},
+    "t_band": {"sum": 1430404.0314282072, "abs_sum": 1430404.0314282072,
+               "sumsq": 35191151.72021886, "proj": 4173.822649832639,
+               "proj_abs": 1140029.426080588},
+    "yty": 1410364.1114346646,
+    "n": 2000000.0,
+}
+STAT_SUMMARY_SEED = 7
+ANCHOR_KRON_LOSS = 253363.2654126156
+ANCHOR_KRON_GRAD = (245455.01157823647, 308984.9796388908, 245158.2569789277,
+                    308984.9796401218, 272302.43079762574)
+ANCHOR_KRON_FIT_LOSS = -930917.8958619128
+ANCHOR_KRON_FIT_ITERS, ANCHOR_KRON_FIT_EVALS = 10, 12
+ANCHOR_KRON_MSE = 0.022358649162923617
+ANCHOR_KRON_NLPD = -0.48088964638062937
+# relative limits (PERF.md §2): the statistics' summaries (each against
+# the sum of absolute values it is made of: the JAX package takes one
+# 2·10⁶-long cumsum, the port two levels of prefix sums); loss, gradient,
+# fit, MSE and NLPD as PERF.md §2 sets them
+TOL_KRON_STATS = 1e-10
+TOL_KRON_LOSS = 1e-9
+TOL_KRON_GRAD = 1e-8
+TOL_KRON_FIT = 1e-8
+TOL_KRON_METRICS = 1e-8
+# K16 against its plain version, relative to the largest entry of each output
+TOL_K16 = 1e-13       # κ ≤ 1e4
+TOL_K16_ILL = 1e-9    # κ = 1e10, the JAX package's test's bar
+K16_SIZES = (1, 7, 32, 100, 128, 200)
+K16_KAPPAS = (1.0, 1e4, 1e10)
+# one value-and-grad step of GPRKron: the two per-dimension factors and
+# Takahashi bands forward (K9, K11) and backward (K10, K12); K16 once per
+# block column of P, KRON_M of them; the posterior the same without the
+# backward
+KRON_STEP = {"chol_fwd": 2, "chol_bwd": 2, "tak_fwd": 2, "tak_bwd": 2,
+             "chol_inv_dense": KRON_M}
+KRON_POSTERIOR = {"chol_fwd": 2, "tak_fwd": 2, "chol_inv_dense": KRON_M}
 
 
 def emit(phase: str, **fields) -> None:
@@ -638,11 +715,21 @@ def route_step(device, model, route: str, want: dict):
     return loss, grads, read_launches(device, route, want)
 
 
-def fit_runs(device, model, route: str, kernels=(), **kwargs) -> dict:
+def tree_map(fn, tree):
+    """``fn`` applied to each leaf of a params pytree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, value) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, value) for value in tree]
+    return fn(tree)
+
+
+def fit_runs(device, model, route: str, per_eval: dict, **kwargs) -> dict:
     """``fit_lbfgs`` REPS + 1 times from the model's parameters, each on
-    fresh counters: each of ``kernels`` must launch once per evaluation and
-    nothing else at all.  The first run is the warm-up; the times (host
-    clock, the fit syncs once per evaluation) are of the other REPS."""
+    fresh counters: each kernel of ``per_eval`` must launch that many times
+    per evaluation and nothing else at all.  The first run is the warm-up;
+    the times (host clock, the fit syncs once per evaluation) are of the
+    other REPS."""
     from asvgp_tpu_torch.banded import core
     from asvgp_tpu_torch.train import fit_lbfgs
 
@@ -656,7 +743,8 @@ def fit_runs(device, model, route: str, kernels=(), **kwargs) -> dict:
         params, loss, iters = fit_lbfgs(model.training_loss, start, info=info, **kwargs)
         torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
-        launches = read_launches(device, route, {name: info["ls_evals"] for name in kernels})
+        launches = read_launches(device, route,
+                                 {name: n * info["ls_evals"] for name, n in per_eval.items()})
         runs.append({"params": params, "loss": loss, "iters": iters, "info": info,
                      "s": seconds, "launches": launches})
     first = runs[0]
@@ -664,8 +752,9 @@ def fit_runs(device, model, route: str, kernels=(), **kwargs) -> dict:
     return {
         "loss": first["loss"], "iters": first["iters"], "info": first["info"],
         "launches": first["launches"],
-        "params": {a: {b: float(v) for b, v in d.items()} for a, d in first["params"].items()},
+        "params": tree_map(float, first["params"]), "params_out": first["params"],
         "losses": [r["loss"] for r in runs], "iter_counts": [r["iters"] for r in runs],
+        "eval_counts": [r["info"]["ls_evals"] for r in runs],
         "ms_per_iter": float(np.median(ms_per_iter)), "ms_per_iter_all": ms_per_iter,
     }
 
@@ -686,13 +775,14 @@ def training_path(device, x, y, m: int) -> dict:
     with twist_scope(False):
         loss_se, grad_se, launches_se = route_step(device, model, "single-ended step",
                                                    dict.fromkeys(single, 1))
-    fit = fit_runs(device, model, "north-star fit", twisted, max_iters=10, curv_rtol=10.0)
+    fit = fit_runs(device, model, "north-star fit", dict.fromkeys(twisted, 1), max_iters=10,
+                   curv_rtol=10.0)
 
     X, Y = snelson_data()
     snelson = GPR1D((X, Y), Matern32(), B3Spline(-3.5, 10.5, 100), device=device)
-    sn_fit = fit_runs(device, snelson, "Snelson fit", twisted)
+    sn_fit = fit_runs(device, snelson, "Snelson fit", dict.fromkeys(twisted, 1))
     exact = ExactGPR((X, Y), Matern32(), device=device)
-    ex_fit = fit_runs(device, exact, "exact-GP fit")
+    ex_fit = fit_runs(device, exact, "exact-GP fit", {})
     return {
         "model": model, "snelson_model": snelson,
         "loss_twist": loss_tw, "grad_twist": grad_tw,
@@ -704,13 +794,228 @@ def training_path(device, x, y, m: int) -> dict:
     }
 
 
+def pair_phase(device, rng, bands) -> dict:
+    """Phase 6f: K15 and K23 against their plain versions for k = 1..6 on
+    random bands, then each driven on fresh counters at the north star's
+    shape: ``banded.cholesky_band_pair`` of Kuu and P with a gradient (K15
+    forward, K8 with a batch of two backward), and ``core.tak_bwd_pair`` on
+    K1's and K2's outputs for the two matrices (K23 with K1's reciprocal
+    pivots).  Returns the errors, the launches and the main-shape
+    inputs of each kernel for phase 7."""
+    from asvgp_tpu_torch import banded
+    from asvgp_tpu_torch.banded import core, ops, single
+    from asvgp_tpu_torch.banded.tan import band_weights
+
+    res: dict = {"random": []}
+    for k in range(1, 7):
+        a, b = (torch.as_tensor(spd_band(k, PARITY_M, rng)) for _ in range(2))
+        l2 = torch.stack(single.chol_fwd_pair_plain(a, b))
+        s2 = torch.stack([ops.takahashi_inverse_band_plain(x) for x in l2])
+        cot = torch.as_tensor(rng.randn(2, k + 1, PARITY_M))
+        iv = (1.0 / l2[:, 0]).contiguous()
+        got15 = single.chol_fwd_pair(a.to(device), b.to(device))
+        got23 = core.tak_bwd_pair(*(t.to(device) for t in (l2, s2, cot, iv)))
+        res["random"].append({
+            "k": k, **_errs("chol_fwd_pair", got15, single.chol_fwd_pair_plain(a, b)),
+            **_errs("tak_bwd_pair", (got23,), (core.tak_bwd_pair_plain(l2, s2, cot, iv),))})
+    kuu, _, p_band, b = bands
+    kk, m = kuu.shape[0] - 1, kuu.shape[1]
+    core.reset_counters()
+    kv, pv = kuu.clone().requires_grad_(), p_band.clone().requires_grad_()
+    la, lp = banded.cholesky_band_pair(kv, pv)
+    (torch.sum(torch.log(la[0])) + torch.sum(torch.log(lp[0]))).backward()
+    launches15 = read_launches(device, "pair Cholesky", {"chol_fwd_pair": 1, "chol_bwd_pair": 1})
+    with torch.no_grad():
+        k1 = core.chol_pair_solve(kuu, p_band, b)
+        s_kuu, s_p, _ = core.tak_pair_solve(*k1)
+        w = band_weights(kk, m, kuu)
+        l2 = torch.stack([k1[0], k1[1]])
+        s2 = torch.stack([s_kuu, s_p])
+        # banded cotangents at the path's scale: w∘T (T = ∂Kuu/∂ℓ) and w∘Kuu
+        cot = torch.stack([w * bands[1], w * kuu]).contiguous()
+        iv = k1[2]
+    core.reset_counters()
+    out23 = core.tak_bwd_pair(l2, s2, cot, iv)
+    launches23 = read_launches(device, "pair Takahashi adjoint", {"tak_bwd_pair": 1})
+    res["main"] = {
+        **_errs("chol_fwd_pair", (la, lp), single.chol_fwd_pair_plain(kuu.cpu(), p_band.cpu())),
+        **_errs("tak_bwd_pair", (out23,),
+                (core.tak_bwd_pair_plain(*(t.cpu() for t in (l2, s2, cot, iv))),))}
+    res["launches"] = {"chol_fwd_pair": launches15["chol_fwd_pair"],
+                       "tak_bwd_pair": launches23["tak_bwd_pair"]}
+    res["io"] = {"chol_fwd_pair": ((kuu, p_band), (la.detach(), lp.detach())),
+                 "tak_bwd_pair": ((l2, s2, cot, iv), (out23,))}
+    return res
+
+
+def random_spd_block(seed: int, b: int, kappa: float) -> np.ndarray:
+    """tests/test_pallas_ds_block.py's SPD block: eigenvalues log-spaced
+    from 1 down to 1/κ."""
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(b, b))
+    return q @ np.diag(np.logspace(0.0, -np.log10(max(kappa, 1.0)), b)) @ q.T
+
+
+def k16_parity(device) -> dict:
+    """Phase 6g: K16 on batches of three random SPD blocks at each B and κ
+    against its plain version on a CPU copy; the strict upper triangles
+    of both outputs must be exactly zero."""
+    from asvgp_tpu_torch.banded import dense_block
+
+    rows = []
+    for b in K16_SIZES:
+        for kappa in K16_KAPPAS:
+            ms = torch.as_tensor(np.stack([random_spd_block(s, b, kappa) for s in range(3)]))
+            got = dense_block.chol_inv_dense(ms.to(device))
+            upper_zero = all(bool((torch.triu(g, 1) == 0).all()) for g in got)
+            rows.append({"B": b, "kappa": kappa, "upper_zero": upper_zero,
+                         **_errs("chol_inv_dense", got, dense_block.chol_inv_dense_plain(ms))})
+    return {"rows": rows,
+            "max_rel_well": max(r["chol_inv_dense_rel"] for r in rows if r["kappa"] <= 1e4),
+            "max_rel_ill": max(r["chol_inv_dense_rel"] for r in rows if r["kappa"] > 1e4),
+            "upper_zero": all(r["upper_zero"] for r in rows)}
+
+
+def synthetic_ssh(n: int, seed: int = KRON_SEED):
+    """experiments/spatial_2d/ocean_ssh.py's field: long swirls and eddies
+    on (0.02, 0.98)², noise 0.15."""
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(0.02, 0.98, (n, 2))
+    u, v = X[:, 0], X[:, 1]
+    f = np.sin(9 * u + 3 * v) + 0.6 * np.cos(14 * v) * np.sin(5 * u) + 0.3 * np.sin(31 * u * v + 2)
+    return X, (f + 0.15 * rng.randn(n)).reshape(-1, 1)
+
+
+def stat_summary(a: torch.Tensor) -> dict:
+    """tools/kron_anchors.py's summary of one statistic: sum, sum of
+    absolute values, sum of squares, and a projection on fixed random
+    weights with the sum of its absolute terms."""
+    a = a.detach().cpu().numpy()
+    w = np.random.RandomState(STAT_SUMMARY_SEED).randn(*a.shape)
+    return {"sum": float(a.sum()), "abs_sum": float(np.abs(a).sum()),
+            "sumsq": float((a * a).sum()), "proj": float((w * a).sum()),
+            "proj_abs": float(np.abs(w * a).sum())}
+
+
+def stats_errors(got: dict) -> dict:
+    """Each summary against its anchor, relative to the scale of its terms."""
+    errs = {}
+    for name in ("kuf_y", "t_band"):
+        g, w = got[name], ANCHOR_KRON_STATS[name]
+        errs[name] = max(abs(g["sum"] - w["sum"]) / w["abs_sum"],
+                         abs(g["sumsq"] - w["sumsq"]) / w["sumsq"],
+                         abs(g["proj"] - w["proj"]) / w["proj_abs"])
+    for name in ("yty", "n"):
+        errs[name] = rel(got[name], ANCHOR_KRON_STATS[name])
+    return errs
+
+
+def kron_value_and_grad(model) -> tuple[float, list]:
+    """GPRKron's training_loss() and its gradient by backward(), in the JAX
+    package's flattening order."""
+    model.zero_grad(set_to_none=True)
+    loss = model.training_loss()
+    loss.backward()
+    grads = []
+    for var, ell in zip(model.raw_variances, model.raw_lengthscales):
+        grads += [float(ell.grad), float(var.grad)]
+    return float(loss.detach()), grads + [float(model.raw_noise_variance.grad)]
+
+
+def kron_path(device) -> dict:
+    """Phases 6h and 6i: GPRKron at the eNATL60 protocol's shape, each stage
+    on fresh counters: the statistics (built twice), one value-and-grad
+    step (the diagonal blocks K16 got kept), fit_lbfgs REPS + 1 times, the
+    posterior at the fitted parameters, predictions, MSE and NLPD, and the
+    same predictions from a posterior built by the plain versions on a CPU
+    copy."""
+    from asvgp_tpu_torch.banded import block, core
+    from asvgp_tpu_torch.basis import BSplineBasis
+    from asvgp_tpu_torch.models import GPRKron, Matern32
+    from asvgp_tpu_torch.stats import compute_kron_stats
+    from asvgp_tpu_torch.train import mse, nlpd
+
+    X, y = synthetic_ssh(N_KRON + N_KRON_TEST)
+    Xtr, ytr = X[N_KRON_TEST:], y[N_KRON_TEST:]
+    Xte, yte = X[:N_KRON_TEST], y[:N_KRON_TEST]
+    bases = [BSplineBasis(0.0, 1.0, KRON_M, KRON_ORDER)] * 2
+    kernels = [Matern32(lengthscales=KRON_ELL), Matern32(lengthscales=KRON_ELL)]
+
+    core.reset_counters()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    model = GPRKron((Xtr, ytr), kernels, bases, noise_variance=KRON_NOISE, device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches(device, "GPRKron construction", {})
+    xtr_d = torch.as_tensor(Xtr, device=device)
+    ytr_d = torch.as_tensor(ytr, device=device)
+    again = compute_kron_stats(bases, xtr_d, ytr_d)
+    repeatable = bool(torch.equal(again.kuf_y, model.kuf_y)
+                      and torch.equal(again.t_band, model.t_band))
+    summary = {"kuf_y": stat_summary(model.kuf_y), "t_band": stat_summary(model.t_band),
+               "yty": float(model.yty), "n": float(model.n)}
+
+    args: dict = {}
+    core.reset_counters()
+    with capture(args, block, "chol_inv_dense"):
+        loss, grad = kron_value_and_grad(model)
+    step_launches = read_launches(device, "GPRKron value-and-grad step", KRON_STEP)
+
+    fit = fit_runs(device, model, "GPRKron fit", KRON_STEP, max_iters=10, curv_rtol=10.0)
+    params = fit["params_out"]
+
+    core.reset_counters()
+    post = model.posterior(params)
+    posterior_launches = read_launches(device, "GPRKron posterior", KRON_POSTERIOR)
+    core.reset_counters()
+    mean, var = post.predict_f(Xte, batch=PREDICT_BATCH)
+    log_density = post.predict_log_density((Xte, yte), batch=PREDICT_BATCH)
+    yte_d = torch.as_tensor(yte, device=device)
+    score_mse, score_nlpd = float(mse(yte_d, mean)), float(nlpd(log_density))
+    predict_launches = read_launches(device, "GPRKron predict", {})
+    if not (mean.shape == var.shape == (N_KRON_TEST, 1)):
+        raise AssertionError(f"GPRKron predict_f shapes {tuple(mean.shape)}, {tuple(var.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool((var > 0).all())):
+        raise AssertionError("non-finite or non-positive GPRKron predictions")
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    cpu_post = cpu_model.posterior(tree_map(lambda v: v.cpu(), params))
+    cpu_posterior_s = time.perf_counter() - t0
+    mean_c, var_c = cpu_post.predict_f(Xte, batch=PREDICT_BATCH)
+    return {
+        "model": model, "post": post, "params": params, "x_test": torch.as_tensor(Xte, device=device),
+        "xy_train": (xtr_d, ytr_d), "build_s": build_s, "stats_repeatable": repeatable,
+        "stats": summary, "stats_rel": stats_errors(summary),
+        "loss": loss, "grad": grad, "args": args, "fit": fit,
+        "mse": score_mse, "nlpd": score_nlpd, "min_var": float(var.min()),
+        "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
+        "cpu_plain_posterior_s": cpu_posterior_s,
+        "launches": {"construction": build_launches, "step": step_launches,
+                     "fit": fit["launches"], "posterior": posterior_launches,
+                     "predict": predict_launches},
+    }
+
+
+def dense_block_ops(B: int) -> int:
+    """Floating-point operations (an fma counts 2) of K16 on one B×B block,
+    per the column steps of csrc/block_chol_inv.cu: the rank-1 updates of M
+    (Σ_c (B−1−c)(B−c)/2 fma) and of T (Σ_c (B−1−c)(c+1) fma), the column
+    and row scalings, and a square root and a divide per column."""
+    fma = sum((B - 1 - c) * (B - c) // 2 + (B - 1 - c) * (c + 1) for c in range(B))
+    scale = sum((B - 1 - c) + (c + 1) for c in range(B)) + B
+    return 2 * fma + scale + 2 * B
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel<K>: registers, spill bytes' for every entry ptxas compiled."""
     out, name = [], None
     for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '.*\d([a-z_]+_kernel)ILi(\d)E", line)
+        hit = re.search(r"Compiling entry function '.*\d([a-z_]+_kernel)(?:ILi(\d)E)?", line)
         if hit:
-            name = f"{hit.group(1)}<{hit.group(2)}>"
+            name = f"{hit.group(1)}<{hit.group(2)}>" if hit.group(2) else hit.group(1)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
             out.append(f"{name}: spill {spill.group(1)}/{spill.group(2)} B")
@@ -744,6 +1049,8 @@ def sweep_ops(name: str, k: int, m: int) -> int:
         "chol_bwd": chol_b,
         "tak_fwd": tak + 1,
         "tak_bwd": tak_b + 1,
+        "chol_fwd_pair": 2 * chol,
+        "tak_bwd_pair": 2 * tak_b,
     }[name]
     # the twisted sweeps walk m - k columns in two streams; the k×k middle
     # block is the mid step's
@@ -751,12 +1058,12 @@ def sweep_ops(name: str, k: int, m: int) -> int:
     return per_col * cols
 
 
-def bound(name: str, k: int, m: int, tensors) -> dict:
-    """The least time the card could take: every input read once and every
-    output written once at the HBM rate, against the operations at the
-    FP64 peak; the larger one bounds."""
+def bound(ops: int, tensors) -> dict:
+    """The least time the card could take for ``ops`` operations on
+    ``tensors``: every input read once and every output written once at
+    the HBM rate, against the operations at the FP64 peak; the larger one
+    bounds."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    ops = sweep_ops(name, k, m)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP64_PER_S * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -990,8 +1297,85 @@ def main() -> None:
     check_parity(main_adjoint, TOL_PARITY_MAIN, "of K7-K12 at the main path's shapes")
     main_parity |= main_adjoint
 
+    # ---- phase 6f: K15 and K23 -----------------------------------------------
+    pair = pair_phase(device, rng, main_bands)
+    emit("6f_pair_kernels", random=pair["random"], main_shape=pair["main"],
+         launches=pair["launches"], tol_random=TOL_PARITY_ADJOINT, tol_main=TOL_PARITY_MAIN)
+    for row in pair["random"]:
+        check_parity(row, TOL_PARITY_ADJOINT, f"of K15/K23 at k={row['k']}")
+    check_parity(pair["main"], TOL_PARITY_MAIN, "of K15/K23 at the main path's shape")
+    main_parity |= pair["main"]
+    path_launches |= pair["launches"]
+
+    # ---- phase 6g: K16 on random blocks --------------------------------------
+    k16 = k16_parity(device)
+    emit("6g_parity_k16_random", **k16, tol_well=TOL_K16, tol_ill=TOL_K16_ILL)
+    if not (k16["max_rel_well"] <= TOL_K16 and k16["max_rel_ill"] <= TOL_K16_ILL
+            and k16["upper_zero"]):
+        raise AssertionError(f"K16 against its plain version: {k16}")
+
+    # ---- phase 6h: GPRKron at the eNATL60 protocol's shape --------------------
+    kr = kron_path(device)
+    kfit = kr["fit"]
+    kron_rel = {
+        "stats": max(kr["stats_rel"].values()),
+        "loss": rel(kr["loss"], ANCHOR_KRON_LOSS),
+        "grad": max(rel(g, a) for g, a in zip(kr["grad"], ANCHOR_KRON_GRAD)),
+        "fit": max(rel(v, ANCHOR_KRON_FIT_LOSS) for v in kfit["losses"]),
+        "mse": rel(kr["mse"], ANCHOR_KRON_MSE),
+        "nlpd": rel(kr["nlpd"], ANCHOR_KRON_NLPD),
+    }
+    emit("6h_kron_path", n=N_KRON, n_test=N_KRON_TEST, m=KRON_M, order=KRON_ORDER,
+         build_s=kr["build_s"], stats_repeatable=kr["stats_repeatable"], stats=kr["stats"],
+         stats_rel_err=kr["stats_rel"], loss=kr["loss"], grad=kr["grad"],
+         fit_losses=kfit["losses"], fit_iters=kfit["iter_counts"], fit_evals=kfit["eval_counts"],
+         fit_params=kfit["params"], mse=kr["mse"], nlpd=kr["nlpd"], min_var=kr["min_var"],
+         mean_rel_vs_cpu=kr["mean_rel_vs_cpu"], var_rel_vs_cpu=kr["var_rel_vs_cpu"],
+         cpu_plain_posterior_s=kr["cpu_plain_posterior_s"], rel_err=kron_rel)
+    if not kr["stats_repeatable"]:
+        raise AssertionError("a second GPRKron stats build from the same data gave other bits")
+    if not kron_rel["stats"] <= TOL_KRON_STATS:
+        raise AssertionError(f"GPRKron statistics vs the CPU-float64 anchors: {kr['stats_rel']}")
+    if not (kron_rel["loss"] <= TOL_KRON_LOSS and kron_rel["grad"] <= TOL_KRON_GRAD):
+        raise AssertionError(f"GPRKron loss or gradient vs the anchors: {kron_rel}")
+    if not (kron_rel["fit"] <= TOL_KRON_FIT
+            and set(kfit["iter_counts"]) == {ANCHOR_KRON_FIT_ITERS}
+            and set(kfit["eval_counts"]) == {ANCHOR_KRON_FIT_EVALS}):
+        raise AssertionError(f"GPRKron fits {kfit['losses']} in {kfit['iter_counts']} "
+                             f"iterations, {kfit['eval_counts']} evaluations")
+    if not max(kron_rel["mse"], kron_rel["nlpd"]) <= TOL_KRON_METRICS:
+        raise AssertionError(f"GPRKron MSE or NLPD vs the anchors: {kron_rel}")
+    if not max(kr["mean_rel_vs_cpu"], kr["var_rel_vs_cpu"]) <= TOL_PREDICT:
+        raise AssertionError(f"GPRKron predictions differ from the plain CPU ones: "
+                             f"{kr['mean_rel_vs_cpu']}, {kr['var_rel_vs_cpu']}")
+
+    # ---- phase 6i: proof of the Kron path; K16 on the blocks it got ----------
+    # held exactly in kron_path: construction and predict nothing; a step
+    # K9 = K10 = K11 = K12 = 2 and K16 = KRON_M; the fit that per
+    # evaluation; the posterior K9 = K11 = 2 and K16 = KRON_M
+    from asvgp_tpu_torch.banded import dense_block
+
+    k16_blocks = [a[0] for a in kr["args"]["chol_inv_dense"]]
+    k16_host = torch.stack([blk.cpu() for blk in k16_blocks])
+    eig = torch.linalg.eigvalsh(k16_host)
+    k16_kappa = float((eig[:, -1] / eig[:, 0]).max())
+    k16_main = {"chol_inv_dense_rel": 0.0, "chol_inv_dense_abs": 0.0}
+    for blk, host in zip(k16_blocks, k16_host):
+        errs = _errs("chol_inv_dense", dense_block.chol_inv_dense(blk),
+                     dense_block.chol_inv_dense_plain(host))
+        k16_main = {key: max(k16_main[key], errs[key]) for key in k16_main}
+    tol_k16_main = TOL_K16 if k16_kappa <= 1e4 else TOL_K16_ILL
+    emit("6i_proof_of_kron_path", launches=kr["launches"], k16_blocks=len(k16_blocks),
+         k16_max_kappa=k16_kappa, **k16_main, tol=tol_k16_main)
+    check_parity(k16_main, tol_k16_main, "of K16 on the Kron step's diagonal blocks")
+    main_parity |= k16_main
+    path_launches["chol_inv_dense"] = kfit["launches"]["chol_inv_dense"]
+
     # ---- phase 7: times on the card ---------------------------------------
-    from asvgp_tpu_torch.stats import compute_stats
+    from asvgp_tpu_torch.banded import block, single
+    from asvgp_tpu_torch.features.spline_features import make_kuu
+    from asvgp_tpu_torch.models.kron import _p_blocks as kron_p_blocks
+    from asvgp_tpu_torch.stats import compute_kron_stats, compute_stats
 
     model, post, xt = run["model"], run["posterior"], run["x_test"]
     tmodel = tr["model"]
@@ -1033,6 +1417,35 @@ def main() -> None:
         args = main_args[name][0]
         io[name] = (args, (kernel_fn(*args),))
         calls[name] = (lambda f=kernel_fn, a=args: f(*a), lambda f=plain_fn, a=args: f(*a))
+    # K15 and K23 on their phase-6f inputs, K16 on the Kron step's first
+    # diagonal block (B = 100)
+    io |= pair["io"]
+    pair_args = pair["io"]["tak_bwd_pair"][0]
+    calls["chol_fwd_pair"] = (lambda: single.chol_fwd_pair(kuu, p_band),
+                              lambda: single.chol_fwd_pair_plain(kuu, p_band))
+    calls["tak_bwd_pair"] = (lambda: core.tak_bwd_pair(*pair_args),
+                             lambda: core.tak_bwd_pair_plain(*pair_args))
+    blk = k16_blocks[0]
+    io["chol_inv_dense"] = ((blk,), dense_block.chol_inv_dense(blk))
+    calls["chol_inv_dense"] = (lambda: dense_block.chol_inv_dense(blk),
+                               lambda: dense_block.chol_inv_dense_plain(blk))
+    blk_batch = torch.stack(k16_blocks)
+    eye = torch.eye(blk.shape[0], dtype=blk.dtype, device=device)
+
+    def library_chol_inv(m):
+        """The same function by PyTorch's library calls (timed, never used
+        by the port): Cholesky, then the triangular solve against I."""
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(m), eye.expand_as(m),
+                                             upper=False)
+
+    kmodel, kpost, kparams = kr["model"], kr["post"], kr["params"]
+    with torch.no_grad():
+        kernels_k, lik_k = kmodel._build()
+        kuu_k = [make_kuu(kk, bb) for kk, bb in zip(kernels_k, kmodel.bases)]
+        p_blocks = kron_p_blocks(kmodel.bases, kuu_k, lik_k.variance, kmodel.t_band)
+        core.reset_counters()
+        block.cholesky_block_banded(p_blocks)
+    read_launches(device, "one block Cholesky", {"chol_inv_dense": KRON_M})
 
     def elbo_value():
         with torch.no_grad():
@@ -1055,6 +1468,15 @@ def main() -> None:
         "twisted_sweeps_k5_mid_k6": cuda_ms(
             lambda: twist.factor_takahashi_solve_tan_twist(*main_bands)),
         "tan_sweeps_k3_k4": cuda_ms(lambda: tan.factor_takahashi_solve_tan(*main_bands)),
+        "kron_stats_build": cuda_ms(lambda: compute_kron_stats(kmodel.bases, *kr["xy_train"])),
+        "kron_value_and_grad": cuda_ms(lambda: kron_value_and_grad(kmodel)),
+        "kron_backward": backward_ms(kmodel),
+        "kron_block_cholesky": cuda_ms(lambda: block.cholesky_block_banded(p_blocks)),
+        "kron_posterior": cuda_ms(lambda: kmodel.posterior(kparams)),
+        "kron_predict_1e5": cuda_ms(lambda: kpost.predict_f(kr["x_test"], batch=PREDICT_BATCH)),
+        "chol_inv_dense_batch100": cuda_ms(lambda: dense_block.chol_inv_dense(blk_batch)),
+        "chol_inv_dense_library": cuda_ms(lambda: library_chol_inv(blk)),
+        "chol_inv_dense_library_batch100": cuda_ms(lambda: library_chol_inv(blk_batch)),
     }
     for name, (kernel_fn, _) in calls.items():
         times[name] = cuda_ms(kernel_fn)
@@ -1080,20 +1502,29 @@ def main() -> None:
         "value_and_grad_twisted": device_profile(lambda: value_and_grad(tmodel)),
         "value_and_grad_single_ended": device_profile(step_single),
         "value_and_grad_snelson_m100": device_profile(lambda: value_and_grad(tr["snelson_model"])),
+        "kron_value_and_grad": device_profile(lambda: kron_value_and_grad(kmodel)),
     }
     for name, prof in profiles.items():
         emit("7_profile", what=name, card=smi, **prof)
     for name, run_fit in (("fit_north_star", fit), ("fit_snelson", sn_fit),
-                          ("fit_exact_snelson", ex_fit)):
+                          ("fit_exact_snelson", ex_fit), ("fit_kron", kfit)):
         emit("7_time", what=name, card=smi, median_ms_per_iter=run_fit["ms_per_iter"],
              ms_per_iter=run_fit["ms_per_iter_all"], evals=run_fit["info"]["ls_evals"],
              evals_per_iter=run_fit["info"].get("evals_per_iter"))
 
+    # one PyTorch computation of the same function exists for K16 only
+    library_ms = {"chol_inv_dense": times["chol_inv_dense_library"]["median_ms"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         ins, outs = io[name]
-        bnd = bound(name, k, m, (*ins, *outs))
-        emit("7_bound", what=name, k=k, m=m, **bnd)
+        if name == "chol_inv_dense":
+            shape = {"B": blk.shape[0]}
+            ops = dense_block_ops(blk.shape[0])
+        else:
+            shape = {"k": k, "m": m}
+            ops = sweep_ops(name, k, m)
+        bnd = bound(ops, (*ins, *outs))
+        emit("7_bound", what=name, **shape, **bnd)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1105,7 +1536,7 @@ def main() -> None:
             "plain_ms": plain_ms[name],
             "bound_ms": bnd["bound_ms"],
             "bound_by": bnd["bound_by"],
-            "library_ms": None,  # no PyTorch call computes a banded sweep
+            "library_ms": library_ms.get(name),  # no PyTorch call computes a banded sweep
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

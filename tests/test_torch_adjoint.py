@@ -1,5 +1,6 @@
 """The adjoint of the generic collapsed core: K7 ``tak_bwd_vec``, K8
-``chol_bwd_pair`` and ``CollapsedCore`` (banded/core.py).
+``chol_bwd_pair`` and ``CollapsedCore`` (banded/core.py), and the pair
+forms K15 ``chol_fwd_pair`` (banded/single.py) and K23 ``tak_bwd_pair``.
 
 K7's and K8's plain versions are held to the JAX package's
 ``takahashi_bwd_vec_ds`` and ``cholesky_band_pair_bwd_ds`` in Pallas
@@ -27,7 +28,7 @@ from asvgp_tpu.banded import pallas_ds_core as jpdc
 from asvgp_tpu.banded import pallas_ds_pair as jpdp
 from asvgp_tpu.banded import pallas_kernels as jpk
 from asvgp_tpu_torch import banded
-from asvgp_tpu_torch.banded import core, ops
+from asvgp_tpu_torch.banded import core, ops, single
 
 LAUNCH_KEYS = ("chol_pair_solve", "tak_pair_solve", "tak_bwd_vec", "chol_bwd_pair")
 WEIGHTS = (0.7, -0.3, 0.2, 1.3)
@@ -78,6 +79,50 @@ def test_k7_k8_match_jax_interpret(interpret_small_tile):
     want, _ = jpdp.cholesky_band_pair_bwd_ds(jl, jl, jnp.asarray(l_bar.numpy()),
                                              jnp.zeros_like(jl))
     assert rel(core.chol_bwd_pair(l, l_bar), want) <= 3e-8
+
+
+def test_k15_k23_match_jax_interpret(interpret_small_tile):
+    """K15's plain version against ``cholesky_band_pair_fwd_ds`` on two
+    different bands, K23's against ``takahashi_bwd_pair_ds`` (one matrix and
+    a dead second lane in the JAX package) on its second matrix; two tiles,
+    the last one ragged."""
+    rng = np.random.RandomState(4)
+    a, b = (torch.from_numpy(spd_band(2, 7, rng)) for _ in range(2))
+    want_a, want_b = jpdp.cholesky_band_pair_fwd_ds(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+    got_a, got_b = single.chol_fwd_pair(a, b)
+    assert rel(got_a, want_a) <= 1e-13 and rel(got_b, want_b) <= 1e-13
+    l = torch.stack([got_a, got_b])
+    s = torch.stack([ops.takahashi_inverse_band_plain(x) for x in l])
+    s_bar = torch.from_numpy(rng.randn(2, 3, 7))
+    iv = 1.0 / l[:, 0]
+    got = core.tak_bwd_pair(l, s, s_bar, iv)
+    want = jpdc.takahashi_bwd_pair_ds(*(jnp.asarray(t[1].numpy()) for t in (l, s, s_bar, iv)))
+    assert rel(got[1], want) <= 3e-8
+    assert rel(got[0], ops.takahashi_bwd_plain(l[0], s[0], s_bar[0], iv[0])) == 0.0
+
+
+@pytest.mark.parametrize("k", [0, 2, 5])
+def test_cholesky_band_pair_is_one_pair_and_differentiable(k):
+    """``banded.cholesky_band_pair`` on two bands of one shape is the pair
+    Function (one plain K15 forward, one plain K8 batch of two backward),
+    equal to two single factorizations and to autograd through them; bands
+    of two shapes take two ``cholesky_band`` calls."""
+    rng = np.random.RandomState(k)
+    a, b = (torch.from_numpy(spd_band(k, 17, rng)).requires_grad_() for _ in range(2))
+    ca, cb = (torch.from_numpy(rng.randn(k + 1, 17)) for _ in range(2))
+    core.reset_counters()
+    la, lb = banded.cholesky_band_pair(a, b)
+    ga, gb = torch.autograd.grad((la, lb), (a, b), (ca, cb))
+    assert core.PLAIN_CALLS["cpu"] == (0 if k == 0 else 2)
+    ra, rb = ops.cholesky_band_plain(a), ops.cholesky_band_plain(b)
+    wa, wb = torch.autograd.grad((ra, rb), (a, b), (ca, cb))
+    assert torch.equal(la, ra) and torch.equal(lb, rb)
+    assert rel(ga, wa) <= 1e-13 and rel(gb, wb) <= 1e-13
+    if k:
+        lc, ld = banded.cholesky_band_pair(a[:, :12], b)
+        assert torch.equal(lc, ops.cholesky_band_plain(a[:, :12])) and torch.equal(ld, lb)
+    with pytest.raises(ValueError):
+        core.tak_bwd_pair(la[None], la[None], la[None], la[:1])
 
 
 @pytest.mark.parametrize("k,m", [(1, 9), (4, 23)])
@@ -173,3 +218,25 @@ def test_cuda_collapsed_core_grad_matches_cpu(cuda_device):
     assert core.PLAIN_CALLS["cuda"] == 0
     for g, w in zip(got, want):
         assert rel(g.cpu(), w) <= 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 7))
+def test_cuda_k15_k23_match_plain(cuda_device, k):
+    """K15 and K23 on the card, one launch each for two matrices, against
+    their plain versions: ≤ 1e-11 relative at well-conditioned bands."""
+    rng = np.random.RandomState(20 + k)
+    a, b = (torch.from_numpy(spd_band(k, 1000, rng)) for _ in range(2))
+    la, lb = single.chol_fwd_pair_plain(a, b)
+    l = torch.stack([la, lb])
+    s = torch.stack([ops.takahashi_inverse_band_plain(x) for x in l])
+    s_bar = torch.from_numpy(rng.randn(2, k + 1, 1000))
+    iv = (1.0 / l[:, 0]).contiguous()
+    core.reset_counters()
+    ga, gb = single.chol_fwd_pair(a.to(cuda_device), b.to(cuda_device))
+    g23 = core.tak_bwd_pair(*(t.to(cuda_device) for t in (l, s, s_bar, iv)))
+    torch.cuda.synchronize()
+    assert core.LAUNCHES["chol_fwd_pair"] == 1 and core.LAUNCHES["tak_bwd_pair"] == 1
+    assert core.LAUNCHES["chol_fwd"] == 0 and core.PLAIN_CALLS["cuda"] == 0
+    assert rel(ga.cpu(), la) <= 1e-11 and rel(gb.cpu(), lb) <= 1e-11
+    assert rel(g23.cpu(), core.tak_bwd_pair_plain(l, s, s_bar, iv)) <= 1e-11

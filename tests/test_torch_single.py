@@ -30,7 +30,7 @@ from asvgp_tpu.banded import pallas_ds_core as jpdc
 from asvgp_tpu.banded import pallas_ds_pair as jpdp
 from asvgp_tpu.banded import pallas_kernels as jpk
 from asvgp_tpu_torch import banded
-from asvgp_tpu_torch.banded import core, ops, single, tan, twist, twisted
+from asvgp_tpu_torch.banded import core, dense_block, ops, single, tan, twist, twisted
 
 LAUNCH_KEYS = ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd")
 
@@ -170,8 +170,9 @@ def _kernel_wrappers():
               "solve_lower_band", "solve_upper_band_transpose", "cholesky_solve_band",
               "collapsed_core", "banded_posterior", "collapsed_core_matern"),
         core: ("chol_pair_solve", "tak_pair_solve", "factor_takahashi_solve", "collapsed_core",
-               "tak_bwd_vec", "chol_bwd_pair"),
-        single: ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd"),
+               "tak_bwd_vec", "chol_bwd_pair", "tak_bwd_pair"),
+        single: ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd", "chol_fwd_pair"),
+        dense_block: ("chol_inv_dense",),
         tan: ("chol_pair_solve_tan", "tak_pair_solve_tan", "factor_takahashi_solve_tan"),
         twist: ("chol_quad_solve_tan", "tak_quad_solve_tan", "factor_takahashi_solve_tan_twist"),
     }
@@ -204,6 +205,10 @@ def test_plain_versions_reach_only_plain_loops(monkeypatch):
     single.chol_bwd_plain(l, l_bar)
     single.tak_fwd_plain(l)
     single.tak_bwd_plain(l, s, s_bar)
+    single.chol_fwd_pair_plain(kuu, p)
+    core.tak_bwd_pair_plain(torch.stack([l, l]), torch.stack([s, s]), torch.stack([s_bar, s_bar]),
+                            torch.stack([1.0 / l[0]] * 2))
+    dense_block.chol_inv_dense_plain(torch.eye(3, dtype=torch.float64) * 2.0)
     k3 = tan.chol_pair_solve_tan_plain(kuu, tanb, p, b)
     tan.tak_pair_solve_tan_plain(*k3)
     tan.factor_takahashi_solve_tan_plain(kuu, tanb, p, b)

@@ -217,6 +217,29 @@ def test_fit_lbfgs_controller_matches_jax(kwargs):
         assert abs(_leaf(params, path) - _leaf(jp, path)) <= 1e-9, path
 
 
+def _rosenbrock_list(p):
+    """The same valley with its parameters in a list and a tuple, as
+    GPRKron keeps its per-dimension kernels."""
+    a, b = p["x"][0]["a"], p["x"][1]
+    return (1.0 - a) ** 2 + 100.0 * (b - a * a) ** 2 + 0.1 * p["z"][0] ** 2
+
+
+def test_fit_lbfgs_takes_lists_like_jax():
+    """A tree with a list and a tuple flattens in JAX's order (dict keys
+    sorted, items in index order) and comes back with them intact."""
+    p0 = {"z": (np.float64(0.5),), "x": [{"a": np.float64(-1.2)}, np.float64(1.0)]}
+    jinfo, info = {}, {}
+    jp, jloss, jiters = jfit_lbfgs(jax.jit(_rosenbrock_list), jax.tree.map(jnp.asarray, p0),
+                                   info=jinfo)
+    params, loss, iters = fit_lbfgs(_rosenbrock_list, p0, info=info)
+    assert iters == int(jiters) and info["ls_evals"] == jinfo["ls_evals"]
+    assert abs(loss - float(jloss)) <= 1e-12 * max(1.0, abs(float(jloss)))
+    assert isinstance(params["x"], list) and isinstance(params["z"], tuple)
+    for got, want in zip(jax.tree.leaves(params), jax.tree.leaves(jp)):
+        assert isinstance(got, torch.Tensor)
+        assert abs(float(got) - float(want)) <= 1e-9
+
+
 def test_fit_lbfgs_rejects_mixed_devices_and_bad_guess():
     with pytest.raises(ValueError):
         fit_lbfgs(_rosenbrock, {"x": {"a": 1.0, "b": 1.0}, "z": 0.0}, ls_guess="two")
