@@ -17,13 +17,11 @@ update of its (W+1, B, B) panel in one ``torch.matmul``, the diagonal
 block through K16 (``dense_block.chol_inv_dense``, which also returns the
 inverse of the factor), and the W off-diagonal blocks as one product with
 that inverse.  W = 0 is one K16 launch on the batch of nb diagonal blocks.
-Its backward (``CholeskyBlockBanded``) is the reverse block recursion of
-the JAX package's ``_chol_block_adjoint``, fed with the diagonal-block
-inverses the forward kept.  The solves and the block Takahashi recursion
-take the diagonal-block inverses from one batched
-``torch.linalg.solve_triangular`` (the JAX package computes them outside
-any kernel too, ``block_ds.tri_inv_diag_blocks_ds``); every other block
-product is ``torch.matmul``.
+The factorization returns those inverses L_JJ⁻¹ beside L; its backward
+(``CholeskyBlockBanded``) is the reverse block recursion of the JAX
+package's ``_chol_block_adjoint`` fed with them, and the solves and the
+block Takahashi recursion take them as an input, so the inverses are
+computed once, by K16.  Every other block product is ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -47,15 +45,6 @@ def _keep(j: int, wp1: int, nb: int, like: torch.Tensor) -> torch.Tensor:
     """(W+1, 1, 1) mask of the block rows J + p < nb of block column J."""
     rows = j + torch.arange(wp1, device=like.device)
     return (rows < nb).to(like.dtype)[:, None, None]
-
-
-def diag_block_inverses(l0: torch.Tensor) -> torch.Tensor:
-    """(nb, B, B) inverses of the lower-triangular diagonal blocks ``l0``
-    (an all-zero block is taken as the identity, as in the JAX package)."""
-    eye = torch.eye(l0.shape[-1], dtype=l0.dtype, device=l0.device)
-    good = l0.abs().sum(dim=(-1, -2), keepdim=True) > 0
-    safe = torch.where(good, l0, eye)
-    return torch.linalg.solve_triangular(safe, eye.expand_as(safe), upper=False)
 
 
 # ---------------------------------------------------------------------------
@@ -143,31 +132,35 @@ def chol_block_adjoint(l_blocks: torch.Tensor, linv: torch.Tensor,
 
 
 class CholeskyBlockBanded(torch.autograd.Function):
-    """L = block-banded chol(A): the forward of ``cholesky_block_banded_fwd``
-    (K16 on the diagonal blocks), the backward ``chol_block_adjoint`` with
-    the diagonal-block inverses the forward computed."""
+    """(L, L_JJ⁻¹) = block-banded chol(A) and its diagonal-block inverses:
+    the forward of ``cholesky_block_banded_fwd`` (K16 on the diagonal
+    blocks), the backward ``chol_block_adjoint``.  The inverses carry no
+    gradient: every consumer differentiates through L alone."""
 
     @staticmethod
     def forward(ctx, blocks):
         l_blocks, linv = cholesky_block_banded_fwd(blocks)
         ctx.save_for_backward(l_blocks, linv)
-        return l_blocks
+        ctx.mark_non_differentiable(linv)
+        return l_blocks, linv
 
     @staticmethod
-    def backward(ctx, lbar):
+    def backward(ctx, lbar, _linv_bar):
         l_blocks, linv = ctx.saved_tensors
         return chol_block_adjoint(l_blocks, linv, lbar)
 
 
-def cholesky_block_banded(blocks: torch.Tensor) -> torch.Tensor:
-    """Block-banded Cholesky A = L Lᵀ, differentiable.
+def cholesky_block_banded(blocks: torch.Tensor):
+    """Block-banded Cholesky A = L Lᵀ, differentiable in L.
 
     Args:
       blocks: (W+1, nb, B, B) block-lower storage of a symmetric
         positive-definite A (diagonal blocks full-symmetric).
     Returns:
-      (W+1, nb, B, B) block-lower storage of L (diagonal blocks
-      lower-triangular, blocks past the end zero).
+      (L, linv): (W+1, nb, B, B) block-lower storage of L (diagonal blocks
+      lower-triangular, blocks past the end zero), and the (nb, B, B)
+      inverses of its diagonal blocks, which K16 computed with them; the
+      solves and ``takahashi_inverse_block_banded`` take both.
     """
     return CholeskyBlockBanded.apply(blocks)
 
@@ -196,11 +189,11 @@ def _out(x: torch.Tensor, vec: bool) -> torch.Tensor:
     return x[:, 0] if vec else x
 
 
-def solve_lower_block_banded_impl(l_blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_lower_block_banded_impl(l_blocks: torch.Tensor, b: torch.Tensor,
+                                  linv: torch.Tensor) -> torch.Tensor:
     """L x = b by block forward substitution (b: (nb·B,) or (nb·B, r))."""
     wp1, nb, B, _ = l_blocks.shape
     W = wp1 - 1
-    linv = diag_block_inverses(l_blocks[0])
     bb, vec = _rhs_blocks(b, nb, B)
     if W == 0:
         return _out(torch.matmul(linv, bb), vec)
@@ -216,12 +209,11 @@ def solve_lower_block_banded_impl(l_blocks: torch.Tensor, b: torch.Tensor) -> to
     return _out(torch.stack(xs), vec)
 
 
-def solve_upper_block_banded_transpose_impl(l_blocks: torch.Tensor,
-                                            b: torch.Tensor) -> torch.Tensor:
+def solve_upper_block_banded_transpose_impl(l_blocks: torch.Tensor, b: torch.Tensor,
+                                            linv: torch.Tensor) -> torch.Tensor:
     """Lᵀ x = b by block backward substitution."""
     wp1, nb, B, _ = l_blocks.shape
     W = wp1 - 1
-    linv = diag_block_inverses(l_blocks[0])
     bb, vec = _rhs_blocks(b, nb, B)
     if W == 0:
         return _out(torch.matmul(_t(linv), bb), vec)
@@ -257,21 +249,22 @@ def _as_matrix(x: torch.Tensor) -> torch.Tensor:
 
 class SolveLowerBlockBanded(torch.autograd.Function):
     """x = L⁻¹ b, with the algebraic adjoint b̄ = L⁻ᵀ x̄, L̄ = −b̄ xᵀ on the
-    block band (block.py:401-427)."""
+    block band (block.py:401-427), which holds all of L's gradient: none
+    flows through the diagonal-block inverses."""
 
     @staticmethod
-    def forward(ctx, l_blocks, b):
-        x = solve_lower_block_banded_impl(l_blocks, b)
-        ctx.save_for_backward(l_blocks, x)
+    def forward(ctx, l_blocks, b, linv):
+        x = solve_lower_block_banded_impl(l_blocks, b, linv)
+        ctx.save_for_backward(l_blocks, x, linv)
         return x
 
     @staticmethod
     def backward(ctx, xbar):
-        l_blocks, x = ctx.saved_tensors
+        l_blocks, x, linv = ctx.saved_tensors
         wp1, nb, B, _ = l_blocks.shape
-        bbar = solve_upper_block_banded_transpose_impl(l_blocks, xbar)
+        bbar = solve_upper_block_banded_transpose_impl(l_blocks, xbar, linv)
         lbar = _band_outer_blocks(_as_matrix(bbar), _as_matrix(x), wp1, nb, B)
-        return lbar, bbar
+        return lbar, bbar, None
 
 
 class SolveUpperBlockBandedTranspose(torch.autograd.Function):
@@ -279,34 +272,39 @@ class SolveUpperBlockBandedTranspose(torch.autograd.Function):
     block band (block.py:430-453)."""
 
     @staticmethod
-    def forward(ctx, l_blocks, b):
-        x = solve_upper_block_banded_transpose_impl(l_blocks, b)
-        ctx.save_for_backward(l_blocks, x)
+    def forward(ctx, l_blocks, b, linv):
+        x = solve_upper_block_banded_transpose_impl(l_blocks, b, linv)
+        ctx.save_for_backward(l_blocks, x, linv)
         return x
 
     @staticmethod
     def backward(ctx, xbar):
-        l_blocks, x = ctx.saved_tensors
+        l_blocks, x, linv = ctx.saved_tensors
         wp1, nb, B, _ = l_blocks.shape
-        bbar = solve_lower_block_banded_impl(l_blocks, xbar)
+        bbar = solve_lower_block_banded_impl(l_blocks, xbar, linv)
         lbar = _band_outer_blocks(_as_matrix(x), _as_matrix(bbar), wp1, nb, B)
-        return lbar, bbar
+        return lbar, bbar, None
 
 
-def solve_lower_block_banded(l_blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve L x = b for L from ``cholesky_block_banded``; b is (nb·B,) or
-    (nb·B, r).  Differentiable in L and b."""
-    return SolveLowerBlockBanded.apply(l_blocks, b)
+def solve_lower_block_banded(l_blocks: torch.Tensor, b: torch.Tensor,
+                             linv: torch.Tensor) -> torch.Tensor:
+    """Solve L x = b for (L, linv) from ``cholesky_block_banded``; b is
+    (nb·B,) or (nb·B, r).  Differentiable in L and b."""
+    return SolveLowerBlockBanded.apply(l_blocks, b, linv)
 
 
-def solve_upper_block_banded_transpose(l_blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_upper_block_banded_transpose(l_blocks: torch.Tensor, b: torch.Tensor,
+                                       linv: torch.Tensor) -> torch.Tensor:
     """Solve Lᵀ x = b.  Differentiable in L and b."""
-    return SolveUpperBlockBandedTranspose.apply(l_blocks, b)
+    return SolveUpperBlockBandedTranspose.apply(l_blocks, b, linv)
 
 
-def cholesky_solve_block_banded(l_blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b given the block-banded factor L of A."""
-    return solve_upper_block_banded_transpose(l_blocks, solve_lower_block_banded(l_blocks, b))
+def cholesky_solve_block_banded(l_blocks: torch.Tensor, b: torch.Tensor,
+                                linv: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given the block-banded factor L of A and its
+    diagonal-block inverses."""
+    return solve_upper_block_banded_transpose(
+        l_blocks, solve_lower_block_banded(l_blocks, b, linv), linv)
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +312,13 @@ def cholesky_solve_block_banded(l_blocks: torch.Tensor, b: torch.Tensor) -> torc
 # ---------------------------------------------------------------------------
 
 
-def takahashi_inverse_block_banded(l_blocks: torch.Tensor) -> torch.Tensor:
-    """Block band of A⁻¹ from the block-banded factor L: the block Takahashi
-    recursion (block.py:468-531), exact on the block band.  Returns
-    (W+1, nb, B, B) block-lower storage (diagonal blocks symmetric)."""
+def takahashi_inverse_block_banded(l_blocks: torch.Tensor, linv: torch.Tensor) -> torch.Tensor:
+    """Block band of A⁻¹ from the block-banded factor L and its
+    diagonal-block inverses: the block Takahashi recursion
+    (block.py:468-531), exact on the block band.  Returns (W+1, nb, B, B)
+    block-lower storage (diagonal blocks symmetric)."""
     wp1, nb, B, _ = l_blocks.shape
     W = wp1 - 1
-    linv = diag_block_inverses(l_blocks[0])
     if W == 0:
         return torch.matmul(_t(linv), linv)[None]
     window = [torch.zeros_like(l_blocks[:, 0]) for _ in range(W)]  # S columns J+1..J+W

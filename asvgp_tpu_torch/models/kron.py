@@ -75,9 +75,9 @@ def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
     s_bands = [banded.takahashi_inverse_band(lb) for lb in l_bands]
     trace_term = t_band_trace_against_kron(stats.t_band, s_bands[0], s_bands[1])
 
-    l_p = block.cholesky_block_banded(_p_blocks(bases, kuu_bands, sigma2, stats.t_band))
+    l_p, linv_p = block.cholesky_block_banded(_p_blocks(bases, kuu_bands, sigma2, stats.t_band))
     log_det_p = block.log_det_from_block_cholesky(l_p)
-    c = block.solve_lower_block_banded(l_p, stats.kuf_y) / sigma2
+    c = block.solve_lower_block_banded(l_p, stats.kuf_y, linv_p) / sigma2
     kdiag_sum = stats.n * math.prod(k.variance for k in kernels)
 
     elbo = -0.5 * stats.n * (_LOG2PI + torch.log(sigma2))
@@ -305,9 +305,10 @@ class GPRKron(nn.Module):
         kuu_bands = [make_kuu(k, b) for k, b in zip(kernels, self.bases)]
         l_bands = [banded.cholesky_band(kb) for kb in kuu_bands]
         s_bands = [banded.takahashi_inverse_band(lb) for lb in l_bands]
-        l_p = block.cholesky_block_banded(_p_blocks(self.bases, kuu_bands, sigma2, self.t_band))
-        w = block.cholesky_solve_block_banded(l_p, self.kuf_y) / sigma2
-        sp = block.takahashi_inverse_block_banded(l_p)
+        l_p, linv_p = block.cholesky_block_banded(
+            _p_blocks(self.bases, kuu_bands, sigma2, self.t_band))
+        w = block.cholesky_solve_block_banded(l_p, self.kuf_y, linv_p) / sigma2
+        sp = block.takahashi_inverse_block_banded(l_p, linv_p)
         return PosteriorKron(kernels, lik, self.bases, w.reshape(self.bases[0].m, -1), sp,
                              s_bands)
 

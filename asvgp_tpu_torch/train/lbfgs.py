@@ -44,6 +44,12 @@ def _unflatten(tree, values):
     return next(values)
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to each leaf of a pytree of dicts, lists and tuples,
+    in the layout ``_unflatten`` gives."""
+    return _unflatten(tree, (fn(v) for v in _leaves(tree)))
+
+
 def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
               memory_size: int = 20, info: dict | None = None, restarts: int = 0,
               max_linesearch_steps: int = 30, curv_rtol: float = 0.9,

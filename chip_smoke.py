@@ -715,15 +715,6 @@ def route_step(device, model, route: str, want: dict):
     return loss, grads, read_launches(device, route, want)
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to each leaf of a params pytree (dicts and lists)."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, value) for key, value in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, value) for value in tree]
-    return fn(tree)
-
-
 def fit_runs(device, model, route: str, per_eval: dict, **kwargs) -> dict:
     """``fit_lbfgs`` REPS + 1 times from the model's parameters, each on
     fresh counters: each kernel of ``per_eval`` must launch that many times
@@ -732,6 +723,7 @@ def fit_runs(device, model, route: str, per_eval: dict, **kwargs) -> dict:
     other REPS."""
     from asvgp_tpu_torch.banded import core
     from asvgp_tpu_torch.train import fit_lbfgs
+    from asvgp_tpu_torch.train.lbfgs import tree_map
 
     start = model.params()
     runs = []
@@ -934,6 +926,7 @@ def kron_path(device) -> dict:
     from asvgp_tpu_torch.models import GPRKron, Matern32
     from asvgp_tpu_torch.stats import compute_kron_stats
     from asvgp_tpu_torch.train import mse, nlpd
+    from asvgp_tpu_torch.train.lbfgs import tree_map
 
     X, y = synthetic_ssh(N_KRON + N_KRON_TEST)
     Xtr, ytr = X[N_KRON_TEST:], y[N_KRON_TEST:]
@@ -1009,6 +1002,13 @@ def dense_block_ops(B: int) -> int:
     return 2 * fma + scale + 2 * B
 
 
+def dense_block_bytes(B: int) -> int:
+    """Bytes K16 must move for one B×B float64 block: the lower triangle of
+    the input, which is all it reads (B(B+1)/2 entries), and the two full
+    B×B outputs, upper triangles zero."""
+    return 8 * (B * (B + 1) // 2 + 2 * B * B)
+
+
 def ptxas_summary(log: str) -> list[str]:
     """'kernel<K>: registers, spill bytes' for every entry ptxas compiled."""
     out, name = [], None
@@ -1058,12 +1058,17 @@ def sweep_ops(name: str, k: int, m: int) -> int:
     return per_col * cols
 
 
-def bound(ops: int, tensors) -> dict:
-    """The least time the card could take for ``ops`` operations on
-    ``tensors``: every input read once and every output written once at
-    the HBM rate, against the operations at the FP64 peak; the larger one
-    bounds."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+def tensor_bytes(tensors) -> int:
+    """Bytes of ``tensors``: a sweep reads each input and writes each
+    output whole."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: int, nbytes: int) -> dict:
+    """The least time the card could take for ``ops`` operations moving
+    ``nbytes`` (each input read once and each output written once): the
+    bytes at the HBM rate against the operations at the FP64 peak; the
+    larger one bounds."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP64_PER_S * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -1426,7 +1431,6 @@ def main() -> None:
     calls["tak_bwd_pair"] = (lambda: core.tak_bwd_pair(*pair_args),
                              lambda: core.tak_bwd_pair_plain(*pair_args))
     blk = k16_blocks[0]
-    io["chol_inv_dense"] = ((blk,), dense_block.chol_inv_dense(blk))
     calls["chol_inv_dense"] = (lambda: dense_block.chol_inv_dense(blk),
                                lambda: dense_block.chol_inv_dense_plain(blk))
     blk_batch = torch.stack(k16_blocks)
@@ -1516,14 +1520,13 @@ def main() -> None:
     library_ms = {"chol_inv_dense": times["chol_inv_dense_library"]["median_ms"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        ins, outs = io[name]
         if name == "chol_inv_dense":
             shape = {"B": blk.shape[0]}
-            ops = dense_block_ops(blk.shape[0])
+            bnd = bound(dense_block_ops(blk.shape[0]), dense_block_bytes(blk.shape[0]))
         else:
             shape = {"k": k, "m": m}
-            ops = sweep_ops(name, k, m)
-        bnd = bound(ops, (*ins, *outs))
+            ins, outs = io[name]
+            bnd = bound(sweep_ops(name, k, m), tensor_bytes((*ins, *outs)))
         emit("7_bound", what=name, **shape, **bnd)
         kernels.append({
             "name": name,
@@ -1536,7 +1539,7 @@ def main() -> None:
             "plain_ms": plain_ms[name],
             "bound_ms": bnd["bound_ms"],
             "bound_by": bnd["bound_by"],
-            "library_ms": library_ms.get(name),  # no PyTorch call computes a banded sweep
+            "library_ms": library_ms.get(name),
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

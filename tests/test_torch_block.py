@@ -12,9 +12,9 @@ factor, its log-determinant, both solves, the solve with A and the block
 Takahashi band) are held to the JAX package's float64 ``banded/block.py``
 on the CPU to 1e-12 relative, and the backward of the Cholesky and of the
 solves to ``jax.vjp`` of the same functions to 1e-10: the same float64
-functions, the port taking the off-diagonal blocks and the solves through
-the diagonal-block inverses where the JAX package solves triangular
-systems.
+functions, the port taking the off-diagonal blocks, the solves and the
+block Takahashi recursion through the diagonal-block inverses that K16
+returned with the factor where the JAX package solves triangular systems.
 
 The CUDA kernel has no CPU mode: its tests are marked ``cuda`` and skip
 without a card.
@@ -74,7 +74,7 @@ def interpret():
     jpk.set_interpret(False)
 
 
-@pytest.mark.parametrize("b", [4, 16, 24])
+@pytest.mark.parametrize("b", [4, 16])
 def test_chol_inv_dense_plain_matches_jax_interpret(interpret, b):
     m = random_spd(0, b)
     mh, ml = jds.split_f64(jnp.asarray(m))
@@ -112,7 +112,7 @@ def test_block_ops_match_jax(W, nb, B):
     b_vec, b_mat = rng.randn(nb * B), rng.randn(nb * B, 3)
     tb = torch.from_numpy(blocks)
     jb = jnp.asarray(blocks)
-    l = block.cholesky_block_banded(tb)
+    l, linv = block.cholesky_block_banded(tb)
     jl = jblock.cholesky_block_banded(jb)
     assert rel(l, jl) <= 1e-12
     assert rel(block.log_det_from_block_cholesky(l),
@@ -121,14 +121,15 @@ def test_block_ops_match_jax(W, nb, B):
     jl_np = jnp.asarray(l.numpy())
     for rhs in (b_vec, b_mat):
         t_rhs, j_rhs = torch.from_numpy(rhs), jnp.asarray(rhs)
-        assert rel(block.solve_lower_block_banded(l, t_rhs),
+        assert rel(block.solve_lower_block_banded(l, t_rhs, linv),
                    jblock.solve_lower_block_banded(jl_np, j_rhs)) <= 1e-12
-        assert rel(block.solve_upper_block_banded_transpose(l, t_rhs),
+        assert rel(block.solve_upper_block_banded_transpose(l, t_rhs, linv),
                    jblock.solve_upper_block_banded_transpose(jl_np, j_rhs)) <= 1e-12
-        x = block.cholesky_solve_block_banded(l, t_rhs)
+        x = block.cholesky_solve_block_banded(l, t_rhs, linv)
         assert rel(x, jblock.cholesky_solve_block_banded(jl_np, j_rhs)) <= 1e-12
         assert rel(x, np.linalg.solve(dense, rhs)) <= 1e-12
-    s = block.takahashi_inverse_block_banded(l)
+    assert rel(linv, np.linalg.inv(l[0].numpy())) <= 1e-12
+    s = block.takahashi_inverse_block_banded(l, linv)
     assert rel(s, jblock.takahashi_inverse_block_banded(jl_np)) <= 1e-12
     inv_band = block.dense_to_block_band(torch.from_numpy(np.linalg.inv(dense)), W, B)
     assert rel(s, inv_band) <= 1e-12
@@ -146,7 +147,8 @@ def test_block_backward_matches_jax_vjp(W, nb, B):
     b, xbar = rng.randn(nb * B), rng.randn(nb * B)
 
     tb = torch.from_numpy(blocks).requires_grad_()
-    l = block.cholesky_block_banded(tb)
+    l, linv = block.cholesky_block_banded(tb)
+    assert not linv.requires_grad
     (got_a,) = torch.autograd.grad(l, tb, torch.from_numpy(lbar))
     _, vjp = jax.vjp(jblock.cholesky_block_banded, jnp.asarray(blocks))
     (want_a,) = vjp(jnp.asarray(lbar))
@@ -155,13 +157,13 @@ def test_block_backward_matches_jax_vjp(W, nb, B):
     l_np = l.detach().numpy()
     tl = torch.from_numpy(l_np).requires_grad_()
     tbv = torch.from_numpy(b).requires_grad_()
-    x = block.solve_lower_block_banded(tl, tbv)
+    x = block.solve_lower_block_banded(tl, tbv, linv)
     got_l, got_b = torch.autograd.grad(x, (tl, tbv), torch.from_numpy(xbar))
     _, vjp = jax.vjp(jblock.solve_lower_block_banded, jnp.asarray(l_np), jnp.asarray(b))
     want_l, want_b = vjp(jnp.asarray(xbar))
     assert rel(got_l, want_l) <= 1e-10 and rel(got_b, want_b) <= 1e-10
 
-    x = block.solve_upper_block_banded_transpose(tl, tbv)
+    x = block.solve_upper_block_banded_transpose(tl, tbv, linv)
     got_l, got_b = torch.autograd.grad(x, (tl, tbv), torch.from_numpy(xbar))
     _, vjp = jax.vjp(jblock.solve_upper_block_banded_transpose, jnp.asarray(l_np),
                      jnp.asarray(b))
@@ -183,10 +185,10 @@ def test_block_ops_on_the_cpu_run_only_plain_versions(monkeypatch):
     blocks, _ = block_problem(W, nb, B, 0)
     tb = torch.from_numpy(blocks).requires_grad_()
     core.reset_counters()
-    l = block.cholesky_block_banded(tb)
+    l, linv = block.cholesky_block_banded(tb)
     assert core.PLAIN_CALLS == {"cpu": nb, "cuda": 0}
-    x = block.cholesky_solve_block_banded(l, torch.ones(nb * B, dtype=torch.float64))
-    block.takahashi_inverse_block_banded(l.detach())
+    x = block.cholesky_solve_block_banded(l, torch.ones(nb * B, dtype=torch.float64), linv)
+    block.takahashi_inverse_block_banded(l.detach(), linv)
     x.sum().backward()
     l0, _ = block.cholesky_block_banded_fwd(torch.from_numpy(blocks[:1]))
     assert core.PLAIN_CALLS == {"cpu": nb + 1, "cuda": 0}  # W = 0: one call for all blocks
@@ -240,12 +242,12 @@ def test_cuda_block_cholesky_matches_cpu(cuda_device, W):
     tb = torch.from_numpy(blocks)
     core.reset_counters()
     tg = tb.to(cuda_device).requires_grad_()
-    l = block.cholesky_block_banded(tg)
+    l, _ = block.cholesky_block_banded(tg)
     (g,) = torch.autograd.grad(block.log_det_from_block_cholesky(l), tg)
     torch.cuda.synchronize()
     assert core.LAUNCHES["chol_inv_dense"] == (1 if W == 0 else nb)
     assert core.PLAIN_CALLS["cuda"] == 0
     tc = tb.clone().requires_grad_()
-    lc = block.cholesky_block_banded(tc)
+    lc, _ = block.cholesky_block_banded(tc)
     (gc,) = torch.autograd.grad(block.log_det_from_block_cholesky(lc), tc)
     assert rel(l, lc.detach().numpy()) <= 1e-12 and rel(g, gc.numpy()) <= 1e-10

@@ -34,6 +34,7 @@ from asvgp_tpu_torch.train import fit_lbfgs
 
 N = 300
 CASES = {"o33": ((3, 3), (9, 9)), "o24": ((2, 4), (10, 10))}
+LENGTHSCALES = (0.3, 0.2)
 TOL = 1e-10
 
 
@@ -56,21 +57,33 @@ def _bases(case, pkg):
     return [pkg(0.0, 1.0, m, o) for o, m in zip(orders, ms)]
 
 
-def _models(case, device="cpu"):
+def _model(case, device="cpu"):
+    """The port's GPRKron of a case at its initial parameters."""
     X, y = field(N, 0)
-    lengthscales = (0.3, 0.2)
-    model = GPRKron((X, y), [Matern32(lengthscales=ell) for ell in lengthscales],
-                    _bases(case, BSplineBasis), noise_variance=0.1, device=device)
-    jmodel = JGPRKron((jnp.asarray(X), jnp.asarray(y)),
-                      [JMatern32(lengthscales=ell) for ell in lengthscales],
-                      _bases(case, JBasis), noise_variance=0.1)
-    return model, jmodel
+    return GPRKron((X, y), [Matern32(lengthscales=ell) for ell in LENGTHSCALES],
+                   _bases(case, BSplineBasis), noise_variance=0.1, device=device)
+
+
+@functools.cache
+def _jax_model(case):
+    """The JAX package's GPRKron of a case, built once per run so that its
+    compiled loss and posterior are reused; it holds no parameters."""
+    X, y = field(N, 0)
+    return JGPRKron((jnp.asarray(X), jnp.asarray(y)),
+                    [JMatern32(lengthscales=ell) for ell in LENGTHSCALES],
+                    _bases(case, JBasis), noise_variance=0.1)
 
 
 def moved_params():
     return {"kernels": [{"raw_lengthscales": np.float64(-1.1), "raw_variance": np.float64(0.4)},
                         {"raw_lengthscales": np.float64(-1.6), "raw_variance": np.float64(-0.2)}],
             "likelihood": {"raw_variance": np.float64(-2.5)}}
+
+
+def _jax_tree(params):
+    """A parameter tree as JAX float64 scalars, one layout for every tree
+    so that the compiled loss is reused."""
+    return jax.tree.map(lambda v: jnp.asarray(np.float64(v)), params)
 
 
 def _grads(model):
@@ -83,15 +96,13 @@ def _grads(model):
 
 @functools.cache
 def _jax_loss(case):
-    """The JAX model of a case and its jitted value and gradient."""
-    _, jmodel = _models(case)
-    return jmodel, jax.jit(jax.value_and_grad(jmodel.training_loss))
+    """The jitted value and gradient of a case's JAX training loss."""
+    return jax.jit(jax.value_and_grad(_jax_model(case).training_loss))
 
 
 def _jax_value_and_grad(case, moved):
-    jmodel, value_and_grad = _jax_loss(case)
-    params = moved_params() if moved else jmodel.init_params()
-    value, grad = value_and_grad(jax.tree.map(jnp.asarray, params))
+    params = moved_params() if moved else _jax_model(case).init_params()
+    value, grad = _jax_loss(case)(_jax_tree(params))
     return params, float(value), [float(g) for g in jax.tree.leaves(grad)]
 
 
@@ -109,40 +120,44 @@ def test_kron_stats_match_jax(case):
 def test_elbo_and_gradient_match_jax(case, moved):
     """The module's loss and ``backward()`` against ``jax.value_and_grad``;
     one value-and-grad step runs the plain K9 and K11 twice each forward,
-    K10 and K12 twice each backward, and K16 once per block column."""
-    model, _ = _models(case)
+    K10 and K12 twice each backward, and K16 once per block column.  At the
+    initial parameters ``params()`` is the JAX ``init_params()`` leaf for
+    leaf, lists included; at the moved ones ``training_loss(params)`` on a
+    pytree of tensors equals the module's loss after ``load_jax_params``
+    and differentiates into the tree."""
+    model = _model(case)
     params, value, grad = _jax_value_and_grad(case, moved)
+    if moved:
+        tree = jax.tree.map(lambda v: torch.tensor(float(v), dtype=torch.float64,
+                                                   requires_grad=True), params)
+        tree_loss = model.training_loss(tree)
+        (tree_grad,) = torch.autograd.grad(tree_loss, tree["kernels"][1]["raw_lengthscales"])
+    else:
+        got = model.params()
+        assert set(got) == {"kernels", "likelihood"} and isinstance(got["kernels"], list)
+        for g, w in zip(jax.tree.leaves(jax.tree.map(float, got)),
+                        jax.tree.leaves(jax.tree.map(float, params)), strict=True):
+            assert abs(g - w) <= 1e-15 * abs(w)
     model.load_jax_params(params)
     core.reset_counters()
     loss = model.training_loss()
     loss.backward()
     assert core.PLAIN_CALLS == {"cpu": 8 + model.bases[0].m, "cuda": 0}
     assert abs(float(loss.detach()) - value) <= TOL * abs(value)
-    for got, want in zip(_grads(model), grad):
+    for got, want in zip(_grads(model), grad, strict=True):
         assert abs(got - want) <= TOL * abs(want)
-
-
-def test_params_pytree_differentiates():
-    """``training_loss(params)`` with a pytree of tensors equals the
-    module's loss at those parameters, and differentiates into the tree."""
-    model, _ = _models("o33")
-    params = jax.tree.map(lambda v: torch.tensor(float(v), dtype=torch.float64,
-                                                 requires_grad=True), moved_params())
-    loss = model.training_loss(params)
-    (g,) = torch.autograd.grad(loss, params["kernels"][1]["raw_lengthscales"])
-    model.load_jax_params(params)
-    loss2 = model.training_loss()
-    loss2.backward()
-    assert float(loss.detach()) == float(loss2.detach())
-    assert float(g) == float(model.raw_lengthscales[1].grad)
+    if moved:
+        assert float(model.raw_lengthscales[1].detach()) == -1.6
+        assert float(tree_loss.detach()) == float(loss.detach())
+        assert float(tree_grad) == float(model.raw_lengthscales[1].grad)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_predictions_match_jax(case):
-    model, jmodel = _models(case)
+    model, jmodel = _model(case), _jax_model(case)
     params = moved_params()
     model.load_jax_params(params)
-    jparams = jax.tree.map(jnp.asarray, params)
+    jparams = _jax_tree(params)
     Xt, yt = field(120, 2)
     post = model.posterior()
     mean, var = post.predict_f(Xt)
@@ -161,7 +176,7 @@ def test_predictions_match_jax(case):
 
 
 def test_fit_lbfgs_matches_jax():
-    model, jmodel = _models("o33")
+    model, jmodel = _model("o33"), _jax_model("o33")
     jinfo, info = {}, {}
     jp, jloss, jiters = jfit_lbfgs(jax.jit(jmodel.training_loss), jmodel.init_params(),
                                    max_iters=6, curv_rtol=10.0, info=jinfo)
@@ -175,22 +190,6 @@ def test_fit_lbfgs_matches_jax():
         assert abs(got - want) <= 1e-6 * abs(want)
     model.load_jax_params(params)
     assert abs(float(model.training_loss().detach()) - loss) <= 1e-12 * abs(loss)
-
-
-def test_load_jax_params_and_params_layout():
-    model, jmodel = _models("o24")
-    init = jmodel.init_params()
-    got = model.params()
-    assert set(got) == {"kernels", "likelihood"} and len(got["kernels"]) == 2
-    for g, w in zip(jax.tree.leaves(jax.tree.map(float, got)),
-                    jax.tree.leaves(jax.tree.map(float, init))):
-        assert abs(g - w) <= 1e-15 * abs(w)
-    model.load_jax_params(moved_params())
-    assert float(model.raw_lengthscales[1].detach()) == -1.6
-    assert float(model.raw_noise_variance.detach()) == -2.5
-    with pytest.raises(ValueError):
-        model.load_jax_params({"kernels": moved_params()["kernels"][:1],
-                               "likelihood": {"raw_variance": 0.0}})
 
 
 def test_validation_errors():
@@ -211,6 +210,9 @@ def test_validation_errors():
     model = GPRKron((X, y), kernels, bases, device="cpu")
     with pytest.raises(NotImplementedError):
         model.predict_f(X, full_cov=True)
+    with pytest.raises(ValueError):
+        model.load_jax_params({"kernels": moved_params()["kernels"][:1],
+                               "likelihood": {"raw_variance": 0.0}})
 
 
 def test_default_device_is_the_card():
@@ -238,8 +240,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
 def test_cuda_value_and_grad_match_cpu(cuda_device, case):
-    cpu, _ = _models(case)
-    gpu, _ = _models(case, device=cuda_device)
+    cpu, gpu = _model(case), _model(case, device=cuda_device)
     for model in (cpu, gpu):
         model.load_jax_params(moved_params())
     core.reset_counters()
