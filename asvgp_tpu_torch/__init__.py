@@ -13,9 +13,10 @@ the JAX package's layout:
              Gaussian likelihood
   train/     L-BFGS, minibatch Adam, metrics (NLPD, MSE)
 
-Everything is float64.  Tensors on the CPU run the plain versions of the
-kernels; tensors on a CUDA device run the kernels, built with nvcc at first
-use.  The package imports torch and numpy, never jax.
+Everything is float64, except GPR1D with ``dtype=torch.float32`` (the JAX
+package's float32 route, with the float32 kernels K17–K22).  Tensors on
+the CPU run the plain versions of the kernels; tensors on a CUDA device run
+the kernels, built with nvcc at first use.  The package imports torch and numpy, never jax.
 """
 
 from asvgp_tpu_torch import banded, basis, features, models, stats, train

@@ -9,7 +9,9 @@ Storage conventions as in the JAX package: a *lower band* ``band`` of shape
 which run the plain recursion on a CPU tensor and a kernel on a CUDA one;
 ``core`` the two value sweeps (K1, K2) and the collapsed core's adjoint
 (K7, K8), ``single`` the single-matrix Cholesky and Takahashi and their
-adjoints (K9–K12) and the pair Cholesky (K15), ``tan`` the tangent-fused
+adjoints (K9–K12, in float32 K17–K20) and the pair Cholesky (K15),
+``solve`` the triangular solves (K13, K14, in float32 K21, K22) and their
+autograd Functions, ``tan`` the tangent-fused
 sweeps (K3, K4) and ``twist`` their two-ended form (K5, K6), as CUDA
 kernels on the GPU; ``twisted`` the float64 oracle of the two-ended
 factorization.  ``block`` holds the block-banded algebra of the Kronecker

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("banded_core.cu", "banded_tan.cu", "banded_adjoint.cu",
-                 "block_chol_inv.cu"))
+                 "banded_solve.cu", "block_chol_inv.cu"))
 BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,6 +46,14 @@ ENTRY_POINTS = {
     "asvgp_chol_bwd": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_tak_fwd": (_I, _I, _I) + (_VP,) * 3,
     "asvgp_tak_bwd": (_I, _I, _I) + (_VP,) * 6,
+    "asvgp_chol_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_chol_bwd_f32": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_tak_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_tak_bwd_f32": (_I, _I, _I) + (_VP,) * 6,
+    "asvgp_solve_lower": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_solve_upper_t": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_solve_lower_f32": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
     # not a launch: the doubles of global workspace per block of K16
     "asvgp_chol_inv_dense_workspace": (_I,),

@@ -38,9 +38,11 @@ import torch
 from asvgp_tpu_torch.banded import _build, ops
 
 # one count per kernel: K1, K2, K7, K8, K23 here; K3, K4 in banded/tan.py;
-# K5, K6 in banded/twist.py; K9-K12, K15 in banded/single.py; K16 in
-# banded/dense_block.py.  K7, K12 and K23 share one CUDA kernel, K8 and K10
-# another, K9 and K15 a third: each wrapper keeps its own count
+# K5, K6 in banded/twist.py; K9-K12, K15 and their float32 forms K17-K20 in
+# banded/single.py; K13, K14 and their float32 forms K21, K22 in
+# banded/solve.py; K16 in banded/dense_block.py.  K7, K12 and K23 share one
+# CUDA kernel, K8 and K10 another, K9 and K15 a third: each wrapper keeps
+# its own count, and each dtype route its own
 LAUNCHES = {
     "chol_pair_solve": 0,
     "tak_pair_solve": 0,
@@ -57,6 +59,14 @@ LAUNCHES = {
     "chol_fwd_pair": 0,
     "tak_bwd_pair": 0,
     "chol_inv_dense": 0,
+    "solve_lower": 0,
+    "solve_upper_t": 0,
+    "chol_fwd_f32": 0,
+    "chol_bwd_f32": 0,
+    "tak_fwd_f32": 0,
+    "tak_bwd_f32": 0,
+    "solve_lower_f32": 0,
+    "solve_upper_t_f32": 0,
 }
 PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 
@@ -88,16 +98,20 @@ def _check_shapes(bands, vecs):
     return kp1 - 1, m
 
 
-def _check_cuda(k: int, tensors) -> None:
-    """Raise on what the CUDA kernels do not take."""
+def _check_cuda(k: int, tensors, dtypes=(torch.float64,)) -> None:
+    """Raise on what the CUDA kernels do not take: every tensor on one CUDA
+    device and of one dtype among ``dtypes`` (float64 alone for the kernels
+    that have no float32 form in the JAX package either)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"banded sweeps run on 'cpu' or 'cuda' tensors, got {dev}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the CUDA sweeps take bandwidth k in 1..{MAX_K}, got k={k}")
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
     for t in tensors:
-        if t.dtype != torch.float64:
-            raise TypeError(f"the CUDA sweeps take float64 tensors, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            raise TypeError(f"this CUDA sweep takes {names} tensors of one dtype, got "
+                            f"{sorted({str(u.dtype) for u in tensors})}")
         if not t.is_contiguous():
             raise ValueError("the CUDA sweeps take contiguous tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

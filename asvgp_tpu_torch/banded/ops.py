@@ -18,13 +18,20 @@ PyTorch counterpart of ``asvgp_tpu/banded/ops.py``.  Two layers:
   ``cholesky_band`` and ``takahashi_inverse_band`` are the differentiable
   ``single.CholeskyBand`` (K9 forward, K10 backward) and
   ``single.TakahashiInverseBand`` (K11, K12); ``cholesky_band_pair`` of two
-  bands of one shape is ``single.CholeskyBandPair`` (K15, backward K8 with
-  a batch of two).  The solves have no kernel
-  yet (K13, K14) and raise on a CUDA tensor.  ``collapsed_core`` is
-  ``core.CollapsedCore`` (K1 + K2, backward K7 + K8) and
-  ``banded_posterior`` runs K1 + K2.  ``collapsed_core_matern`` dispatches
-  the training core: the tangent-fused sweeps of banded/tan.py and
-  banded/twist.py when a gradient is needed, ``collapsed_core`` otherwise.
+  float64 bands of one shape is ``single.CholeskyBandPair`` (K15, backward
+  K8 with a batch of two).  The solves are ``solve.SolveLowerBand`` (K13,
+  backward K14) and ``solve.SolveUpperBandTranspose`` (K14, backward K13).
+  ``collapsed_core`` is ``core.CollapsedCore`` (K1 + K2, backward K7 + K8)
+  and ``banded_posterior`` runs K1 + K2.  ``collapsed_core_matern``
+  dispatches the training core: the tangent-fused sweeps of banded/tan.py
+  and banded/twist.py when a gradient is needed, ``collapsed_core``
+  otherwise.
+* The float32 route, as the JAX package's ``_use_pallas``: the Cholesky,
+  Takahashi and solve Functions run the float32 forms of their kernels
+  (K17–K22), and ``cholesky_band_pair``, ``collapsed_core``,
+  ``collapsed_core_matern`` and ``banded_posterior`` take the composed
+  route of single-matrix ops; no float64-only kernel (K1–K8, K15, K16,
+  K23) takes a float32 tensor.
 
 Band products and matvecs are parallel diagonal convolutions over static
 offsets: plain tensor ops on any device, as in the JAX package.
@@ -155,12 +162,13 @@ def cholesky_band_bwd_plain(l_band: torch.Tensor, cot: torch.Tensor) -> torch.Te
 
 def cholesky_band_pair(a_band: torch.Tensor, b_band: torch.Tensor):
     """Factor two independent banded SPD matrices, differentiable: for two
-    bands of one shape ``single.CholeskyBandPair`` (on a CUDA tensor one
-    K15 launch forward, K8 with a batch of two backward), else two
-    ``cholesky_band`` calls, as in the JAX package."""
+    float64 bands of one shape ``single.CholeskyBandPair`` (on a CUDA tensor
+    one K15 launch forward, K8 with a batch of two backward), else two
+    ``cholesky_band`` calls (in float32: K17 twice, backward K18 twice), as
+    in the JAX package."""
     from asvgp_tpu_torch.banded import single
 
-    if a_band.shape == b_band.shape:
+    if a_band.shape == b_band.shape and a_band.dtype == torch.float64:
         return single.CholeskyBandPair.apply(a_band, b_band)
     return cholesky_band(a_band), cholesky_band(b_band)
 
@@ -182,26 +190,23 @@ def takahashi_inverse_band(l_band: torch.Tensor) -> torch.Tensor:
     return single.TakahashiInverseBand.apply(l_band)
 
 
-def _no_kernel_yet(t: torch.Tensor, what: str, kernel: str) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"{what} on a {t.device.type} tensor needs the kernel {kernel}, which is not "
-            f"ported yet; the plain recursion runs on CPU tensors only"
-        )
-
-
 def solve_lower_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve L x = b: the plain recursion on a CPU tensor; raises on a CUDA
-    tensor (its kernel, K13 ``_solve_lower_ds_kernel``, is not ported)."""
-    _no_kernel_yet(l_band, "solve_lower_band", "K13 (pallas_ds._solve_lower_ds_kernel)")
-    return solve_lower_band_plain(l_band, b)
+    """Solve L x = b, b of shape (m,) or (m, r), differentiable in L and b:
+    the plain recursion on a CPU tensor, K13 (float64) or K21 (float32) on
+    a CUDA tensor, backward through the transposed solve
+    (``solve.SolveLowerBand``)."""
+    from asvgp_tpu_torch.banded import solve
+
+    return solve.SolveLowerBand.apply(l_band, b)
 
 
 def solve_upper_band_transpose(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve Lᵀ x = b: the plain recursion on a CPU tensor; raises on a CUDA
-    tensor (its kernel, K14 ``_solve_upper_t_ds_kernel``, is not ported)."""
-    _no_kernel_yet(l_band, "solve_upper_band_transpose", "K14 (pallas_ds._solve_upper_t_ds_kernel)")
-    return solve_upper_band_transpose_plain(l_band, b)
+    """Solve Lᵀ x = b, differentiable in L and b: the plain recursion on a
+    CPU tensor, K14 (float64) or K22 (float32) on a CUDA tensor, backward
+    through the lower solve (``solve.SolveUpperBandTranspose``)."""
+    from asvgp_tpu_torch.banded import solve
+
+    return solve.SolveUpperBandTranspose.apply(l_band, b)
 
 
 def log_det_from_cholesky(l_band: torch.Tensor) -> torch.Tensor:
@@ -443,9 +448,23 @@ def matvec_symmetric_band(lower_band: torch.Tensor, x: torch.Tensor) -> torch.Te
 
 def collapsed_core(kuu_band, p_band, b, big_band):
     """(log|Kuu|, log|P|, bᵀP⁻¹b, tr(Kuu⁻¹ B)), differentiable in all four
-    inputs: ``core.CollapsedCore`` (K1 + K2, backward K7 + K8)."""
+    inputs: in float64 ``core.CollapsedCore`` (K1 + K2, backward K7 + K8);
+    in float32 composed of the differentiable single-matrix ops, as the
+    JAX package composes them outside its double-single route (ops.py
+    ``collapsed_core``): the two Choleskys, the Takahashi band of Kuu⁻¹ and
+    the lower solve (K17 ×2, K19, K21; backward K18 ×2, K20, K22)."""
     from asvgp_tpu_torch.banded import core
 
+    if kuu_band.dtype == torch.float32:
+        l_kuu, l_p = cholesky_band_pair(kuu_band, p_band)
+        s_kuu = takahashi_inverse_band(l_kuu)
+        c0 = solve_lower_band(l_p, b)
+        return (
+            log_det_from_cholesky(l_kuu),
+            log_det_from_cholesky(l_p),
+            torch.sum(torch.square(c0)),
+            band_frobenius(s_kuu, big_band),
+        )
     return core.collapsed_core(kuu_band, p_band, b, big_band)
 
 
@@ -494,7 +513,7 @@ def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (var, ell, p_band, b, big_band)
     )
-    if not needs_grad or k < 1:
+    if not needs_grad or k < 1 or p_band.dtype == torch.float32:
         return collapsed_core(kuu_fn(var, ell), p_band, b, big_band)
     if _twist_enabled() and twist.twist_applicable(k, p_band.shape[1]):
         return twist.collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band)
@@ -503,8 +522,14 @@ def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
 
 def banded_posterior(kuu_band, p_band, b):
     """(band of Kuu⁻¹, band of P⁻¹, P⁻¹ b) — the prediction-time posterior
-    quantities, from the same two sweeps."""
+    quantities: in float64 from the same two sweeps (K1 + K2); in float32
+    composed as in the JAX package: the two Choleskys, both Takahashi bands
+    and ``cholesky_solve_band`` (K17 ×2, K19 ×2, K21, K22)."""
     from asvgp_tpu_torch.banded import core
 
+    if kuu_band.dtype == torch.float32:
+        l_kuu, l_p = cholesky_band_pair(kuu_band, p_band)
+        return (takahashi_inverse_band(l_kuu), takahashi_inverse_band(l_p),
+                cholesky_solve_band(l_p, b))
     _, _, s_kuu, s_p, _, u, _ = core.factor_takahashi_solve(kuu_band, p_band, b)
     return s_kuu, s_p, u

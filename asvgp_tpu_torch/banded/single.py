@@ -1,5 +1,5 @@
-"""Single-matrix banded Cholesky and Takahashi, and their adjoints: K9–K12,
-and the pair Cholesky K15.
+"""Single-matrix banded Cholesky and Takahashi, and their adjoints: K9–K12
+in float64 and K17–K20 in float32, and the pair Cholesky K15.
 
 PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds.py`` (its Cholesky and
 Takahashi kernels and their custom VJPs) and of the forward pair kernel of
@@ -17,7 +17,12 @@ as hand-written CUDA kernels (csrc/banded_adjoint.cu ``chol_fwd<K>``,
 ``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``) on CUDA tensors, and as
 their plain versions on CPU tensors: the recursions of banded/ops.py,
 forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
-raises.  Bandwidth k = 0 is elementwise and runs in torch ops on either
+raises.  The four wrappers dispatch on the dtype: float64 runs K9–K12,
+float32 the same kernels' float instantiation, K17–K20 (the JAX package's
+``pallas_kernels.py``: ``_chol_fwd_kernel``, ``_chol_bwd_kernel``,
+``_takahashi_fwd_kernel``, ``_takahashi_bwd_kernel``), each counted under
+its own name (``chol_fwd_f32``, ...).  K15 is float64 only, as
+``pallas_ds_pair`` is.  Bandwidth k = 0 is elementwise and runs in torch ops on either
 device, as the JAX wrappers do; the kernels take k = 1..6.
 
 ``CholeskyBand`` (K9 forward, K10 backward), ``CholeskyBandPair`` (K15,
@@ -35,6 +40,16 @@ import torch
 from asvgp_tpu_torch.banded import core, ops
 
 LAUNCHES = core.LAUNCHES
+# the dtypes of the kernels that have a float32 form (K17-K22)
+BOTH = (torch.float64, torch.float32)
+
+
+def route(name: str, t: torch.Tensor) -> tuple[str, str]:
+    """(launch counter, C entry point) of kernel ``name`` for the dtype of
+    ``t``: the float64 kernel, or its float32 form under ``name_f32``."""
+    if t.dtype == torch.float32:
+        return f"{name}_f32", f"asvgp_{name}_f32"
+    return name, f"asvgp_{name}"
 
 
 # ---------------------------------------------------------------------------
@@ -49,16 +64,16 @@ def chol_fwd_plain(a_band):
 
 
 def chol_fwd(a_band):
-    """K9 on CUDA tensors, its plain version on CPU tensors: the lower band
-    of L = chol(A), right-padding slots zeroed."""
+    """K9 (float64) or K17 (float32) on CUDA tensors, its plain version on
+    CPU tensors: the lower band of L = chol(A), right-padding slots zeroed."""
     k, m = core._check_shapes((a_band,), ())
     if k == 0:
         return torch.sqrt(a_band)
     if a_band.device.type == "cpu":
         return chol_fwd_plain(a_band)
-    core._check_cuda(k, (a_band,))
+    core._check_cuda(k, (a_band,), BOTH)
     l_band = torch.empty_like(a_band)
-    core._launch("chol_fwd", "asvgp_chol_fwd", a_band.device, k, m, 1,
+    core._launch(*route("chol_fwd", a_band), a_band.device, k, m, 1,
                  a_band.data_ptr(), l_band.data_ptr())
     return l_band
 
@@ -104,16 +119,16 @@ def chol_bwd_plain(l_band, l_bar):
 
 
 def chol_bwd(l_band, l_bar):
-    """K10 on CUDA tensors, its plain version on CPU tensors: Ā from L and
-    L̄ (``pallas_ds._chol_ds_b``)."""
+    """K10 (float64) or K18 (float32) on CUDA tensors, its plain version on
+    CPU tensors: Ā from L and L̄ (``pallas_ds._chol_ds_b``)."""
     k, m = core._check_shapes((l_band, l_bar), ())
     if k == 0:
         return l_bar / (2.0 * l_band)
     if l_band.device.type == "cpu":
         return chol_bwd_plain(l_band, l_bar)
-    core._check_cuda(k, (l_band, l_bar))
+    core._check_cuda(k, (l_band, l_bar), BOTH)
     a_bar = torch.empty_like(l_band)
-    core._launch("chol_bwd", "asvgp_chol_bwd", l_band.device, k, m, 1,
+    core._launch(*route("chol_bwd", l_band), l_band.device, k, m, 1,
                  l_band.data_ptr(), l_bar.data_ptr(), a_bar.data_ptr())
     return a_bar
 
@@ -130,16 +145,17 @@ def tak_fwd_plain(l_band):
 
 
 def tak_fwd(l_band):
-    """K11 on CUDA tensors, its plain version on CPU tensors: the band of
-    A⁻¹ from the factor L of A (right padding of L must be zero)."""
+    """K11 (float64) or K19 (float32) on CUDA tensors, its plain version on
+    CPU tensors: the band of A⁻¹ from the factor L of A (right padding of L
+    must be zero)."""
     k, m = core._check_shapes((l_band,), ())
     if k == 0:
         return 1.0 / (l_band * l_band)
     if l_band.device.type == "cpu":
         return tak_fwd_plain(l_band)
-    core._check_cuda(k, (l_band,))
+    core._check_cuda(k, (l_band,), BOTH)
     s_band = torch.empty_like(l_band)
-    core._launch("tak_fwd", "asvgp_tak_fwd", l_band.device, k, m, 1,
+    core._launch(*route("tak_fwd", l_band), l_band.device, k, m, 1,
                  l_band.data_ptr(), s_band.data_ptr())
     return s_band
 
@@ -156,16 +172,16 @@ def tak_bwd_plain(l_band, s_band, s_bar):
 
 
 def tak_bwd(l_band, s_band, s_bar):
-    """K12 on CUDA tensors, its plain version on CPU tensors: L̄ from L,
-    S = tak_fwd(L) and S̄ (``pallas_ds._tak_ds_b``)."""
+    """K12 (float64) or K20 (float32) on CUDA tensors, its plain version on
+    CPU tensors: L̄ from L, S = tak_fwd(L) and S̄ (``pallas_ds._tak_ds_b``)."""
     k, m = core._check_shapes((l_band, s_band, s_bar), ())
     if k == 0:
         return -2.0 * s_bar / (l_band ** 3)
     if l_band.device.type == "cpu":
         return tak_bwd_plain(l_band, s_band, s_bar)
-    core._check_cuda(k, (l_band, s_band, s_bar))
+    core._check_cuda(k, (l_band, s_band, s_bar), BOTH)
     l_bar = torch.empty_like(l_band)
-    core._launch("tak_bwd", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
+    core._launch(*route("tak_bwd", l_band), l_band.device, k, m, 1, l_band.data_ptr(),
                  s_band.data_ptr(), s_bar.data_ptr(), None, l_bar.data_ptr())
     return l_bar
 
@@ -177,7 +193,8 @@ def tak_bwd(l_band, s_band, s_bar):
 
 class CholeskyBand(torch.autograd.Function):
     """Banded Cholesky L = chol(A): K9 forward, K10 backward
-    (``pallas_ds.cholesky_band_ds``)."""
+    (``pallas_ds.cholesky_band_ds``); in float32 K17 and K18
+    (``pallas_kernels.cholesky_band_p``)."""
 
     @staticmethod
     def forward(ctx, a_band):
@@ -214,7 +231,8 @@ class CholeskyBandPair(torch.autograd.Function):
 
 class TakahashiInverseBand(torch.autograd.Function):
     """Band of A⁻¹ from L: K11 forward, K12 backward
-    (``pallas_ds.takahashi_inverse_band_ds``)."""
+    (``pallas_ds.takahashi_inverse_band_ds``); in float32 K19 and K20
+    (``pallas_kernels.takahashi_inverse_band_p``)."""
 
     @staticmethod
     def forward(ctx, l_band):

@@ -167,15 +167,14 @@ class BSplineBasis:
             cache[name] = fn()
         return cache[name]
 
-    def table(self, name: str, device) -> torch.Tensor:
-        """Table ``name`` (e.g. "A", "BC_grad") as a float64 tensor on
-        ``device``, copied there once per basis and device."""
+    def table(self, name: str, device, dtype=torch.float64) -> torch.Tensor:
+        """Table ``name`` (e.g. "A", "BC_grad") as a ``dtype`` tensor on
+        ``device``, rounded from the float64 table and copied there once per
+        basis, device and dtype."""
         device = torch.device(device)
         return self._cached(
-            (name, str(device)),
-            lambda: torch.as_tensor(
-                getattr(self, name), dtype=torch.float64, device=device
-            ),
+            (name, str(device), str(dtype)),
+            lambda: torch.as_tensor(getattr(self, name), device=device).to(dtype),
         )
 
     # ---- evaluation --------------------------------------------------------

@@ -47,16 +47,20 @@ def validate_kernel_basis(kernel, basis: BSplineBasis) -> None:
 
 
 def make_kuu(kernel, basis: BSplineBasis) -> torch.Tensor:
-    """Banded (order+1, m) float64 Kuu Gram matrix for a Matérn kernel, on
-    the device of ``kernel.variance``."""
+    """Banded (order+1, m) Kuu Gram matrix for a Matérn kernel, on the device
+    and in the dtype of ``kernel.variance`` (the float64 tables rounded
+    once, as the JAX package casts them to its parameters' type)."""
     validate_kernel_basis(kernel, basis)
     name = kernel.name
     var = kernel.variance
     ell = kernel.lengthscales
-    dev = var.device
-    A = basis.table("A", dev)
-    B = basis.table("B", dev)
-    BC = basis.table("BC", dev)
+
+    def table(key):
+        return basis.table(key, var.device, var.dtype)
+
+    A = table("A")
+    B = table("B")
+    BC = table("BC")
 
     if name == "matern12":
         return (
@@ -65,8 +69,8 @@ def make_kuu(kernel, basis: BSplineBasis) -> torch.Tensor:
             + 1.0 / (2.0 * var) * BC
         )
 
-    C = basis.table("C", dev)
-    BCg = basis.table("BC_grad", dev)
+    C = table("C")
+    BCg = table("BC_grad")
 
     if name == "matern32":
         return (
@@ -77,9 +81,9 @@ def make_kuu(kernel, basis: BSplineBasis) -> torch.Tensor:
             + ell**2 / (2.0 * var) * BCg
         )
 
-    D = basis.table("D", dev)
-    BCgg = basis.table("BC_ggrad", dev)
-    BC_cross = basis.table("BC_ggrad_none", dev) + basis.table("BC_none_ggrad", dev)
+    D = table("D")
+    BCgg = table("BC_ggrad")
+    BC_cross = table("BC_ggrad_none") + table("BC_none_ggrad")
 
     return (
         (3.0 * _SQRT5) / (16.0 * ell * var) * A

@@ -17,6 +17,14 @@ On a CUDA device the banded work runs in hand-written sweeps: the ELBO's
 gradient in the tangent-fused sweeps of banded/tan.py and banded/twist.py
 (``banded.collapsed_core_matern``, with an elementwise backward), its value
 alone and the posterior in the two sweeps of banded/core.py.
+
+``GPR1D(..., dtype=torch.float32)`` is the JAX package's float32 model as
+it runs with x64 off (its float32 Pallas route, ``ops._use_pallas``): the
+statistics are accumulated in float64 and cast once, and the parameters,
+Kuu, P, the loss, its gradient, the posterior and the predictions are all
+float32.  Its banded work goes through the composed single-matrix ops and
+their float32 kernels (K17–K22): two Choleskys, the Takahashi band of
+Kuu⁻¹ and the lower solve for the loss, their adjoints for the gradient.
 """
 
 from __future__ import annotations
@@ -126,7 +134,7 @@ def window_dot(vec, vals, start):
 class Posterior1D:
     """Cached GPR1D posterior: the banded factorizations are done once at
     construction; every ``predict_f`` afterwards is windowed gathers,
-    O(k²) per test point, on the device of ``w``."""
+    O(k²) per test point, on the device and in the dtype of ``w``."""
 
     def __init__(self, kernel, lik, basis, w, diff_band):
         self.kernel = kernel
@@ -149,7 +157,7 @@ class Posterior1D:
         dropped."""
         if full_cov:
             raise NotImplementedError("full_cov prediction is not implemented")
-        x = torch.as_tensor(Xnew, dtype=_F64, device=self.w.device).reshape(-1)
+        x = torch.as_tensor(Xnew, dtype=self.w.dtype, device=self.w.device).reshape(-1)
         n = x.shape[0]
         if not batch or n <= batch:
             mean, var = self._predict_chunk(x)
@@ -170,7 +178,7 @@ class Posterior1D:
     def predict_log_density(self, data):
         Xnew, ynew = data
         mean, var = self.predict_f(Xnew)
-        y = torch.as_tensor(ynew, dtype=_F64, device=mean.device).reshape(mean.shape)
+        y = torch.as_tensor(ynew, dtype=mean.dtype, device=mean.device).reshape(mean.shape)
         return self.likelihood.predict_log_density(mean, var, y)
 
 
@@ -189,8 +197,9 @@ def resolve_device(device) -> torch.device:
 
 class MaternGaussianModel(nn.Module):
     """The hyperparameters of a Matérn kernel with a Gaussian likelihood, as
-    unconstrained float64 ``nn.Parameter``s (``raw_variance``,
-    ``raw_lengthscales``, ``raw_noise_variance``).
+    unconstrained ``nn.Parameter``s (``raw_variance``, ``raw_lengthscales``,
+    ``raw_noise_variance``) in the model's dtype (float64 unless a model
+    says otherwise).
 
     A params pytree in the JAX package's layout, ``{"kernel":
     {"raw_lengthscales", "raw_variance"}, "likelihood": {"raw_variance"}}``,
@@ -199,26 +208,34 @@ class MaternGaussianModel(nn.Module):
     parameters).
     """
 
-    def _init_hyperparameters(self, kernel: Matern, noise_variance, device) -> None:
+    def _init_hyperparameters(self, kernel: Matern, noise_variance, device,
+                              dtype=_F64) -> None:
         self.nu2 = kernel.nu2
         self.kernel_init = kernel
         self.noise_variance_init = noise_variance
+        self.dtype = dtype
         params = default_params(kernel, noise_variance)
 
         def param(value):
-            return nn.Parameter(torch.as_tensor(value, dtype=_F64, device=device))
+            return nn.Parameter(torch.as_tensor(value, device=device).to(dtype))
 
         self.raw_variance = param(params["kernel"]["raw_variance"])
         self.raw_lengthscales = param(params["kernel"]["raw_lengthscales"])
         self.raw_noise_variance = param(params["likelihood"]["raw_variance"])
 
     def init_params(self) -> dict:
-        """The initial parameters in the JAX package's layout (numpy)."""
-        return default_params(self.kernel_init, self.noise_variance_init)
+        """The initial parameters in the JAX package's layout (numpy, in the
+        model's dtype: computed in float64 and cast once, as the JAX
+        package's ``init_params`` does)."""
+        params = default_params(self.kernel_init, self.noise_variance_init)
+        if self.dtype == _F64:
+            return params
+        return {g: {k: v.astype(np.float32) for k, v in d.items()} for g, d in params.items()}
 
     def params(self) -> dict:
         """The current parameters in the JAX package's layout: detached
-        float64 copies on the model's device (``fit_lbfgs`` starts there)."""
+        copies on the model's device, in its dtype (``fit_lbfgs`` starts
+        there)."""
         return {
             "kernel": {
                 "raw_lengthscales": self.raw_lengthscales.detach().clone(),
@@ -229,13 +246,14 @@ class MaternGaussianModel(nn.Module):
 
     def load_jax_params(self, params) -> None:
         """Set the parameters from a params pytree in the JAX package's
-        layout, of tensors (any device) or numpy arrays."""
+        layout, of tensors (any device) or numpy arrays, cast to the model's
+        dtype."""
         with torch.no_grad():
             for p, value in zip(self._tensors(None), self._tensors(params)):
                 if isinstance(value, torch.Tensor):
                     v = value.detach()
                 else:
-                    v = torch.as_tensor(np.array(value, dtype=np.float64))
+                    v = torch.as_tensor(np.array(value)).to(p.dtype)
                 if v.numel() != p.numel():
                     raise ValueError(f"parameter of {p.numel()} values given {v.numel()}")
                 p.copy_(v.reshape(p.shape))
@@ -255,6 +273,12 @@ class MaternGaussianModel(nn.Module):
 
     def _build(self, params=None):
         raw_var, raw_ell, raw_noise = self._raw(params)
+        if self.dtype != _F64 and any(getattr(t, "dtype", None) != self.dtype
+                                      for t in (raw_var, raw_ell, raw_noise)):
+            # fit_lbfgs and fit_adam_minibatch carry float64 parameters; a
+            # float32 model takes only its own dtype, so nothing promotes
+            # it to float64 on the way
+            raise TypeError(f"a {self.dtype} model takes parameters of its own dtype")
         kernel = Matern(positive(raw_var), positive(raw_ell), nu2=self.nu2)
         return kernel, Gaussian(positive(raw_noise))
 
@@ -262,14 +286,16 @@ class MaternGaussianModel(nn.Module):
 class GPR1D(MaternGaussianModel):
     """1-D ASVGP regression with B-spline inducing features.
 
-    The unconstrained hyperparameters are float64 ``nn.Parameter``s and the
-    sufficient statistics float64 buffers, all on ``device`` (default: the
-    CUDA device; pass ``device="cpu"`` for the CPU); construction computes
-    the statistics there once.
+    The unconstrained hyperparameters are ``nn.Parameter``s and the
+    sufficient statistics buffers, all on ``device`` (default: the CUDA
+    device; pass ``device="cpu"`` for the CPU) and in ``dtype`` (``None``:
+    float64; ``torch.float32``: the float32 model, see the module's
+    docstring).  Construction computes the statistics there once, in
+    float64, and casts them to ``dtype``.
     """
 
     def __init__(self, data, kernel: Matern, basis: BSplineBasis, *,
-                 noise_variance=1.0, device=None):
+                 noise_variance=1.0, device=None, dtype=None):
         super().__init__()
         device = resolve_device(device)
         X_in, y_in = data
@@ -292,14 +318,14 @@ class GPR1D(MaternGaussianModel):
                 f"got range [{xmin}, {xmax}]"
             )
         validate_kernel_basis(kernel, basis)
+        if dtype not in (None, _F64, torch.float32):
+            raise ValueError(f"dtype must be None, torch.float64 or torch.float32, got {dtype}")
         self.basis = basis
-        self._init_hyperparameters(kernel, noise_variance, device)
+        self._init_hyperparameters(kernel, noise_variance, device, dtype or _F64)
 
         stats = compute_stats(basis, X, yf)
-        self.register_buffer("kuf_y", stats.kuf_y)
-        self.register_buffer("kufkfu_band", stats.kufkfu_band)
-        self.register_buffer("yty", stats.yty)
-        self.register_buffer("n", stats.n)
+        for name in ("kuf_y", "kufkfu_band", "yty", "n"):
+            self.register_buffer(name, getattr(stats, name).to(self.dtype))
 
     @property
     def stats(self) -> SufficientStats:

@@ -1,7 +1,8 @@
 """Matérn kernels (1/2, 3/2, 5/2).
 
 PyTorch counterpart of ``asvgp_tpu/models/kernels.py``: ``variance`` and
-``lengthscales`` as float64 tensors, ``K``/``K_diag`` for the dense oracles
+``lengthscales`` as floating tensors (numbers become float64; a float32
+model's parameters stay float32), ``K``/``K_diag`` for the dense oracles
 (the exact GP), and the ``name`` tag that selects the RKHS-norm formula in
 features/spline_features.py.
 """
@@ -16,17 +17,24 @@ _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
 
 
+def as_float(value) -> torch.Tensor:
+    """A floating tensor as it is; anything else as a float64 tensor."""
+    if isinstance(value, torch.Tensor) and value.is_floating_point():
+        return value
+    return torch.as_tensor(value, dtype=torch.float64)
+
+
 class Matern:
     """Matérn kernel with 2ν = ``nu2`` ∈ {1, 3, 5}.
 
-    Numbers become float64 tensors on the CPU; a tensor is kept as it is
-    (device and autograd history included)."""
+    Numbers become float64 tensors on the CPU; a floating tensor is kept as
+    it is (dtype, device and autograd history included)."""
 
     def __init__(self, variance=1.0, lengthscales=1.0, *, nu2=3):
         if nu2 not in (1, 3, 5):
             raise ValueError("nu2 must be 1, 3 or 5")
-        self.variance = torch.as_tensor(variance, dtype=torch.float64)
-        self.lengthscales = torch.as_tensor(lengthscales, dtype=torch.float64)
+        self.variance = as_float(variance)
+        self.lengthscales = as_float(lengthscales)
         self.nu2 = nu2
 
     @property
@@ -34,7 +42,8 @@ class Matern:
         return {1: "matern12", 3: "matern32", 5: "matern52"}[self.nu2]
 
     def _points(self, X) -> torch.Tensor:
-        return torch.as_tensor(X, dtype=torch.float64, device=self.variance.device).reshape(-1)
+        return torch.as_tensor(X, dtype=self.variance.dtype,
+                               device=self.variance.device).reshape(-1)
 
     def K_diag(self, X) -> torch.Tensor:
         n = self._points(X).shape[0]

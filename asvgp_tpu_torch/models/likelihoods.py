@@ -6,12 +6,14 @@ import math
 
 import torch
 
+from asvgp_tpu_torch.models.kernels import as_float
+
 _LOG2PI = math.log(2.0 * math.pi)
 
 
 class Gaussian:
     def __init__(self, variance=1.0):
-        self.variance = torch.as_tensor(variance, dtype=torch.float64)
+        self.variance = as_float(variance)
 
     def predict_log_density(self, f_mean, f_var, y):
         """log N(y | f_mean, f_var + σ²) — the NLPD integrand."""

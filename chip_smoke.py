@@ -1,15 +1,16 @@
 """Smoke run of the PyTorch/CUDA port (asvgp_tpu_torch) on one NVIDIA GPU.
 
-Drives the GPR1D serving and training paths, minibatch Adam and SVGP1D at
-the north-star shape — N = 10⁶ points from bench.py's generator, m = 10⁴
-B3-spline features on [0, 1], Matérn-3/2 — and GPRKron at the eNATL60
+Drives the GPR1D serving and training paths (in float64 and in float32),
+minibatch Adam and SVGP1D at the north-star shape — N = 10⁶ points from
+bench.py's generator, m = 10⁴ B3-spline features on [0, 1], Matérn-3/2 —
+and GPRKron at the eNATL60
 protocol's shape (experiments/spatial_2d/ocean_ssh.py: N = 2·10⁶ 2-D
 points, 100 × 100 B4-spline features), through the port's public entry
 points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
-  1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc; registers and
-     spills of every kernel
+  1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc, one process per
+     source, all at once; registers and spills of every kernel
   2. kernel parity: K1 + K2, K3 + K4 and K5 + K6 against their plain
      PyTorch versions, for k = 1..6 on random SPD bands (with a random
      symmetric tangent band), and at the main path's shapes on its real
@@ -61,10 +62,31 @@ points, on the card:
      K10, K11, K12 twice each and K16 once per block column (100), the fit
      that per evaluation, the posterior K9 = K11 = 2 and K16 = 100; K16
      against its plain version on the 100 diagonal blocks the step gave it
+  6j. the solves and the float32 kernels: K13/K14 (float64) and K17–K22
+     (float32) against their plain versions for k = 1..6 on random SPD
+     bands, the solves with a vector and a matrix right-hand side; at the
+     north star, banded.cholesky_solve_band on the real L_P and Kuf·y
+     (K9 + K13 + K14, on fresh counters) against banded_posterior's u
+     (K1 + K2); the solves' autograd Functions against autograd through
+     the plain versions
+  6k. the float32 GPR1D at the north star (GPR1D(..., dtype=float32)):
+     training_loss() and .backward(), the posterior, predict_f on the 10⁵
+     held-out points in batches and NLPD, held to tools/f32_anchors.py's
+     values (the JAX package's float32 route); predictions against a
+     posterior built by the plain float32 versions on a CPU copy; the loss
+     within 1e-2 of the float64 anchor (printed on its own line)
+  6l. its proof, on fresh counters: construction and predict launch
+     nothing; a step K17 ×2, K19, K21, K18 ×2, K20, K22 once each; the
+     posterior K17 ×2, K19 ×2, K21, K22; no float64 kernel and no plain
+     version on a CUDA tensor; K17–K22 against their plain versions on the
+     arguments the step and the posterior gave them
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock), each kernel's bound, and K16's library
-     counterpart (torch.linalg.cholesky, then solve_triangular against I)
+     REPS times on the host clock), each kernel's bound, the float32 step,
+     posterior and predict beside the float64 ones, and the library
+     counterparts: K16's (torch.linalg.cholesky, then solve_triangular
+     against I), the dense torch.linalg.cholesky of A for K9, K15 and K17
+     and the dense torch.linalg.solve_triangular for K13, K14, K21 and K22
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -156,10 +178,11 @@ TOL_ADAM_LOSS = 1e-9   # relative, step-1 and step-20 losses
 TOL_ADAM_GRAD = 1e-8   # relative, each step-1 gradient component and final parameter
 TOL_SVGP_LOSS = 1e-9   # relative, step-1 and step-20 losses
 
-# H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor-core) peak; the
-# sweeps' arithmetic is scalar FP64 fma
+# H100 SXM data sheet: HBM3 bandwidth and the FP64 and FP32 (non-tensor-core)
+# peaks; the sweeps' arithmetic is scalar fma
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
+PEAK_FP32_PER_S = 67e12
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -193,6 +216,22 @@ KERNELS = {
                      "asvgp_tpu/banded/pallas_ds_core.py:447"),
     "chol_inv_dense": ("asvgp_tpu_torch/csrc/block_chol_inv.cu",
                        "asvgp_tpu/banded/pallas_ds_block.py:47"),
+    "solve_lower": ("asvgp_tpu_torch/csrc/banded_solve.cu",
+                    "asvgp_tpu/banded/pallas_ds.py:310"),
+    "solve_upper_t": ("asvgp_tpu_torch/csrc/banded_solve.cu",
+                      "asvgp_tpu/banded/pallas_ds.py:361"),
+    "chol_fwd_f32": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                     "asvgp_tpu/banded/pallas_kernels.py:162"),
+    "chol_bwd_f32": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                     "asvgp_tpu/banded/pallas_kernels.py:207"),
+    "tak_fwd_f32": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                    "asvgp_tpu/banded/pallas_kernels.py:322"),
+    "tak_bwd_f32": ("asvgp_tpu_torch/csrc/banded_adjoint.cu",
+                    "asvgp_tpu/banded/pallas_kernels.py:375"),
+    "solve_lower_f32": ("asvgp_tpu_torch/csrc/banded_solve.cu",
+                        "asvgp_tpu/banded/pallas_kernels.py:486"),
+    "solve_upper_t_f32": ("asvgp_tpu_torch/csrc/banded_solve.cu",
+                          "asvgp_tpu/banded/pallas_kernels.py:527"),
 }
 SERVING_KERNELS = ("chol_pair_solve", "tak_pair_solve")
 TRAINING_KERNELS = ("chol_pair_solve_tan", "tak_pair_solve_tan",
@@ -256,6 +295,65 @@ KRON_STEP = {"chol_fwd": 2, "chol_bwd": 2, "tak_fwd": 2, "tak_bwd": 2,
              "chol_inv_dense": KRON_M}
 KRON_POSTERIOR = {"chol_fwd": 2, "tak_fwd": 2, "chol_inv_dense": KRON_M}
 
+# the solves K13/K14 and the float32 kernels K17-K22 against their plain
+# versions on random bands at PARITY_M (phase 6j), relative to the largest
+# entry: the float64 solves at the float64 sweeps' bar (TOL_PARITY_ADJOINT);
+# the float32 forward sweeps and solves at TOL_F32_FWD and the float32
+# adjoints at TOL_F32_ADJOINT (the same recursions rounded in another
+# order, κ ≤ 1e4)
+TOL_F32_FWD = 1e-5
+TOL_F32_ADJOINT = 1e-4
+F32_ADJOINTS = ("chol_bwd_f32", "tak_bwd_f32")
+SOLVE_RHS = 5  # columns of the matrix right-hand sides
+# K17-K22 on the arguments the float32 path gave them at the north star:
+# 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
+TOL_F32_MAIN = 1e-4
+# cholesky_solve_band (K9 + K13 + K14) against banded_posterior's u (K1 + K2)
+# at the north star, relative to the largest entry
+TOL_SOLVE_NORTH_STAR = 1e-10
+# the float32 GPR1D at the north star (GPR1D(..., dtype=float32)): the JAX
+# package's float32 route (statistics in float64 cast once, then x64 off,
+# the scan recursions) on a CPU, from tools/f32_anchors.py: the loss and
+# its gradient in the raw parameters at init_params(), the posterior's mean
+# and variance on the held-out points as stat_summary gives them, the NLPD
+ANCHOR_F32_LOSS = 234253.0
+ANCHOR_F32_GRAD = {
+    "raw_lengthscales": 8933.3369140625,
+    "raw_variance": -941.2274780273438,
+    "raw_noise_variance": 47080.55078125,
+}
+ANCHOR_F32_MEAN = {"sum": -195.68821878519884, "abs_sum": 67375.21798719614,
+                   "proj": -241.61307477659423, "proj_abs": 53322.61184563257}
+ANCHOR_F32_VAR = {"sum": 96.33213925361633, "abs_sum": 96.33213925361633,
+                  "proj": -0.2866495889355711, "proj_abs": 76.48262411980065}
+ANCHOR_F32_NLPD = 0.2177850902080536
+# the float64 values of the same quantities (the JAX package's float64
+# model, same script): the variance's summary and the NLPD; the loss and
+# gradient are ANCHOR_LOSS and ANCHOR_GRAD
+ANCHOR_F64_VAR = {"sum": 78.70736558194623, "abs_sum": 78.70736558194623,
+                  "proj": -0.23688432906875484, "proj_abs": 62.488747552658815}
+ANCHOR_F64_NLPD = 0.2176898227591378
+# relative bars (PERF.md §2): the JAX float32 route's own distance from
+# its float64 values (tools/f32_anchors.py's f32_error), rounded up, or 1e-5
+# where that is larger.  κ(Kuu) amplifies float32 rounding at this shape, so
+# a float32 route that rounds in another order (the card's kernels fuse
+# multiply-adds) may lie anywhere within what float32 leaves undetermined.
+# "pointwise" holds the card's predictions against the plain float32
+# versions' on a CPU copy (the largest difference over the largest value),
+# at the JAX float32 predictions' pointwise distance from float64.
+TOL_F32 = {"loss": 3.8e-3,
+           "grad": {"raw_lengthscales": 0.31, "raw_variance": 0.78,
+                    "raw_noise_variance": 1.8e-2},
+           "mean": 1e-5, "var": 0.19, "nlpd": 4.4e-4,
+           "mean_pointwise": 1.6e-4, "var_pointwise": 8.0e-2}
+TOL_F32_VS_F64 = 1e-2  # the float32 loss against ANCHOR_LOSS: a sanity hold
+# the launches of a float32 value-and-grad step and of its posterior: the
+# JAX package's float32 route (ops._use_pallas), K17-K22
+F32_STEP = {"chol_fwd_f32": 2, "tak_fwd_f32": 1, "solve_lower_f32": 1,
+            "chol_bwd_f32": 2, "tak_bwd_f32": 1, "solve_upper_t_f32": 1}
+F32_POSTERIOR = {"chol_fwd_f32": 2, "tak_fwd_f32": 2, "solve_lower_f32": 1,
+                 "solve_upper_t_f32": 1}
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -317,13 +415,13 @@ def cuda_ms(fn, reps: int = REPS) -> dict:
     return {"median_ms": float(np.median(ts)), "ms": ts}
 
 
-def make_model(x, y, m: int, device):
+def make_model(x, y, m: int, device, dtype=None):
     from asvgp_tpu_torch.basis import B3Spline
     from asvgp_tpu_torch.models import GPR1D, Matern32
 
     return GPR1D(
         (x, y), Matern32(variance=1.0, lengthscales=1e-3), B3Spline(0.0, 1.0, m),
-        noise_variance=0.1, device=device,
+        noise_variance=0.1, device=device, dtype=dtype,
     )
 
 
@@ -405,13 +503,31 @@ def adjoint_calls():
     }
 
 
-def adjoint_parity(calls: dict) -> dict:
-    """Each of K7-K12 on the card against its plain version on CPU copies of
-    the same inputs; ``calls`` maps a kernel's name to the argument lists
-    (tensors on the card) to hold it on."""
+def f32_calls():
+    """(kernel, plain version) of K13, K14 and K17-K22, each taking the same
+    arguments; the wrappers dispatch on the dtype."""
+    from asvgp_tpu_torch.banded import single, solve
+
+    return {
+        "solve_lower": (solve.solve_lower, solve.solve_lower_plain),
+        "solve_upper_t": (solve.solve_upper_t, solve.solve_upper_t_plain),
+        "chol_fwd_f32": (single.chol_fwd, single.chol_fwd_plain),
+        "chol_bwd_f32": (single.chol_bwd, single.chol_bwd_plain),
+        "tak_fwd_f32": (single.tak_fwd, single.tak_fwd_plain),
+        "tak_bwd_f32": (single.tak_bwd, single.tak_bwd_plain),
+        "solve_lower_f32": (solve.solve_lower, solve.solve_lower_plain),
+        "solve_upper_t_f32": (solve.solve_upper_t, solve.solve_upper_t_plain),
+    }
+
+
+def adjoint_parity(calls: dict, table=None) -> dict:
+    """Each kernel of ``table`` (default: K7-K12) on the card against its
+    plain version on CPU copies of the same inputs; ``calls`` maps a
+    kernel's name to the argument lists (tensors on the card) to hold it
+    on."""
     res = {}
     for name, arg_lists in calls.items():
-        kernel, plain = adjoint_calls()[name]
+        kernel, plain = (table or adjoint_calls())[name]
         errs = [_errs(name, (kernel(*args),), (plain(*[t.cpu() for t in args]),))
                 for args in arg_lists]
         res[f"{name}_rel"] = max(e[f"{name}_rel"] for e in errs)
@@ -992,6 +1108,168 @@ def kron_path(device) -> dict:
     }
 
 
+def random_f32_inputs(k: int, m: int, rng, device) -> dict:
+    """K13/K14's and K17-K22's arguments at a random SPD band A = L Lᵀ, S
+    its Takahashi band, random cotangents and right-hand sides (a vector
+    and SOLVE_RHS columns); the float32 ones rounded once from float64."""
+    from asvgp_tpu_torch.banded import ops
+
+    a = torch.as_tensor(spd_band(k, m, rng), dtype=torch.float64)
+    l = ops.cholesky_band_plain(a)
+    s = ops.takahashi_inverse_band_plain(l)
+    l_bar, s_bar = (torch.as_tensor(rng.randn(k + 1, m)) for _ in range(2))
+    bv, bm = torch.as_tensor(rng.randn(m)), torch.as_tensor(rng.randn(m, SOLVE_RHS))
+    l64, bv64, bm64 = (t.to(device) for t in (l, bv, bm))
+    a32, l32, s32, lb32, sb32, bv32, bm32 = (
+        t.to(device, torch.float32) for t in (a, l, s, l_bar, s_bar, bv, bm))
+    return {"solve_lower": [(l64, bv64), (l64, bm64)],
+            "solve_upper_t": [(l64, bv64), (l64, bm64)],
+            "chol_fwd_f32": [(a32,)], "chol_bwd_f32": [(l32, lb32)],
+            "tak_fwd_f32": [(l32,)], "tak_bwd_f32": [(l32, s32, sb32)],
+            "solve_lower_f32": [(l32, bv32), (l32, bm32)],
+            "solve_upper_t_f32": [(l32, bv32), (l32, bm32)]}
+
+
+def f32_tol(name: str) -> float:
+    """Phase 6j's bar for kernel ``name`` (K13/K14 and K17-K22)."""
+    if not name.endswith("_f32"):
+        return TOL_PARITY_ADJOINT
+    return TOL_F32_ADJOINT if name in F32_ADJOINTS else TOL_F32_FWD
+
+
+def check_each(res: dict, tol_of, where: str) -> None:
+    """Every ``<name>_rel`` of ``res`` within ``tol_of(name)``."""
+    bad = {key: v for key, v in res.items()
+           if key.endswith("_rel") and not v <= tol_of(key.removesuffix("_rel"))}
+    if bad:
+        raise AssertionError(f"kernel parity {where}: {bad}")
+
+
+def solve_function_parity(device, rng) -> dict:
+    """The solves' autograd Functions on the card (forward, then the
+    gradient in L and b: each backward is the other solve's kernel) against
+    torch.autograd through the plain loops on a CPU, in float64 and in
+    float32, at k = 3, m = PARITY_M."""
+    from asvgp_tpu_torch import banded
+    from asvgp_tpu_torch.banded import ops
+
+    l = ops.cholesky_band_plain(torch.as_tensor(spd_band(3, PARITY_M, rng)))
+    b, cot = torch.as_tensor(rng.randn(PARITY_M)), torch.as_tensor(rng.randn(PARITY_M))
+    res = {}
+    for dtype, suffix in ((torch.float64, ""), (torch.float32, "_f32")):
+        for name, fn, plain in (
+                ("solve_lower_band", banded.solve_lower_band, ops.solve_lower_band_plain),
+                ("solve_upper_band_transpose", banded.solve_upper_band_transpose,
+                 ops.solve_upper_band_transpose_plain)):
+            def run(f, dev):
+                lv = l.to(dev, dtype).requires_grad_()
+                bv = b.to(dev, dtype).requires_grad_()
+                x = f(lv, bv)
+                return (x,) + torch.autograd.grad(x, (lv, bv), cot.to(dev, dtype))
+
+            res[f"{name}{suffix}_rel"] = max(
+                rel_err(g, w) for g, w in zip(run(fn, device), run(plain, "cpu")))
+    return res
+
+
+def solve_north_star(device, bands) -> dict:
+    """Phase 6j at the north star: banded.cholesky_solve_band on L_P =
+    chol(P) and Kuf·y on fresh counters (K9, K13, K14 once each) against
+    banded_posterior's u (K1 + K2); K13 and K14 against their plain versions
+    on the arguments they got there."""
+    from asvgp_tpu_torch import banded
+    from asvgp_tpu_torch.banded import core, solve
+
+    kuu, _, p_band, b = bands
+    args: dict = {}
+    with torch.no_grad():
+        core.reset_counters()
+        l_p = banded.cholesky_band(p_band)
+        with capture(args, solve, "solve_lower", "solve_upper_t"):
+            u = banded.cholesky_solve_band(l_p, b)
+        launches = read_launches(device, "cholesky_solve_band at the north star",
+                                 {"chol_fwd": 1, "solve_lower": 1, "solve_upper_t": 1})
+        u_ref = banded.banded_posterior(kuu, p_band, b)[2]
+    return {"u_rel": rel_err(u, u_ref), "launches": launches, "args": args,
+            "main": adjoint_parity(args, f32_calls())}
+
+
+def f32_path(device, x_d, y_d, x_test, y_test) -> dict:
+    """Phases 6k and 6l: GPR1D(..., dtype=float32) at the north star, each
+    stage on fresh counters: construction, one value-and-grad step and the
+    posterior (the arguments K17-K22 got in both kept, under the kernels'
+    names), predictions on the held-out points in batches and NLPD, and the
+    same predictions from a posterior built by the plain float32 versions
+    on a CPU copy."""
+    from asvgp_tpu_torch.banded import core, single, solve
+    from asvgp_tpu_torch.train import nlpd
+
+    core.reset_counters()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    model = make_model(x_d, y_d, M, device, dtype=torch.float32)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches(device, "float32 GPR1D construction", {})
+
+    args: dict = {}
+    singles, solves = ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd"), ("solve_lower", "solve_upper_t")
+    core.reset_counters()
+    with capture(args, single, *singles), capture(args, solve, *solves):
+        loss, grads = value_and_grad(model)
+    step_launches = read_launches(device, "float32 value-and-grad step", F32_STEP)
+    core.reset_counters()
+    with capture(args, single, *singles), capture(args, solve, *solves):
+        post = model.posterior()
+    posterior_launches = read_launches(device, "float32 posterior", F32_POSTERIOR)
+
+    xt = torch.as_tensor(x_test, dtype=torch.float32, device=device)
+    yt = torch.as_tensor(y_test, dtype=torch.float32, device=device)
+    core.reset_counters()
+    mean, var = post.predict_f(xt, batch=PREDICT_BATCH)
+    score = float(nlpd(post.predict_log_density((xt, yt))))
+    predict_launches = read_launches(device, "float32 predict", {})
+    if not (mean.shape == var.shape == (x_test.shape[0], 1)
+            and mean.dtype == var.dtype == torch.float32 and model.kuf_y.dtype == torch.float32):
+        raise AssertionError(f"float32 predict_f: {tuple(mean.shape)}, {mean.dtype}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and math.isfinite(score) and math.isfinite(loss)):
+        raise AssertionError("non-finite float32 loss, predictions or NLPD")
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    cpu_post = cpu_model.posterior()
+    cpu_posterior_s = time.perf_counter() - t0
+    mean_c, var_c = cpu_post.predict_f(xt.cpu(), batch=PREDICT_BATCH)
+    return {
+        "model": model, "post": post, "x_test": xt, "build_s": build_s,
+        "loss": loss, "grad": grads, "nlpd": score,
+        "mean": stat_summary(mean.double()), "var": stat_summary(var.double()),
+        "min_var": float(var.min()),
+        "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
+        "cpu_plain_posterior_s": cpu_posterior_s,
+        "args": {f"{name}_f32": a for name, a in args.items()},
+        "launches": {"construction": build_launches, "step": step_launches,
+                     "posterior": posterior_launches, "predict": predict_launches},
+    }
+
+
+def summary_rel(got: dict, want: dict) -> float:
+    """tools/f32_anchors.py's distance of two summaries: the larger of the
+    sums' and the projections' distances, each relative to the sum of the
+    absolute terms it is made of."""
+    return max(abs(got["sum"] - want["sum"]) / want["abs_sum"],
+               abs(got["proj"] - want["proj"]) / want["proj_abs"])
+
+
+def dense_spd(a_band: torch.Tensor) -> torch.Tensor:
+    """The dense symmetric (m, m) matrix of a lower band (k+1, m)."""
+    from asvgp_tpu_torch.banded import band_to_dense, symmetrise_lower_band
+
+    k = a_band.shape[0] - 1
+    return band_to_dense(symmetrise_lower_band(a_band), k, k)
+
+
 def dense_block_ops(B: int) -> int:
     """Floating-point operations (an fma counts 2) of K16 on one B×B block,
     per the column steps of csrc/block_chol_inv.cu: the rank-1 updates of M
@@ -1013,9 +1291,12 @@ def ptxas_summary(log: str) -> list[str]:
     """'kernel<K>: registers, spill bytes' for every entry ptxas compiled."""
     out, name = [], None
     for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '.*\d([a-z_]+_kernel)(?:ILi(\d)E)?", line)
+        hit = re.search(r"Compiling entry function '.*\d([a-z_]+_kernel)(?:ILi(\d)E([fd]?))?", line)
         if hit:
-            name = f"{hit.group(1)}<{hit.group(2)}>" if hit.group(2) else hit.group(1)
+            name = hit.group(1)
+            if hit.group(2):
+                scalar = {"f": ", float", "d": ", double"}.get(hit.group(3), "")
+                name += f"<{hit.group(2)}{scalar}>"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
             out.append(f"{name}: spill {spill.group(1)}/{spill.group(2)} B")
@@ -1025,9 +1306,11 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def sweep_ops(name: str, k: int, m: int) -> int:
+def sweep_ops(name: str, k: int, m: int, r: int = 1) -> int:
     """Floating-point operations (an fma counts 2) of a sweep's useful work,
-    per the column recursions of csrc/*.cu, over all its columns."""
+    per the column recursions of csrc/*.cu, over all its columns; a float32
+    kernel does its float64 form's work, a solve that per column of its
+    right-hand side (``r`` of them)."""
     chol = k * (k + 1) + 3 + 2 * k          # Cholesky column
     lsolve = 2 * k + 2                      # lower-solve entry
     chol_t = 2 * k * (k + 1) + 4 * (k + 1) + 5  # its tangent
@@ -1051,7 +1334,9 @@ def sweep_ops(name: str, k: int, m: int) -> int:
         "tak_bwd": tak_b + 1,
         "chol_fwd_pair": 2 * chol,
         "tak_bwd_pair": 2 * tak_b,
-    }[name]
+        "solve_lower": lsolve * r,
+        "solve_upper_t": usolve * r,
+    }[name.removesuffix("_f32")]
     # the twisted sweeps walk m - k columns in two streams; the k×k middle
     # block is the mid step's
     cols = m - k if "quad" in name else m
@@ -1064,13 +1349,13 @@ def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(ops: int, nbytes: int) -> dict:
+def bound(ops: int, nbytes: int, peak: float = PEAK_FP64_PER_S) -> dict:
     """The least time the card could take for ``ops`` operations moving
     ``nbytes`` (each input read once and each output written once): the
-    bytes at the HBM rate against the operations at the FP64 peak; the
-    larger one bounds."""
+    bytes at the HBM rate against the operations at ``peak`` (the FP64 or
+    the FP32 rate, by the kernel's type); the larger one bounds."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP64_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1376,8 +1661,76 @@ def main() -> None:
     main_parity |= k16_main
     path_launches["chol_inv_dense"] = kfit["launches"]["chol_inv_dense"]
 
+    # ---- phase 6j: the solves K13/K14 and the float32 kernels K17-K22 -------
+    for k in range(1, 7):
+        res = adjoint_parity(random_f32_inputs(k, PARITY_M, rng, device), f32_calls())
+        emit("6j_parity_solves_f32_random", k=k, m=PARITY_M, rhs=[1, SOLVE_RHS], **res,
+             tol={name: f32_tol(name) for name in f32_calls()})
+        check_each(res, f32_tol, f"of K13/K14 and K17-K22 at k={k}")
+    fn_parity = solve_function_parity(device, rng)
+    emit("6j_parity_solve_functions", k=3, m=PARITY_M, **fn_parity,
+         tol={"float64": TOL_PARITY, "float32": TOL_F32_ADJOINT})
+    check_each(fn_parity, lambda name: TOL_F32_ADJOINT if name.endswith("_f32") else TOL_PARITY,
+               "of the solves' autograd Functions")
+    sol = solve_north_star(device, main_bands)
+    emit("6j_solves_north_star", m=M, u_rel_vs_banded_posterior=sol["u_rel"],
+         tol=TOL_SOLVE_NORTH_STAR, launches=sol["launches"], **sol["main"],
+         tol_main=TOL_PARITY_MAIN)
+    if not sol["u_rel"] <= TOL_SOLVE_NORTH_STAR:
+        raise AssertionError(f"cholesky_solve_band vs banded_posterior's u: {sol['u_rel']}")
+    check_parity(sol["main"], TOL_PARITY_MAIN, "of K13/K14 at the north star")
+    main_parity |= sol["main"]
+    path_launches |= {n: sol["launches"][n] for n in ("solve_lower", "solve_upper_t")}
+
+    # ---- phase 6k: the float32 GPR1D at the north star ----------------------
+    f32 = f32_path(device, x_d, y_d, x_test, y_test)
+    f32_rel = {
+        "loss": rel(f32["loss"], ANCHOR_F32_LOSS),
+        "grad": {n: rel(f32["grad"][n], ANCHOR_F32_GRAD[n]) for n in PARAM_NAMES},
+        "mean": summary_rel(f32["mean"], ANCHOR_F32_MEAN),
+        "var": summary_rel(f32["var"], ANCHOR_F32_VAR),
+        "nlpd": rel(f32["nlpd"], ANCHOR_F32_NLPD),
+        "mean_pointwise": f32["mean_rel_vs_cpu"], "var_pointwise": f32["var_rel_vs_cpu"],
+    }
+    emit("6k_f32_path", n=N, m=M, n_test=N_TEST, batch=PREDICT_BATCH, build_s=f32["build_s"],
+         loss=f32["loss"], grad=f32["grad"], nlpd=f32["nlpd"], mean=f32["mean"], var=f32["var"],
+         min_var=f32["min_var"], cpu_plain_posterior_s=f32["cpu_plain_posterior_s"],
+         rel_err=f32_rel, tol=TOL_F32)
+    f32_vs_f64 = rel(f32["loss"], ANCHOR_LOSS)
+    emit("6k_f32_loss_vs_f64_anchor", loss=f32["loss"], anchor=ANCHOR_LOSS, rel_err=f32_vs_f64,
+         tol=TOL_F32_VS_F64)
+    # information: the card's and the JAX float32 route's distances from
+    # the float64 values
+    emit("6k_f32_vs_f64_values",
+         card={"grad": {n: rel(f32["grad"][n], ANCHOR_GRAD[n]) for n in PARAM_NAMES},
+               "var": summary_rel(f32["var"], ANCHOR_F64_VAR),
+               "nlpd": rel(f32["nlpd"], ANCHOR_F64_NLPD)},
+         jax_f32={"loss": rel(ANCHOR_F32_LOSS, ANCHOR_LOSS),
+                  "grad": {n: rel(ANCHOR_F32_GRAD[n], ANCHOR_GRAD[n]) for n in PARAM_NAMES},
+                  "var": summary_rel(ANCHOR_F32_VAR, ANCHOR_F64_VAR),
+                  "nlpd": rel(ANCHOR_F32_NLPD, ANCHOR_F64_NLPD)})
+    bad = [key for key in ("loss", "mean", "var", "nlpd", "mean_pointwise", "var_pointwise")
+           if not f32_rel[key] <= TOL_F32[key]]
+    bad += [n for n in PARAM_NAMES if not f32_rel["grad"][n] <= TOL_F32["grad"][n]]
+    if bad or not f32_vs_f64 <= TOL_F32_VS_F64:
+        raise AssertionError(f"float32 GPR1D: {bad} outside {TOL_F32}: {f32_rel}; "
+                             f"loss vs the float64 anchor {f32_vs_f64}")
+
+    # ---- phase 6l: proof of the float32 path; K17-K22 on its arguments ------
+    # held exactly in f32_path: construction and predict nothing, the step
+    # F32_STEP, the posterior F32_POSTERIOR, no plain version on the card
+    f32_main_args = {name: [calls[0], calls[-1]] if len(calls) > 1 else calls
+                     for name, calls in f32["args"].items()}
+    f32_main = adjoint_parity(f32_main_args, f32_calls())
+    emit("6l_proof_of_f32_path", launches=f32["launches"], **f32_main,
+         calls={n: len(a) for n, a in f32["args"].items()}, tol=TOL_F32_MAIN)
+    check_parity(f32_main, TOL_F32_MAIN, "of K17-K22 on the float32 path's arguments")
+    main_parity |= f32_main
+    path_launches |= {n: f32["launches"]["step"][n] + f32["launches"]["posterior"][n]
+                      for n in F32_STEP}
+
     # ---- phase 7: times on the card ---------------------------------------
-    from asvgp_tpu_torch.banded import block, single
+    from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
     from asvgp_tpu_torch.features.spline_features import make_kuu
     from asvgp_tpu_torch.models.kron import _p_blocks as kron_p_blocks
     from asvgp_tpu_torch.stats import compute_kron_stats, compute_stats
@@ -1435,6 +1788,15 @@ def main() -> None:
                                lambda: dense_block.chol_inv_dense_plain(blk))
     blk_batch = torch.stack(k16_blocks)
     eye = torch.eye(blk.shape[0], dtype=blk.dtype, device=device)
+    # K13/K14 on the arguments the north star's cholesky_solve_band gave
+    # them; K17-K22 on the float32 step's (K17 on its P)
+    new_args = {**{n: sol["args"][n][0] for n in ("solve_lower", "solve_upper_t")},
+                **{n: f32["args"][n][0] for n in F32_STEP},
+                "chol_fwd_f32": f32["args"]["chol_fwd_f32"][1]}
+    for name, (kernel_fn, plain_fn) in f32_calls().items():
+        args = new_args[name]
+        io[name] = (args, (kernel_fn(*args),))
+        calls[name] = (lambda f=kernel_fn, a=args: f(*a), lambda f=plain_fn, a=args: f(*a))
 
     def library_chol_inv(m):
         """The same function by PyTorch's library calls (timed, never used
@@ -1459,6 +1821,8 @@ def main() -> None:
         with twist_scope(False):
             value_and_grad(tmodel)
 
+    f32_model, f32_post, f32_xt = f32["model"], f32["post"], f32["x_test"]
+
     times = {
         "stats_build": cuda_ms(lambda: compute_stats(model.basis, x_d, y_d)),
         "elbo_value": cuda_ms(elbo_value),
@@ -1481,6 +1845,10 @@ def main() -> None:
         "chol_inv_dense_batch100": cuda_ms(lambda: dense_block.chol_inv_dense(blk_batch)),
         "chol_inv_dense_library": cuda_ms(lambda: library_chol_inv(blk)),
         "chol_inv_dense_library_batch100": cuda_ms(lambda: library_chol_inv(blk_batch)),
+        "f32_value_and_grad": cuda_ms(lambda: value_and_grad(f32_model)),
+        "f32_backward": backward_ms(f32_model),
+        "f32_posterior": cuda_ms(f32_model.posterior),
+        "f32_predict_1e5": cuda_ms(lambda: f32_post.predict_f(f32_xt, batch=PREDICT_BATCH)),
     }
     for name, (kernel_fn, _) in calls.items():
         times[name] = cuda_ms(kernel_fn)
@@ -1510,14 +1878,45 @@ def main() -> None:
     }
     for name, prof in profiles.items():
         emit("7_profile", what=name, card=smi, **prof)
+    profiles_f32 = {"f32_value_and_grad": device_profile(lambda: value_and_grad(f32_model))}
+    for name, prof in profiles_f32.items():
+        emit("7_profile", what=name, card=smi, **prof)
     for name, run_fit in (("fit_north_star", fit), ("fit_snelson", sn_fit),
                           ("fit_exact_snelson", ex_fit), ("fit_kron", kfit)):
         emit("7_time", what=name, card=smi, median_ms_per_iter=run_fit["ms_per_iter"],
              ms_per_iter=run_fit["ms_per_iter_all"], evals=run_fit["info"]["ls_evals"],
              evals_per_iter=run_fit["info"].get("evals_per_iter"))
 
-    # one PyTorch computation of the same function exists for K16 only
+    # one PyTorch call computes the same function, on the dense matrix, for
+    # K16 (the pair above), the Cholesky sweeps K9, K15 and K17
+    # (torch.linalg.cholesky of A: dense O(m³) work) and the solves K13,
+    # K14, K21 and K22 (torch.linalg.solve_triangular with the dense L:
+    # O(m²) work); each is timed on the inputs the kernel got, and the
+    # other kernels (Takahashi, the adjoints, the fused sweeps) have none
     library_ms = {"chol_inv_dense": times["chol_inv_dense_library"]["median_ms"]}
+    library = {"chol_fwd": lambda a: torch.stack([dense_spd(a)]),
+               "chol_fwd_pair": lambda a, b: torch.stack([dense_spd(a), dense_spd(b)]),
+               "chol_fwd_f32": lambda a: torch.stack([dense_spd(a)])}
+    for name, make in library.items():
+        dense = make(*io[name][0])
+        t = cuda_ms(lambda: torch.linalg.cholesky_ex(dense))
+        info = torch.linalg.cholesky_ex(dense).info
+        library_ms[name] = t["median_ms"]
+        emit("7_library", what=name, call="torch.linalg.cholesky_ex", m=m, card=smi,
+             dtype=str(dense.dtype), batch=dense.shape[0], median_ms=t["median_ms"], ms=t["ms"],
+             factored=bool((info == 0).all()))
+        del dense
+    for name in ("solve_lower", "solve_upper_t", "solve_lower_f32", "solve_upper_t_f32"):
+        l_band, rhs = io[name][0]
+        dense = lower_band_to_dense(l_band)
+        lhs, upper = (dense, False) if name.startswith("solve_lower") else (dense.mT, True)
+        rhs2 = rhs.reshape(m, -1)
+        t = cuda_ms(lambda: torch.linalg.solve_triangular(lhs, rhs2, upper=upper))
+        library_ms[name] = t["median_ms"]
+        emit("7_library", what=name, call="torch.linalg.solve_triangular", m=m, card=smi,
+             dtype=str(dense.dtype), rhs=rhs2.shape[1], median_ms=t["median_ms"], ms=t["ms"])
+        del dense, lhs
+    torch.cuda.empty_cache()
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "chol_inv_dense":
@@ -1526,7 +1925,9 @@ def main() -> None:
         else:
             shape = {"k": k, "m": m}
             ins, outs = io[name]
-            bnd = bound(sweep_ops(name, k, m), tensor_bytes((*ins, *outs)))
+            r = ins[1].shape[1] if "solve" in name and ins[1].ndim == 2 else 1
+            peak = PEAK_FP32_PER_S if name.endswith("_f32") else PEAK_FP64_PER_S
+            bnd = bound(sweep_ops(name, k, m, r), tensor_bytes((*ins, *outs)), peak)
         emit("7_bound", what=name, **shape, **bnd)
         kernels.append({
             "name": name,

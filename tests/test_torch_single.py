@@ -30,7 +30,7 @@ from asvgp_tpu.banded import pallas_ds_core as jpdc
 from asvgp_tpu.banded import pallas_ds_pair as jpdp
 from asvgp_tpu.banded import pallas_kernels as jpk
 from asvgp_tpu_torch import banded
-from asvgp_tpu_torch.banded import core, dense_block, ops, single, tan, twist, twisted
+from asvgp_tpu_torch.banded import core, dense_block, ops, single, solve, tan, twist, twisted
 
 LAUNCH_KEYS = ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd")
 
@@ -140,8 +140,8 @@ def test_differentiable_ops_match_autograd_through_plain(k):
 
 
 def test_public_ops_dispatch_on_the_device():
-    """A CPU tensor runs the plain recursion; a tensor elsewhere runs a
-    kernel or raises: the solves name their unported kernels K13/K14."""
+    """A CPU tensor runs the plain recursion; a tensor on neither the CPU
+    nor a card raises, the solves (K13/K14) included."""
     a, l, _, _, _ = inputs(3, 12, 5)
     b = torch.from_numpy(np.random.RandomState(1).randn(12))
     torch.testing.assert_close(banded.cholesky_band(a), ops.cholesky_band_plain(a), rtol=0, atol=0)
@@ -150,11 +150,11 @@ def test_public_ops_dispatch_on_the_device():
     torch.testing.assert_close(banded.solve_lower_band(l, b), ops.solve_lower_band_plain(l, b),
                                rtol=0, atol=0)
     meta_l, meta_b = l.to("meta"), b.to("meta")
-    with pytest.raises(NotImplementedError, match="K13"):
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         banded.solve_lower_band(meta_l, meta_b)
-    with pytest.raises(NotImplementedError, match="K14"):
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         banded.solve_upper_band_transpose(meta_l, meta_b)
-    with pytest.raises(NotImplementedError, match="K13"):
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         banded.cholesky_solve_band(meta_l, meta_b)
     with pytest.raises(ValueError):
         single.chol_fwd(a.to("meta"))
@@ -172,6 +172,7 @@ def _kernel_wrappers():
         core: ("chol_pair_solve", "tak_pair_solve", "factor_takahashi_solve", "collapsed_core",
                "tak_bwd_vec", "chol_bwd_pair", "tak_bwd_pair"),
         single: ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd", "chol_fwd_pair"),
+        solve: ("solve_lower", "solve_upper_t"),
         dense_block: ("chol_inv_dense",),
         tan: ("chol_pair_solve_tan", "tak_pair_solve_tan", "factor_takahashi_solve_tan"),
         twist: ("chol_quad_solve_tan", "tak_quad_solve_tan", "factor_takahashi_solve_tan_twist"),
@@ -216,6 +217,8 @@ def test_plain_versions_reach_only_plain_loops(monkeypatch):
     twisted.twisted_collapsed_core(kuu, p, b, big)
     ops.cholesky_band_bwd_plain(l, l_bar)
     ops.takahashi_bwd_plain(l, s, s_bar)
+    solve.solve_lower_plain(l, b)
+    solve.solve_upper_t_plain(l, torch.stack([b, b], dim=1))
 
 
 @pytest.fixture
@@ -259,5 +262,10 @@ def test_cuda_differentiable_ops_launch_the_kernels(cuda_device):
     (g_ref,) = torch.autograd.grad(
         torch.sum(cot * ops.takahashi_inverse_band_plain(ops.cholesky_band_plain(ac))), ac)
     assert rel(g.cpu(), g_ref) <= 1e-11
-    with pytest.raises(NotImplementedError, match="K13"):
-        banded.solve_lower_band(av.detach(), av.detach()[0])
+    # the solves launch K13 now; a float32 tensor never reaches a
+    # float64-only kernel
+    core.reset_counters()
+    banded.solve_lower_band(av.detach(), av.detach()[0])
+    assert core.LAUNCHES["solve_lower"] == 1
+    with pytest.raises(TypeError, match="float64"):
+        core.tak_bwd_vec(*(t.float() for t in (av.detach(),) * 3), av.detach()[0].float())
