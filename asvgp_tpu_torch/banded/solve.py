@@ -10,12 +10,15 @@ PyTorch counterpart of the solves of ``asvgp_tpu/banded/pallas_ds.py``
   K13 / K21 ``solve_lower``: x = L⁻¹ b;
   K14 / K22 ``solve_upper_t``: x = L⁻ᵀ b;
 
-as hand-written CUDA kernels (csrc/banded_solve.cu ``solve_lower<K, T>``,
-``solve_upper_t<K, T>``, one thread per column of b) on CUDA tensors, each
-dtype under its own launch counter (``solve_lower`` for float64,
-``solve_lower_f32`` for float32, ...), and as their plain versions (the
-recursions of banded/ops.py) on CPU tensors.  A CUDA tensor launches the
-kernel or raises.  b is (m,) or (m, r): the TPU kernels take one vector and
+as hand-written CUDA kernels (csrc/banded_solve.cu: ``solve_lower<K, T>``,
+a forward substitution partitioned into chunks whose incoming windows a
+scan over the chunks' affine maps supplies, three launches on the stream
+with scratch from here; ``solve_upper_t<K, T>``, one thread per column of
+b) on CUDA tensors, each dtype under its own launch counter
+(``solve_lower`` for float64, ``solve_lower_f32`` for float32, ...), one
+count per call, and as their plain versions (the recursions of
+banded/ops.py) on CPU tensors.  A CUDA tensor launches the kernel or
+raises.  b is (m,) or (m, r): the TPU kernels take one vector and
 the JAX package runs a matrix right-hand side through its scan; here the
 kernels take r columns, so no public solve runs a plain loop on the card.
 Bandwidth k = 0 is a division and runs in torch ops on either device.
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from asvgp_tpu_torch.banded import core, ops
+from asvgp_tpu_torch.banded import _build, core, ops
 from asvgp_tpu_torch.banded.single import BOTH, route
 
 
@@ -52,7 +55,10 @@ def _divide(l_band, b):
     return b / (l_band[0] if b.ndim == 1 else l_band[0][:, None])
 
 
-def _solve(name, l_band, b, plain):
+def _solve(name, l_band, b, plain, partitioned=False):
+    """Check, then the plain version on a CPU tensor or one launch of the
+    kernel on a CUDA tensor; a ``partitioned`` kernel (K13/K21) gets the
+    scratch its chunk maps need."""
     k, m = _check(l_band, b)
     if k == 0:
         return _divide(l_band, b)
@@ -63,8 +69,12 @@ def _solve(name, l_band, b, plain):
     r = 1 if b.ndim == 1 else b.shape[1]
     if r == 0:
         return x
-    core._launch(*route(name, l_band), l_band.device, k, m, r,
-                 l_band.data_ptr(), b.data_ptr(), x.data_ptr())
+    ptrs = [l_band.data_ptr(), b.data_ptr(), x.data_ptr()]
+    if partitioned:
+        # empty (and unread) when the rows form one chunk
+        ws = l_band.new_empty(_build.load().asvgp_solve_lower_workspace(k, m, r))
+        ptrs.append(ws.data_ptr())
+    core._launch(*route(name, l_band), l_band.device, k, m, r, *ptrs)
     return x
 
 
@@ -83,7 +93,7 @@ def solve_lower(l_band, b):
     """K13 (float64) or K21 (float32) on CUDA tensors, its plain version on
     CPU tensors: x = L⁻¹ b for a (k+1, m) lower band L and b of shape (m,)
     or (m, r)."""
-    return _solve("solve_lower", l_band, b, solve_lower_plain)
+    return _solve("solve_lower", l_band, b, solve_lower_plain, partitioned=True)
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,8 @@
 //     band[j * m + i] = L[i + j, i],   0 <= j <= K,
 // with the right-padding slots (i + j >= m) zero.  The right-hand side b
 // and the solution x are (m, r) row-major (x[i * r + c]): r >= 1 columns,
-// a vector being r = 1.
-//
-// Two kernels, one thread per column of b (a serial chain over the m
-// rows), compile-time K = 1..6, the K previous (or next) entries of x in
-// registers, templated on the scalar type T:
+// a vector being r = 1.  Compile-time K = 1..6, templated on the scalar
+// type T:
 //
 //   solve_lower<K, T>    L x = b, rows i = 0..m-1:
 //       x_i = (b_i - sum_{p=1..K} L[i, i-p] x_{i-p}) / L[i, i]
@@ -23,28 +20,55 @@
 // pairs) and pallas_kernels.py _solve_lower_kernel and
 // _solve_upper_t_kernel (float32).  The TPU kernels take one vector; these
 // take r columns, so a matrix right-hand side needs no plain loop either.
+// The TPU kernels walk 128-column tiles with the window as the loop carry
+// and read the band through shifted copies built outside the kernel
+// (G[p-1, i] = L[i, i-p]); here the band is read in place.
 //
-// What bounds them: a serial chain of m steps, each waiting on the latency
-// of the one before (K dependent multiply-adds, a subtract and a divide);
-// a solve reads (K+1) x m + m x r values and writes m x r, under 1 MB at
-// m = 10^4 for a vector, so neither bandwidth nor the arithmetic rate is
-// the limit.
+// Every operation of a row is spelled with the round-to-nearest intrinsics
+// (__dmul_rn, __dadd_rn, __dsub_rn, __ddiv_rn and their float forms): the
+// sum over p in increasing p, no fma contraction, the plain version's
+// recursion rounded step by step.  A zero pivot gives inf or NaN, as the
+// reference recursions do; nothing clamps.
 //
-// What the design does about it: the TPU kernels walk 128-column tiles
-// with the window as the loop carry and read the band through shifted
-// copies built outside the kernel (G[p-1, i] = L[i, i-p]).  Here the band
-// is read in place: the thread loads the next row's K + 1 band entries and
-// its b while the current row's chain runs, and keeps the last K entries
-// of x in registers.  Every thread of a block reads the same band entries
-// (a broadcast) and neighbouring entries of b and x (coalesced).
+// solve_lower: a partitioned forward substitution.
+//   What bounds it: one dependent chain of m rows per column of b (K
+//   dependent products and sums, a subtract and a divide per row).  A
+//   solve reads (K+1) m + m r values and writes m r: under 1 MB at
+//   m = 10^4 for a vector, so neither bandwidth nor the arithmetic rate is
+//   the limit, the chain's length is.
+//   What the design does about it: the rows are cut into P chunks of lc
+//   rows (chunk_rows), and x on a chunk is affine in the
+//   chunk's incoming window w = (x_{s-1}, ..., x_{s-K}).  Three launches:
+//     1. maps (solve_lower_chunk_kernel<.., true>), one CTA per chunk but
+//        the last: K + r chains of lc rows, the K homogeneous responses
+//        (b = 0, window e_q) and the r particular solutions (window 0),
+//        of which only the last K rows are kept: the chunk's outgoing
+//        window is y + H w;
+//     2. scan (solve_lower_scan_kernel): one thread per column walks the
+//        P - 1 maps, w_{j+1} = y_j + H_j w_j, from the staged maps;
+//     3. solve (solve_lower_chunk_kernel<.., false>), one CTA per chunk:
+//        the plain recursion from the chunk's true incoming window, in the
+//        plain version's order, writing x.
+//   So the card runs three chains of ~lc + P + lc steps instead of one of
+//   m.  Chunk 0 starts from the zero window, as the serial recursion does,
+//   so its rows are the serial ones bit for bit; later chunks differ only
+//   by the rounding of their incoming windows, which went through the
+//   composed maps.  Short chunks keep the homogeneous responses bounded:
+//   for a Cholesky factor their entries are entries of a block of L^-1
+//   times L, and at the north star's L_P they have decayed below 1e-17 by
+//   the end of a 64-row chunk.
+//   Each CTA stages its chunk's band (g[p][t] = L[i, i-p] for the rows of a
+//   64-row tile) and its b tile in shared memory with cp.async, two tiles
+//   in flight, so no global load sits on a chain; a chunk longer than a
+//   tile streams through the two buffers.  With many columns, P falls
+//   until P = 1: the serial recursion with staged loads, one CTA per 32
+//   columns.
 //
-// The order of every operation is spelled out with the round-to-nearest
-// intrinsics (__dmul_rn, __dadd_rn, __dsub_rn, __ddiv_rn and their float
-// forms): the sum over p in increasing p, no fma contraction, so the
-// result is the plain version's recursion rounded step by step.
-//
-// A zero pivot gives inf or NaN, as the reference recursions do; nothing
-// clamps.
+// solve_upper_t: one thread per column of b, a serial chain over the m
+//   rows with the K next entries of x in registers and the next row's
+//   K + 1 band entries and b loaded one row ahead.  Every thread of a
+//   block reads the same band entries (a broadcast) and neighbouring
+//   entries of b and x (coalesced).
 
 #include <cuda_runtime.h>
 
@@ -60,58 +84,249 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
 // ---------------------------------------------------------------------------
-// K13 / K21: solve_lower<K, T>
-//
-// Rows i = 0..m-1, with the window X[p-1] = x_{i-p} (zero before row 0) and
-// g_p = L[i, i-p] = band[p, i-p] (zero for i < p).
+// K13 / K21: solve_lower<K, T>, partitioned
 // ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;         // rows of a staged tile
+constexpr int kChains = 32;       // chains of one CTA of passes 1 and 3: a warp
+constexpr int kMinChunk = 64;     // rows of a chunk, at least
+constexpr long kMaxChunks = 256;  // bounds pass 2's staged maps
+constexpr long kFill = 4096;      // chunks x columns that fill the card
+constexpr int kScanCols = 8;      // columns of one CTA of pass 2
+// the shared memory one CTA may use on an H100: 227 KB
+constexpr size_t kSmemLimit = 232448;
+
+// rows per chunk: at least kMinChunk, at most kMaxChunks chunks, and about
+// kFill chains over the columns; a multiple of the tile.  lc >= m is P = 1.
+int chunk_rows(int m, int r) {
+  long lc = kMinChunk;
+  const long by_count = (m + kMaxChunks - 1) / kMaxChunks;
+  const long by_fill = (static_cast<long>(m) * r + kFill - 1) / kFill;
+  if (by_count > lc) lc = by_count;
+  if (by_fill > lc) lc = by_fill;
+  lc = (lc + kTile - 1) / kTile * kTile;
+  return static_cast<int>(lc < m ? lc : m);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage rows i0..i0+n-1: g[p][t] = L[i, i-p] (0 for i < p) and bt[t][.] =
+// the columns cb0..cb1-1 of b, at offset cb0 - col0.
 template <int K, typename T>
-__global__ void __launch_bounds__(128)
-solve_lower_kernel(int m, int r, const T* __restrict__ l,
-                   const T* __restrict__ b, T* __restrict__ x) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= r) return;
+__device__ __forceinline__ void stage_tile(T (*g)[kTile], T (*bt)[kChains],
+                                           const T* __restrict__ l,
+                                           const T* __restrict__ b, int m, int r,
+                                           int i0, int n, int col0, int cb0, int cb1) {
   const size_t ms = static_cast<size_t>(m);
+  for (int idx = threadIdx.x; idx < (K + 1) * kTile; idx += kChains) {
+    const int p = idx / kTile;
+    const int t = idx % kTile;
+    if (t < n) {
+      const int i = i0 + t;
+      if (i >= p) {
+        cp_async(&g[p][t], l + p * ms + (i - p));
+      } else {
+        g[p][t] = T(0);
+      }
+    }
+  }
+  const int nc = cb1 - cb0;
+  for (int idx = threadIdx.x; idx < n * nc; idx += kChains) {
+    const int t = idx / nc;
+    const int cc = idx % nc;
+    cp_async(&bt[t][cb0 - col0 + cc], b + static_cast<size_t>(i0 + t) * r + cb0 + cc);
+  }
+  cp_async_commit();
+}
+
+// Passes 1 (kMaps) and 3: the recursion over chunk blockIdx.x, chain q =
+// blockIdx.y * 32 + lane.  Pass 1: chains q < K are the homogeneous
+// responses (window e_q, b = 0), chains K..K+r-1 the particular solutions
+// of the columns q - K (window 0); their last window goes to hmap[j][p][q]
+// and ymap[j][c][p].  Pass 3: chain q is column q, from the incoming
+// window win[j-1][q] (0 for chunk 0), and writes x.
+template <int K, typename T, bool kMaps>
+__global__ void __launch_bounds__(kChains)
+solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
+                         const T* __restrict__ b, T* __restrict__ x,
+                         const T* __restrict__ win, T* __restrict__ hmap,
+                         T* __restrict__ ymap) {
+  __shared__ T g[2][K + 1][kTile];
+  __shared__ T bt[2][kTile][kChains];
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int q = blockIdx.y * kChains + lane;
+  const int s = j * lc;
+  const int e = (s + lc < m) ? s + lc : m;
+  const int shift = kMaps ? K : 0;
+  const int c = q - shift;  // column of b; < 0 for a homogeneous chain
+  const bool has_b = c >= 0 && c < r;
+  const int col0 = blockIdx.y * kChains - shift;
+  const int cb0 = col0 > 0 ? col0 : 0;
+  const int cb1 = (col0 + kChains < r) ? col0 + kChains : r;
   const size_t rs = static_cast<size_t>(r);
 
+  // X[p] = x_{i-1-p}: the window
   T X[K];
 #pragma unroll
-  for (int p = 0; p < K; ++p) X[p] = T(0);
-  // row 0's operands; row 0 has no g
-  T gn[K];
-#pragma unroll
-  for (int p = 0; p < K; ++p) gn[p] = T(0);
-  T dn = l[0];
-  T bn = b[c];
-
-  for (int i = 0; i < m; ++i) {
-    T g[K];
-#pragma unroll
-    for (int p = 0; p < K; ++p) g[p] = gn[p];
-    const T d = dn;
-    const T bi = bn;
-    const int nx = i + 1;
-    if (nx < m) {
-#pragma unroll
-      for (int p = 1; p <= K; ++p) {
-        gn[p - 1] = (nx >= p) ? l[p * ms + (nx - p)] : T(0);
-      }
-      dn = l[nx];
-      bn = b[static_cast<size_t>(nx) * rs + c];
+  for (int p = 0; p < K; ++p) {
+    if (kMaps) {
+      X[p] = (q == p) ? T(1) : T(0);
+    } else {
+      X[p] = (j > 0 && has_b) ? win[((static_cast<size_t>(j) - 1) * rs + c) * K + p] : T(0);
     }
-
-    T acc = mul_rn(g[0], X[0]);
-#pragma unroll
-    for (int p = 1; p < K; ++p) acc = add_rn(acc, mul_rn(g[p], X[p]));
-    const T xi = div_rn(sub_rn(bi, acc), d);
-    x[static_cast<size_t>(i) * rs + c] = xi;
-
-#pragma unroll
-    for (int p = K - 1; p > 0; --p) X[p] = X[p - 1];
-    X[0] = xi;
   }
+
+  const int ntiles = (e - s + kTile - 1) / kTile;
+  stage_tile<K, T>(g[0], bt[0], l, b, m, r, s, min(kTile, e - s), col0, cb0, cb1);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    const int i0 = s + tile * kTile;
+    const int n = min(kTile, e - i0);
+    if (tile + 1 < ntiles) {
+      const int i1 = i0 + kTile;
+      stage_tile<K, T>(g[buf ^ 1], bt[buf ^ 1], l, b, m, r, i1, min(kTile, e - i1), col0,
+                       cb0, cb1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      T acc = mul_rn(g[buf][1][t], X[0]);
+#pragma unroll
+      for (int p = 2; p <= K; ++p) acc = add_rn(acc, mul_rn(g[buf][p][t], X[p - 1]));
+      const T bi = has_b ? bt[buf][t][lane] : T(0);
+      const T xi = div_rn(sub_rn(bi, acc), g[buf][0][t]);
+      if (!kMaps && has_b) x[static_cast<size_t>(i0 + t) * rs + c] = xi;
+#pragma unroll
+      for (int p = K - 1; p > 0; --p) X[p] = X[p - 1];
+      X[0] = xi;
+    }
+    __syncthreads();
+  }
+
+  if (kMaps) {
+    if (q < K) {
+#pragma unroll
+      for (int p = 0; p < K; ++p) hmap[(static_cast<size_t>(j) * K + p) * K + q] = X[p];
+    } else if (has_b) {
+#pragma unroll
+      for (int p = 0; p < K; ++p) ymap[(static_cast<size_t>(j) * rs + c) * K + p] = X[p];
+    }
+  }
+}
+
+// Pass 2: one thread per column c walks the P - 1 maps, w_{j+1} = y_j +
+// H_j w_j from w_0 = 0, and writes win[j][c] = w_{j+1}, the incoming window
+// of chunk j + 1.  The maps of its columns are staged first; any order of
+// rounding serves here.
+template <int K, typename T>
+__global__ void __launch_bounds__(32)
+solve_lower_scan_kernel(int r, int nmap, const T* __restrict__ hmap,
+                        const T* __restrict__ ymap, T* __restrict__ win) {
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  T* hs = reinterpret_cast<T*>(scan_smem);            // nmap K K
+  T* ys = hs + static_cast<size_t>(nmap) * K * K;     // nmap kScanCols K
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * kScanCols;
+  const int nc = (r - c0 < kScanCols) ? r - c0 : kScanCols;
+  const size_t rs = static_cast<size_t>(r);
+  for (int idx = lane; idx < nmap * K * K; idx += 32) cp_async(&hs[idx], hmap + idx);
+  for (int idx = lane; idx < nmap * nc * K; idx += 32) {
+    const int jj = idx / (nc * K);
+    const int rem = idx % (nc * K);
+    cp_async(&ys[jj * kScanCols * K + rem], ymap + (jj * rs + c0) * K + rem);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (lane >= nc) return;
+
+  T w[K];
+#pragma unroll
+  for (int p = 0; p < K; ++p) w[p] = T(0);
+  for (int jj = 0; jj < nmap; ++jj) {
+    const T* h = hs + jj * K * K;
+    const T* y = ys + (jj * kScanCols + lane) * K;
+    T nw[K];
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      T a = y[p];
+#pragma unroll
+      for (int qq = 0; qq < K; ++qq) a = fma_t(h[p * K + qq], w[qq], a);
+      nw[p] = a;
+    }
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      w[p] = nw[p];
+      win[(jj * rs + c0 + lane) * K + p] = nw[p];
+    }
+  }
+}
+
+template <int K, typename T>
+size_t scan_smem_bytes(int nmap) {
+  return static_cast<size_t>(nmap) * (K * K + kScanCols * K) * sizeof(T);
+}
+
+// Elements of T of the workspace: H (P-1, K, K), y (P-1, r, K) and the
+// incoming windows (P-1, r, K); 0 when P = 1.
+size_t lower_workspace(int k, int m, int r) {
+  const int lc = chunk_rows(m, r);
+  const size_t nmap = static_cast<size_t>((m + lc - 1) / lc - 1);
+  return nmap * k * (k + 2 * static_cast<size_t>(r));
+}
+
+template <int K, typename T>
+cudaError_t launch_solve_lower(int m, int r, const T* l, const T* b, T* x, T* ws,
+                               cudaStream_t st) {
+  const int lc = chunk_rows(m, r);
+  const int nchunks = (m + lc - 1) / lc;
+  const unsigned col_blocks = static_cast<unsigned>((r + kChains - 1) / kChains);
+  const T* win = nullptr;
+  if (nchunks > 1) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const int nmap = nchunks - 1;
+    T* hmap = ws;
+    T* ymap = hmap + static_cast<size_t>(nmap) * K * K;
+    T* w = ymap + static_cast<size_t>(nmap) * r * K;
+    const dim3 maps_grid(nmap, (K + r + kChains - 1) / kChains);
+    solve_lower_chunk_kernel<K, T, true><<<maps_grid, kChains, 0, st>>>(
+        m, r, lc, l, b, nullptr, nullptr, hmap, ymap);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t smem = scan_smem_bytes<K, T>(nmap);
+    if (smem > kSmemLimit) return cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(solve_lower_scan_kernel<K, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    solve_lower_scan_kernel<K, T><<<(r + kScanCols - 1) / kScanCols, 32, smem, st>>>(
+        r, nmap, hmap, ymap, w);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    win = w;
+  }
+  solve_lower_chunk_kernel<K, T, false><<<dim3(nchunks, col_blocks), kChains, 0, st>>>(
+      m, r, lc, l, b, x, win, nullptr, nullptr);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -165,13 +380,6 @@ inline unsigned blocks(int r) { return static_cast<unsigned>((r + 127) / 128); }
 inline unsigned threads(int r) { return static_cast<unsigned>(r < 128 ? r : 128); }
 
 template <int K, typename T>
-cudaError_t launch_solve_lower(int m, int r, const T* l, const T* b, T* x,
-                               cudaStream_t st) {
-  solve_lower_kernel<K, T><<<blocks(r), threads(r), 0, st>>>(m, r, l, b, x);
-  return cudaGetLastError();
-}
-
-template <int K, typename T>
 cudaError_t launch_solve_upper_t(int m, int r, const T* l, const T* b, T* x,
                                  cudaStream_t st) {
   solve_upper_t_kernel<K, T><<<blocks(r), threads(r), 0, st>>>(m, r, l, b, x);
@@ -193,20 +401,35 @@ cudaError_t launch_solve_upper_t(int m, int r, const T* l, const T* b, T* x,
 
 extern "C" {
 
-// K13 (double) / K21 (float).  l: a (k+1, m) lower band, b: (m, r).
+// Elements of workspace (of the solve's dtype) that K13 / K21 need for a
+// (k+1, m) band and r columns: 0 when the rows form one chunk.
+int asvgp_solve_lower_workspace(int k, int m, int r) {
+  if (k < 1 || m < 1 || r < 1) return -1;
+  return static_cast<int>(lower_workspace(k, m, r));
+}
+
+// K13 (double) / K21 (float).  l: a (k+1, m) lower band, b: (m, r), ws:
+// asvgp_solve_lower_workspace(k, m, r) elements, or NULL when that is 0.
 // Writes x = L^-1 b, (m, r).
-#define ASVGP_SOLVE(NAME, LAUNCH, T)                                     \
+#define ASVGP_SOLVE_LOWER(NAME, T)                                       \
+  int NAME(int k, int m, int r, const T* l, const T* b, T* x, T* ws,     \
+           void* stream) {                                               \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
+    if (m < 1 || r < 1) return static_cast<int>(cudaErrorInvalidValue);  \
+    ASVGP_DISPATCH_K(k, (launch_solve_lower<K, T>(m, r, l, b, x, ws, st)))  \
+  }
+ASVGP_SOLVE_LOWER(asvgp_solve_lower, double)
+ASVGP_SOLVE_LOWER(asvgp_solve_lower_f32, float)
+
+// K14 (double) / K22 (float).  Writes x = L^-T b, (m, r).
+#define ASVGP_SOLVE_UPPER_T(NAME, T)                                     \
   int NAME(int k, int m, int r, const T* l, const T* b, T* x,            \
            void* stream) {                                               \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
     if (m < 1 || r < 1) return static_cast<int>(cudaErrorInvalidValue);  \
-    ASVGP_DISPATCH_K(k, (LAUNCH<K, T>(m, r, l, b, x, st)))               \
+    ASVGP_DISPATCH_K(k, (launch_solve_upper_t<K, T>(m, r, l, b, x, st))) \
   }
-ASVGP_SOLVE(asvgp_solve_lower, launch_solve_lower, double)
-ASVGP_SOLVE(asvgp_solve_lower_f32, launch_solve_lower, float)
-
-// K14 (double) / K22 (float).  Writes x = L^-T b, (m, r).
-ASVGP_SOLVE(asvgp_solve_upper_t, launch_solve_upper_t, double)
-ASVGP_SOLVE(asvgp_solve_upper_t_f32, launch_solve_upper_t, float)
+ASVGP_SOLVE_UPPER_T(asvgp_solve_upper_t, double)
+ASVGP_SOLVE_UPPER_T(asvgp_solve_upper_t_f32, float)
 
 }  // extern "C"

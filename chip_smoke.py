@@ -50,8 +50,10 @@ points, on the card:
      star's Kuu and P: banded.cholesky_band_pair with a gradient launches
      K15 and K8 once, core.tak_bwd_pair K23 once
   6g. K16 (dense-block Cholesky ⊗ inverse) against its plain version on
-     random SPD blocks, B = 1..200 (128: the TPU's limit; 200: past shared
-     memory), κ = 1, 1e4, 1e10; strict upper triangles exactly zero
+     random SPD blocks, B = 1..200 (33: a row past a warp; 128: the TPU's
+     limit; 169/170: the last in shared memory and the first in the global
+     workspace), κ = 1, 1e4, 1e10: equal bit for bit; strict upper
+     triangles exactly zero
   6h. GPRKron: the statistics (built twice: the same bits; held to the JAX
      package's CPU-float64 values), the loss and its gradient by
      backward(), fit_lbfgs (10 iterations, curv_rtol 10, REPS + 1 times),
@@ -67,8 +69,10 @@ points, on the card:
      bands, the solves with a vector and a matrix right-hand side; at the
      north star, banded.cholesky_solve_band on the real L_P and Kuf·y
      (K9 + K13 + K14, on fresh counters) against banded_posterior's u
-     (K1 + K2); the solves' autograd Functions against autograd through
-     the plain versions
+     (K1 + K2), and the largest entry of the composed chunk maps K13 built
+     there; K13/K21 at the edges of their partition (one row, one chunk, a
+     ragged chunk, 4096 columns); the solves' autograd Functions against
+     autograd through the plain versions
   6k. the float32 GPR1D at the north star (GPR1D(..., dtype=float32)):
      training_loss() and .backward(), the posterior, predict_f on the 10⁵
      held-out points in batches and NLPD, held to tools/f32_anchors.py's
@@ -82,8 +86,10 @@ points, on the card:
      arguments the step and the posterior gave them
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock), each kernel's bound, the float32 step,
-     posterior and predict beside the float64 ones, and the library
+     REPS times on the host clock), the device time of K13, K21 and K16
+     alone (torch.profiler), each kernel's bound, cholesky_solve_band, the
+     float32 step, posterior and predict beside the float64 ones, and the
+     library
      counterparts: K16's (torch.linalg.cholesky, then solve_triangular
      against I), the dense torch.linalg.cholesky of A for K9, K15 and K17
      and the dense torch.linalg.solve_triangular for K13, K14, K21 and K22
@@ -285,7 +291,7 @@ TOL_KRON_METRICS = 1e-8
 # K16 against its plain version, relative to the largest entry of each output
 TOL_K16 = 1e-13       # κ ≤ 1e4
 TOL_K16_ILL = 1e-9    # κ = 1e10, the JAX package's test's bar
-K16_SIZES = (1, 7, 32, 100, 128, 200)
+K16_SIZES = (1, 7, 32, 33, 100, 128, 169, 170, 200)
 K16_KAPPAS = (1.0, 1e4, 1e10)
 # one value-and-grad step of GPRKron: the two per-dimension factors and
 # Takahashi bands forward (K9, K11) and backward (K10, K12); K16 once per
@@ -305,6 +311,11 @@ TOL_F32_FWD = 1e-5
 TOL_F32_ADJOINT = 1e-4
 F32_ADJOINTS = ("chol_bwd_f32", "tak_bwd_f32")
 SOLVE_RHS = 5  # columns of the matrix right-hand sides
+# K13/K21 at the edges of their partition into 64-row chunks (phase 6j),
+# (k, m, r): one row; one chunk (m < 64, m = 64); a ragged last chunk;
+# 4096 columns, where the rows form one chunk
+SOLVE_EDGES = ((1, 1, 1), (3, 40, 1), (3, 40, SOLVE_RHS), (6, 64, 1), (2, 65, SOLVE_RHS),
+               (4, 4097, 1), (3, 1000, 4096))
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -966,8 +977,9 @@ def random_spd_block(seed: int, b: int, kappa: float) -> np.ndarray:
 
 def k16_parity(device) -> dict:
     """Phase 6g: K16 on batches of three random SPD blocks at each B and κ
-    against its plain version on a CPU copy; the strict upper triangles
-    of both outputs must be exactly zero."""
+    against its plain version on a CPU copy, which it must equal bit for
+    bit; the strict upper triangles of both outputs must be exactly
+    zero."""
     from asvgp_tpu_torch.banded import dense_block
 
     rows = []
@@ -975,10 +987,12 @@ def k16_parity(device) -> dict:
         for kappa in K16_KAPPAS:
             ms = torch.as_tensor(np.stack([random_spd_block(s, b, kappa) for s in range(3)]))
             got = dense_block.chol_inv_dense(ms.to(device))
+            want = dense_block.chol_inv_dense_plain(ms)
             upper_zero = all(bool((torch.triu(g, 1) == 0).all()) for g in got)
+            bit_equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
             rows.append({"B": b, "kappa": kappa, "upper_zero": upper_zero,
-                         **_errs("chol_inv_dense", got, dense_block.chol_inv_dense_plain(ms))})
-    return {"rows": rows,
+                         "bit_equal": bit_equal, **_errs("chol_inv_dense", got, want)})
+    return {"rows": rows, "bit_equal": all(r["bit_equal"] for r in rows),
             "max_rel_well": max(r["chol_inv_dense_rel"] for r in rows if r["kappa"] <= 1e4),
             "max_rel_ill": max(r["chol_inv_dense_rel"] for r in rows if r["kappa"] > 1e4),
             "upper_zero": all(r["upper_zero"] for r in rows)}
@@ -1192,6 +1206,52 @@ def solve_north_star(device, bands) -> dict:
         u_ref = banded.banded_posterior(kuu, p_band, b)[2]
     return {"u_rel": rel_err(u, u_ref), "launches": launches, "args": args,
             "main": adjoint_parity(args, f32_calls())}
+
+
+def solve_edge_parity(device, rng) -> dict:
+    """Phase 6j: K13 and K21 on random SPD bands at SOLVE_EDGES against
+    their plain versions on CPU copies, at phase 6j's random-band bars."""
+    from asvgp_tpu_torch.banded import ops, solve
+
+    rows = []
+    for k, m, r in SOLVE_EDGES:
+        l = ops.cholesky_band_plain(torch.as_tensor(spd_band(k, m, rng)))
+        b = torch.as_tensor(rng.randn(m) if r == 1 else rng.randn(m, r))
+        row = {"k": k, "m": m, "r": r}
+        for dtype, name in ((torch.float64, "solve_lower"), (torch.float32, "solve_lower_f32")):
+            lh, bh = l.to(dtype), b.to(dtype)
+            got = solve.solve_lower(lh.to(device), bh.to(device))
+            row |= _errs(name, (got,), (solve.solve_lower_plain(lh, bh),))
+        rows.append(row)
+    return {"rows": rows,
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows)
+               for n in ("solve_lower", "solve_lower_f32")}}
+
+
+def lower_solve_maps(l_band: torch.Tensor, b: torch.Tensor) -> dict:
+    """The chunks of K13/K21 on (L, b) and the largest entry of their
+    composed maps: one direct launch of the C entry point (not counted)
+    with a workspace kept here, whose first (chunks − 1)·k² entries are the
+    maps' homogeneous parts H_j (csrc/banded_solve.cu)."""
+    from asvgp_tpu_torch.banded import _build
+    from asvgp_tpu_torch.banded.single import route
+
+    lib = _build.load()
+    k, m = l_band.shape[0] - 1, l_band.shape[1]
+    r = 1 if b.ndim == 1 else b.shape[1]
+    n = lib.asvgp_solve_lower_workspace(k, m, r)
+    maps = n // (k * (k + 2 * r))
+    if maps == 0:
+        return {"chunks": 1, "h_max": 0.0}
+    ws = l_band.new_empty(n)
+    x = torch.empty_like(b)
+    _, entry = route("solve_lower", l_band)
+    with torch.cuda.device(l_band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(k, m, r, l_band.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                 ws.data_ptr(), stream)
+    _build.check(lib, rc, entry)
+    return {"chunks": maps + 1, "h_max": float(ws[: maps * k * k].abs().max())}
 
 
 def f32_path(device, x_d, y_d, x_test, y_test) -> dict:
@@ -1418,6 +1478,23 @@ def device_profile(fn, reps: int = REPS) -> dict:
     }
 
 
+def kernel_device_ms(fn, reps: int = REPS) -> dict:
+    """Device time per call of ``fn`` (torch.profiler, after a warm-up),
+    by kernel: what a call costs the card, without the host's launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per = {e.key[:80]: e.self_device_time_total / 1e3 / reps for e in events}
+    return {"device_ms": sum(per.values()) if per else "not measured", "by_kernel": per}
+
+
 def main() -> None:
     # ---- phase 0: card check ------------------------------------------------
     if not torch.cuda.is_available():
@@ -1601,7 +1678,7 @@ def main() -> None:
     k16 = k16_parity(device)
     emit("6g_parity_k16_random", **k16, tol_well=TOL_K16, tol_ill=TOL_K16_ILL)
     if not (k16["max_rel_well"] <= TOL_K16 and k16["max_rel_ill"] <= TOL_K16_ILL
-            and k16["upper_zero"]):
+            and k16["upper_zero"] and k16["bit_equal"]):
         raise AssertionError(f"K16 against its plain version: {k16}")
 
     # ---- phase 6h: GPRKron at the eNATL60 protocol's shape --------------------
@@ -1672,10 +1749,15 @@ def main() -> None:
          tol={"float64": TOL_PARITY, "float32": TOL_F32_ADJOINT})
     check_each(fn_parity, lambda name: TOL_F32_ADJOINT if name.endswith("_f32") else TOL_PARITY,
                "of the solves' autograd Functions")
+    edges = solve_edge_parity(device, rng)
+    emit("6j_parity_lower_solve_edges", **edges,
+         tol={"solve_lower": TOL_PARITY_ADJOINT, "solve_lower_f32": TOL_F32_FWD})
+    check_each(edges, f32_tol, "of K13/K21 at the edges of their partition")
     sol = solve_north_star(device, main_bands)
     emit("6j_solves_north_star", m=M, u_rel_vs_banded_posterior=sol["u_rel"],
          tol=TOL_SOLVE_NORTH_STAR, launches=sol["launches"], **sol["main"],
-         tol_main=TOL_PARITY_MAIN)
+         tol_main=TOL_PARITY_MAIN,
+         lower_solve_maps=lower_solve_maps(*sol["args"]["solve_lower"][0]))
     if not sol["u_rel"] <= TOL_SOLVE_NORTH_STAR:
         raise AssertionError(f"cholesky_solve_band vs banded_posterior's u: {sol['u_rel']}")
     check_parity(sol["main"], TOL_PARITY_MAIN, "of K13/K14 at the north star")
@@ -1723,13 +1805,15 @@ def main() -> None:
                      for name, calls in f32["args"].items()}
     f32_main = adjoint_parity(f32_main_args, f32_calls())
     emit("6l_proof_of_f32_path", launches=f32["launches"], **f32_main,
-         calls={n: len(a) for n, a in f32["args"].items()}, tol=TOL_F32_MAIN)
+         calls={n: len(a) for n, a in f32["args"].items()}, tol=TOL_F32_MAIN,
+         lower_solve_maps=lower_solve_maps(*f32["args"]["solve_lower_f32"][0]))
     check_parity(f32_main, TOL_F32_MAIN, "of K17-K22 on the float32 path's arguments")
     main_parity |= f32_main
     path_launches |= {n: f32["launches"]["step"][n] + f32["launches"]["posterior"][n]
                       for n in F32_STEP}
 
     # ---- phase 7: times on the card ---------------------------------------
+    from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
     from asvgp_tpu_torch.features.spline_features import make_kuu
     from asvgp_tpu_torch.models.kron import _p_blocks as kron_p_blocks
@@ -1822,6 +1906,11 @@ def main() -> None:
             value_and_grad(tmodel)
 
     f32_model, f32_post, f32_xt = f32["model"], f32["post"], f32["x_test"]
+    l_p, kuf_y = sol["args"]["solve_lower"][0]
+
+    def solve_band():
+        with torch.no_grad():
+            banded.cholesky_solve_band(l_p, kuf_y)
 
     times = {
         "stats_build": cuda_ms(lambda: compute_stats(model.basis, x_d, y_d)),
@@ -1849,11 +1938,19 @@ def main() -> None:
         "f32_backward": backward_ms(f32_model),
         "f32_posterior": cuda_ms(f32_model.posterior),
         "f32_predict_1e5": cuda_ms(lambda: f32_post.predict_f(f32_xt, batch=PREDICT_BATCH)),
+        "cholesky_solve_band": cuda_ms(solve_band),
     }
     for name, (kernel_fn, _) in calls.items():
         times[name] = cuda_ms(kernel_fn)
     for name, t in times.items():
         emit("7_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
+    # the redesigned kernels' device time alone: with a vector, K13/K21 take
+    # less time on the card than their call takes on the host
+    for name, fn in (("solve_lower", calls["solve_lower"][0]),
+                     ("solve_lower_f32", calls["solve_lower_f32"][0]),
+                     ("chol_inv_dense", calls["chol_inv_dense"][0]),
+                     ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))):
+        emit("7_device_time", what=name, card=smi, **kernel_device_ms(fn))
     for name, path in (("adam_step", ad), ("svgp_step", sv)):
         emit("7_time", what=name, card=smi, median_ms=path["ms_per_step"],
              ms=path["ms_per_step_all"], clock="host, per step of a 20-step fit")

@@ -216,13 +216,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 7, 32, 100, 128, 169, 170, 200])
+@pytest.mark.parametrize("b", [1, 7, 32, 33, 100, 128, 169, 170, 200])
 @pytest.mark.parametrize("kappa", [1.0, 1e4, 1e10])
 def test_cuda_chol_inv_dense_matches_plain(cuda_device, b, kappa):
     """K16 on a batch of three blocks against its plain version: ≤ 1e-13
-    relative at κ ≤ 1e4, ≤ 1e-9 at κ = 1e10; strict upper triangles zero.
-    B = 169 is the widest block held in shared memory, B = 170 the first
-    in the global workspace."""
+    relative at κ ≤ 1e4, ≤ 1e-9 at κ = 1e10, and equal bit for bit (the
+    same roundings in the same order for every entry); strict upper
+    triangles zero.  B = 33 is one row past a warp, B = 169 the widest
+    block held in shared memory, B = 170 the first in the global
+    workspace."""
     ms = torch.from_numpy(np.stack([random_spd(s, b, kappa) for s in range(3)]))
     core.reset_counters()
     l, t = dense_block.chol_inv_dense(ms.to(cuda_device))
@@ -231,6 +233,7 @@ def test_cuda_chol_inv_dense_matches_plain(cuda_device, b, kappa):
     want_l, want_t = dense_block.chol_inv_dense_plain(ms)
     tol = 1e-13 if kappa <= 1e4 else 1e-9
     assert rel(l, want_l.numpy()) <= tol and rel(t, want_t.numpy()) <= tol
+    assert torch.equal(l.cpu(), want_l) and torch.equal(t.cpu(), want_t)
     assert bool((torch.triu(l, 1) == 0).all()) and bool((torch.triu(t, 1) == 0).all())
 
 

@@ -18,6 +18,15 @@ order of summation.  The float32 Functions are held to the float64 ones
 at 1e-4 (well-conditioned random bands: float32 rounding, a few ulps times
 the chain).
 
+K13 and K21 partition the forward substitution into chunks of 64 rows
+(csrc/banded_solve.cu ``chunk_rows`` at these sizes): each chunk's affine
+map from its incoming window to its outgoing one, a scan over the maps for
+the true windows, and the plain recursion from them.  A numpy emulation of
+those three passes, in the kernel's order of operations and in the
+working dtype, is held to the plain version at the bars ``chip_smoke.py``
+holds the kernels to (phase 6j): 1e-13 (float64) and 1e-5 (float32) on
+random bands, 1e-8 and 1e-4 on a GPR1D P band at the north star's ℓ/δ = 10.
+
 The CUDA kernels have no CPU mode: their tests are marked ``cuda`` and skip
 without a card; there each kernel is held to its plain version at
 1e-13 (float64) and 1e-5 (float32) relative to the largest entry.
@@ -36,6 +45,9 @@ from asvgp_tpu.banded import pallas_ds_pair as jpdp
 from asvgp_tpu.banded import pallas_kernels as jpk
 from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded import core, ops, solve
+from asvgp_tpu_torch.basis import B3Spline
+from asvgp_tpu_torch.features.spline_features import make_kuu
+from asvgp_tpu_torch.models import GPR1D, Matern32
 
 KEYS = ("solve_lower", "solve_upper_t", "solve_lower_f32", "solve_upper_t_f32")
 
@@ -160,6 +172,107 @@ def test_solve_checks_shapes():
     assert solve.solve_lower(l, b[:, None][:, :0]).shape == (12, 0)
 
 
+# ---------------------------------------------------------------------------
+# the partition of K13 / K21, emulated
+# ---------------------------------------------------------------------------
+
+CHUNK = 64  # rows per chunk of csrc/banded_solve.cu at m <= 16384, r <= 64
+# phase 6j's bars: random bands (TOL_PARITY_ADJOINT, TOL_F32_FWD) and the
+# north star's own arguments (TOL_PARITY_MAIN, TOL_F32_MAIN)
+BARS = {np.float64: (1e-13, 1e-8), np.float32: (1e-5, 1e-4)}
+
+
+def partitioned_solve_lower(l, b, lc=CHUNK):
+    """x = L⁻¹ b by the kernel's three passes, in ``l``'s dtype, and the
+    largest entry of the composed maps.  Each pass runs every chunk at once;
+    rows past m are identity rows (pivot 1, no band, b = 0)."""
+    dt = l.dtype.type
+    k, m = l.shape[0] - 1, l.shape[1]
+    b2 = b[:, None] if b.ndim == 1 else b
+    r = b2.shape[1]
+    n_chunks = -(-m // lc)
+    g = np.zeros((k + 1, n_chunks * lc), dt)  # g[p, i] = L[i, i-p]
+    g[0] = 1
+    g[0, :m] = l[0]
+    for p in range(1, k + 1):
+        g[p, p:m] = l[p, :m - p]
+    g = g.reshape(k + 1, n_chunks, lc)
+    bp = np.zeros((n_chunks * lc, r), dt)
+    bp[:m] = b2
+    bp = bp.reshape(n_chunks, lc, r)
+
+    def sweep(window, rhs):
+        """The plain recursion over every chunk from ``window`` (chunks, k,
+        chains), X[:, p] = x_{i-1-p}: the sum over p increasing, each
+        product, sum, difference and quotient rounded in ``dt``."""
+        xs = []
+        for t in range(lc):
+            acc = g[1, :, t, None] * window[:, 0]
+            for p in range(2, k + 1):
+                acc = acc + g[p, :, t, None] * window[:, p - 1]
+            x = (rhs(t) - acc) / g[0, :, t, None]
+            xs.append(x)
+            window = np.concatenate([x[:, None], window[:, :-1]], axis=1)
+        return window, np.stack(xs, axis=1)
+
+    # pass 1: the k homogeneous responses (window e_q, b = 0) and the r
+    # particular solutions (window 0); their last window is the chunk's map
+    w1 = np.zeros((n_chunks, k, k + r), dt)
+    for q in range(k):
+        w1[:, q, q] = 1
+    zeros = np.zeros((n_chunks, k), dt)
+    out, _ = sweep(w1, lambda t: np.concatenate([zeros, bp[:, t]], axis=1))
+    h, y = out[:, :, :k], out[:, :, k:]
+    # pass 2: the incoming windows, w_{j+1} = y_j + H_j w_j
+    win = np.zeros((n_chunks, k, r), dt)
+    for j in range(n_chunks - 1):
+        win[j + 1] = y[j] + h[j] @ win[j]
+    # pass 3: the plain recursion from the true windows
+    _, x = sweep(win, lambda t: bp[:, t])
+    x = x.reshape(n_chunks * lc, r)[:m]
+    h_max = float(np.abs(h[:-1]).max()) if n_chunks > 1 else 0.0
+    return (x[:, 0] if b.ndim == 1 else x), h_max
+
+
+@pytest.mark.parametrize("k", range(1, 7))
+def test_partitioned_lower_solve_matches_plain(k):
+    """Random SPD bands at m = 1000 (15 chunks and a ragged one of 40 rows)
+    and m = 40 (one chunk), a vector and 5 columns, in float64 and
+    float32; also at 8-row chunks, where the maps' homogeneous part has
+    not yet decayed below rounding and the scan must carry it."""
+    for m in (1000, 40):
+        for r in (None, 5):
+            l, b = factor(k, m, 60 + k, r)
+            for dt in (np.float64, np.float32):
+                lh, bh = l.numpy().astype(dt), b.numpy().astype(dt)
+                want = solve.solve_lower_plain(torch.from_numpy(lh), torch.from_numpy(bh))
+                for lc in (CHUNK, 8):
+                    got, h_max = partitioned_solve_lower(lh, bh, lc)
+                    assert got.dtype == dt and np.isfinite(h_max)
+                    assert rel(got, want) <= BARS[dt][0], (m, r, dt, lc)
+
+
+def test_partitioned_lower_solve_at_north_star_conditioning():
+    """The solve of the collapsed bound and of ``cholesky_solve_band``, L_P⁻¹
+    Kuf·y, on a GPR1D at the north star's ℓ/δ = 10 and N/m = 100 (m = 320,
+    B3, Matérn-3/2, noise 0.1), L_P in each dtype from its own Cholesky;
+    the composed maps stay bounded."""
+    m = 320
+    rng = np.random.RandomState(5)
+    x = rng.uniform(0.005, 0.995, 100 * m)
+    y = np.sin(140.8 * x) + 0.5 * np.sin(35.2 * x) + 0.3 * rng.randn(x.shape[0])
+    kernel, basis = Matern32(1.0, 10.0 / m), B3Spline(0.0, 1.0, m)
+    model = GPR1D((x, y), kernel, basis, noise_variance=0.1, device="cpu")
+    with torch.no_grad():
+        p_band = model.kufkfu_band / 0.1 + make_kuu(kernel, basis)
+    for dt, tdt in ((np.float64, torch.float64), (np.float32, torch.float32)):
+        l = ops.cholesky_band_plain(p_band.to(tdt))
+        b = model.kuf_y.to(tdt)
+        got, h_max = partitioned_solve_lower(l.numpy(), b.numpy())
+        assert got.dtype == dt and h_max <= 1.0
+        assert rel(got, solve.solve_lower_plain(l, b)) <= BARS[dt][1]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -203,3 +316,23 @@ def test_cuda_solve_functions_launch_the_kernels(cuda_device):
     lc, bc = l.clone().requires_grad_(), b.clone().requires_grad_()
     want = torch.autograd.grad(ops.solve_lower_band_plain(lc, bc), (lc, bc), cot)
     assert rel(gl.cpu(), want[0]) <= 1e-12 and rel(gb.cpu(), want[1]) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, m, r", [(1, 1, None), (3, 40, None), (3, 40, 5), (6, 64, None),
+                                     (2, 65, 5), (4, 4097, None), (3, 10_000, None),
+                                     (5, 10_000, 5), (3, 1000, 4096)])
+def test_cuda_lower_solve_partition_edges(cuda_device, k, m, r):
+    """K13 and K21 at the partition's edges: one row, one chunk (m < 64, and
+    m = 64 exactly), a ragged last chunk, the north star's m = 10⁴, and 4096
+    columns, where the rows form one chunk; each launched once."""
+    l, b = factor(k, m, 70 + k, r)
+    core.reset_counters()
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+        lh, bh = l.to(dtype), b.to(dtype)
+        got = solve.solve_lower(lh.to(cuda_device), bh.to(cuda_device))
+        assert got.is_cuda and got.dtype == dtype and got.shape == bh.shape
+        assert rel(got.cpu(), solve.solve_lower_plain(lh, bh)) <= tol
+    torch.cuda.synchronize()
+    assert core.LAUNCHES["solve_lower"] == 1 and core.LAUNCHES["solve_lower_f32"] == 1
+    assert core.PLAIN_CALLS["cuda"] == 0

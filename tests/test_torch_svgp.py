@@ -258,3 +258,48 @@ def test_cuda_fit_svgp_matches_cpu():
     assert float(torch.max(torch.abs(losses - want) / torch.abs(want))) <= 1e-10
     for (path, got), (_, w) in zip(leaves(params), leaves(want_params)):
         assert got.is_cuda and rel(got, w) <= 1e-9, path
+
+
+def test_adam_turns_rounding_level_gradients_into_lr_sized_steps():
+    """The reference behaviour behind the SVGP losses that part from the
+    JAX run at ~1e-7 in three middle steps of the north star's 20
+    (tools/svgp_qmu_trace.py; ROADMAP queue 3).  A feature that no batch
+    has touched gets a q_mu gradient from the KL term alone, which cancels
+    to rounding there: at step 5 of that run one such entry is +5.2e-12 in
+    the port and −1.8e-12 in the JAX package, against a largest entry of
+    1.6e5.  Adam normalises each entry by its own running magnitude, so the
+    two take steps of opposite sign and up to the learning rate in size.
+
+    Here the port's Adam (``adam_loop``'s ``torch.optim.Adam``) and the JAX
+    loop's ``optax.adam`` agree on one gradient history to rounding, and two
+    histories that differ only at a rounding-level entry (±3e-11 of the
+    largest one) part there by about twice the learning rate per step."""
+    import optax
+
+    lr, steps = 1e-3, 3
+    big = 1.5e5
+    history = {sign: [np.array([big * (1 + 0.1 * s), sign * 3e-11 * big]) for s in range(steps)]
+               for sign in (1.0, -1.0)}
+
+    def torch_adam(grads):
+        p = torch.zeros(2, dtype=torch.float64, requires_grad=True)
+        opt = torch.optim.Adam([p], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        for g in grads:
+            p.grad = torch.from_numpy(g)
+            opt.step()
+        return p.detach().numpy()
+
+    def optax_adam(grads):
+        opt = optax.adam(lr)
+        p = jnp.zeros(2)
+        state = opt.init(p)
+        for g in grads:
+            updates, state = opt.update(jnp.asarray(g), state, p)
+            p = optax.apply_updates(p, updates)
+        return np.asarray(p)
+
+    for grads in history.values():
+        assert rel(torch_adam(grads), optax_adam(grads)) <= 1e-12
+    plus, minus = (torch_adam(h) for h in history.values())
+    assert plus[0] == minus[0]
+    assert minus[1] - plus[1] >= 1.9 * lr * steps
