@@ -51,14 +51,14 @@ ENTRY_POINTS = {
     "asvgp_tak_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
     "asvgp_tak_bwd_f32": (_I, _I, _I) + (_VP,) * 6,
     "asvgp_solve_lower": (_I, _I, _I) + (_VP,) * 5,
-    "asvgp_solve_upper_t": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_solve_upper_t": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_lower_f32": (_I, _I, _I) + (_VP,) * 5,
-    "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
     # not launches: the doubles of global workspace per block of K16, the
-    # elements of workspace of K13 / K21
+    # elements of workspace of K13 / K14 / K21 / K22
     "asvgp_chol_inv_dense_workspace": (_I,),
-    "asvgp_solve_lower_workspace": (_I, _I, _I),
+    "asvgp_solve_workspace": (_I, _I, _I),
 }
 
 

@@ -10,11 +10,11 @@ PyTorch counterpart of the solves of ``asvgp_tpu/banded/pallas_ds.py``
   K13 / K21 ``solve_lower``: x = L⁻¹ b;
   K14 / K22 ``solve_upper_t``: x = L⁻ᵀ b;
 
-as hand-written CUDA kernels (csrc/banded_solve.cu: ``solve_lower<K, T>``,
-a forward substitution partitioned into chunks whose incoming windows a
-scan over the chunks' affine maps supplies, three launches on the stream
-with scratch from here; ``solve_upper_t<K, T>``, one thread per column of
-b) on CUDA tensors, each dtype under its own launch counter
+as hand-written CUDA kernels (csrc/banded_solve.cu: ``solve_lower<K, T>``
+and ``solve_upper_t<K, T>``, one chunk kernel walking the rows down or up,
+a substitution partitioned into chunks whose incoming windows a scan over
+the chunks' affine maps supplies, three launches on the stream with
+scratch from here) on CUDA tensors, each dtype under its own launch counter
 (``solve_lower`` for float64, ``solve_lower_f32`` for float32, ...), one
 count per call, and as their plain versions (the recursions of
 banded/ops.py) on CPU tensors.  A CUDA tensor launches the kernel or
@@ -32,6 +32,8 @@ each solve is the other solve's kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -55,10 +57,16 @@ def _divide(l_band, b):
     return b / (l_band[0] if b.ndim == 1 else l_band[0][:, None])
 
 
-def _solve(name, l_band, b, plain, partitioned=False):
+@functools.lru_cache(maxsize=64)
+def _workspace(k: int, m: int, r: int) -> int:
+    """Elements of scratch the chunk maps of a solve need (0 when the rows
+    form one chunk), asked of the kernels' library once per shape."""
+    return _build.load().asvgp_solve_workspace(k, m, r)
+
+
+def _solve(name, l_band, b, plain):
     """Check, then the plain version on a CPU tensor or one launch of the
-    kernel on a CUDA tensor; a ``partitioned`` kernel (K13/K21) gets the
-    scratch its chunk maps need."""
+    kernel on a CUDA tensor, with the scratch its chunk maps need."""
     k, m = _check(l_band, b)
     if k == 0:
         return _divide(l_band, b)
@@ -69,12 +77,10 @@ def _solve(name, l_band, b, plain, partitioned=False):
     r = 1 if b.ndim == 1 else b.shape[1]
     if r == 0:
         return x
-    ptrs = [l_band.data_ptr(), b.data_ptr(), x.data_ptr()]
-    if partitioned:
-        # empty (and unread) when the rows form one chunk
-        ws = l_band.new_empty(_build.load().asvgp_solve_lower_workspace(k, m, r))
-        ptrs.append(ws.data_ptr())
-    core._launch(*route(name, l_band), l_band.device, k, m, r, *ptrs)
+    # empty (and unread) when the rows form one chunk
+    ws = l_band.new_empty(_workspace(k, m, r))
+    core._launch(*route(name, l_band), l_band.device, k, m, r,
+                 l_band.data_ptr(), b.data_ptr(), x.data_ptr(), ws.data_ptr())
     return x
 
 
@@ -93,7 +99,7 @@ def solve_lower(l_band, b):
     """K13 (float64) or K21 (float32) on CUDA tensors, its plain version on
     CPU tensors: x = L⁻¹ b for a (k+1, m) lower band L and b of shape (m,)
     or (m, r)."""
-    return _solve("solve_lower", l_band, b, solve_lower_plain, partitioned=True)
+    return _solve("solve_lower", l_band, b, solve_lower_plain)
 
 
 # ---------------------------------------------------------------------------

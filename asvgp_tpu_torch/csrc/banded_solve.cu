@@ -8,10 +8,10 @@
 // a vector being r = 1.  Compile-time K = 1..6, templated on the scalar
 // type T:
 //
-//   solve_lower<K, T>    L x = b, rows i = 0..m-1:
+//   solve_lower<K, T>    L x = b, rows i = 0..m-1 (launch_solve<K, T, false>):
 //       x_i = (b_i - sum_{p=1..K} L[i, i-p] x_{i-p}) / L[i, i]
 //                        double: K13; float: K21
-//   solve_upper_t<K, T>  L^T x = b, rows i = m-1..0:
+//   solve_upper_t<K, T>  L^T x = b, rows i = m-1..0 (launch_solve<K, T, true>):
 //       x_i = (b_i - sum_{p=1..K} L[i+p, i] x_{i+p}) / L[i, i]
 //                        double: K14; float: K22
 //
@@ -30,24 +30,29 @@
 // recursion rounded step by step.  A zero pivot gives inf or NaN, as the
 // reference recursions do; nothing clamps.
 //
-// solve_lower: a partitioned forward substitution.
-//   What bounds it: one dependent chain of m rows per column of b (K
+// Both solves: a substitution partitioned into chunks.
+//   What bounds them: one dependent chain of m rows per column of b (K
 //   dependent products and sums, a subtract and a divide per row).  A
 //   solve reads (K+1) m + m r values and writes m r: under 1 MB at
 //   m = 10^4 for a vector, so neither bandwidth nor the arithmetic rate is
 //   the limit, the chain's length is.
-//   What the design does about it: the rows are cut into P chunks of lc
-//   rows (chunk_rows), and x on a chunk is affine in the
-//   chunk's incoming window w = (x_{s-1}, ..., x_{s-K}).  Three launches:
-//     1. maps (solve_lower_chunk_kernel<.., true>), one CTA per chunk but
-//        the last: K + r chains of lc rows, the K homogeneous responses
-//        (b = 0, window e_q) and the r particular solutions (window 0),
-//        of which only the last K rows are kept: the chunk's outgoing
-//        window is y + H w;
-//     2. scan (solve_lower_scan_kernel): one thread per column walks the
-//        P - 1 maps, w_{j+1} = y_j + H_j w_j, from the staged maps;
-//     3. solve (solve_lower_chunk_kernel<.., false>), one CTA per chunk:
-//        the plain recursion from the chunk's true incoming window, in the
+//   What the design does about it: one kernel serves both directions.  It
+//   walks positions u = 0..m-1, row i = u (solve_lower) or i = m-1-u
+//   (solve_upper_t), so the window X[p] is the x of walk position u-1-p
+//   and g[p] the band entry it multiplies (L[i, i-p], or L[i+p, i]).  The
+//   walk is cut into P chunks of lc positions (chunk_rows), chunk 0 first:
+//   the top rows of the lower solve, the bottom rows of the upper one; x
+//   on a chunk is affine in its incoming window w (the K x walked just
+//   before it).  Three launches:
+//     1. maps (solve_chunk_kernel<.., true>), one CTA per chunk but the
+//        last: K + r chains of lc rows, the K homogeneous responses (b = 0,
+//        window e_q) and the r particular solutions (window 0), of which
+//        only the last K rows are kept: the chunk's outgoing window is
+//        y + H w;
+//     2. scan (solve_scan_kernel): one thread per column walks the P - 1
+//        maps, w_{j+1} = y_j + H_j w_j, from the staged maps;
+//     3. solve (solve_chunk_kernel<.., false>), one CTA per chunk: the
+//        plain recursion from the chunk's true incoming window, in the
 //        plain version's order, writing x.
 //   So the card runs three chains of ~lc + P + lc steps instead of one of
 //   m.  Chunk 0 starts from the zero window, as the serial recursion does,
@@ -55,23 +60,20 @@
 //   by the rounding of their incoming windows, which went through the
 //   composed maps.  Short chunks keep the homogeneous responses bounded:
 //   for a Cholesky factor their entries are entries of a block of L^-1
-//   times L, and at the north star's L_P they have decayed below 1e-17 by
-//   the end of a 64-row chunk.
-//   Each CTA stages its chunk's band (g[p][t] = L[i, i-p] for the rows of a
-//   64-row tile) and its b tile in shared memory with cp.async, two tiles
-//   in flight, so no global load sits on a chain; a chunk longer than a
-//   tile streams through the two buffers.  With many columns, P falls
-//   until P = 1: the serial recursion with staged loads, one CTA per 32
-//   columns.
-//
-// solve_upper_t: one thread per column of b, a serial chain over the m
-//   rows with the K next entries of x in registers and the next row's
-//   K + 1 band entries and b loaded one row ahead.  Every thread of a
-//   block reads the same band entries (a broadcast) and neighbouring
-//   entries of b and x (coalesced).
+//   (L^-T) times L, and at the north star's L_P they have decayed below
+//   1e-17 by the end of a 64-row chunk.
+//   Each CTA stages its chunk's band and b in walk order, 64 positions a
+//   tile, in shared memory with cp.async, two tiles in flight, so no
+//   global load sits on a chain; a chunk longer than a tile streams
+//   through the two buffers.  The upper solve's band entries of a tile are
+//   one contiguous run per p (band[p][i], the padding slots at i + p >= m
+//   already zero), read from the top of the run down.  With many columns,
+//   P falls until P = 1: the serial recursion with staged loads, one CTA
+//   per 32 columns.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
@@ -88,10 +90,10 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) { return _
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
 // ---------------------------------------------------------------------------
-// K13 / K21: solve_lower<K, T>, partitioned
+// K13 / K21 solve_lower<K, T> and K14 / K22 solve_upper_t<K, T>
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;         // rows of a staged tile
+constexpr int kTile = 64;         // walk positions of a staged tile
 constexpr int kChains = 32;       // chains of one CTA of passes 1 and 3: a warp
 constexpr int kMinChunk = 64;     // rows of a chunk, at least
 constexpr long kMaxChunks = 256;  // bounds pass 2's staged maps
@@ -126,20 +128,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Stage rows i0..i0+n-1: g[p][t] = L[i, i-p] (0 for i < p) and bt[t][.] =
-// the columns cb0..cb1-1 of b, at offset cb0 - col0.
-template <int K, typename T>
+// the row at walk position u
+template <bool kUpper>
+__device__ __forceinline__ int walk_row(int m, int u) {
+  return kUpper ? m - 1 - u : u;
+}
+
+// Stage walk positions u0..u0+n-1, row i = walk_row(u) each: g[p][t] = the
+// band entry that multiplies the window's X[p-1] (L[i, i-p], 0 for i < p,
+// in the lower solve; L[i+p, i] in the upper one) and bt[t][.] = the
+// columns cb0..cb1-1 of b's row i, at offset cb0 - col0.
+template <int K, typename T, bool kUpper>
 __device__ __forceinline__ void stage_tile(T (*g)[kTile], T (*bt)[kChains],
                                            const T* __restrict__ l,
                                            const T* __restrict__ b, int m, int r,
-                                           int i0, int n, int col0, int cb0, int cb1) {
+                                           int u0, int n, int col0, int cb0, int cb1) {
   const size_t ms = static_cast<size_t>(m);
   for (int idx = threadIdx.x; idx < (K + 1) * kTile; idx += kChains) {
     const int p = idx / kTile;
     const int t = idx % kTile;
     if (t < n) {
-      const int i = i0 + t;
-      if (i >= p) {
+      const int i = walk_row<kUpper>(m, u0 + t);
+      if (kUpper) {
+        cp_async(&g[p][t], l + p * ms + i);
+      } else if (i >= p) {
         cp_async(&g[p][t], l + p * ms + (i - p));
       } else {
         g[p][t] = T(0);
@@ -150,23 +162,24 @@ __device__ __forceinline__ void stage_tile(T (*g)[kTile], T (*bt)[kChains],
   for (int idx = threadIdx.x; idx < n * nc; idx += kChains) {
     const int t = idx / nc;
     const int cc = idx % nc;
-    cp_async(&bt[t][cb0 - col0 + cc], b + static_cast<size_t>(i0 + t) * r + cb0 + cc);
+    const size_t i = static_cast<size_t>(walk_row<kUpper>(m, u0 + t));
+    cp_async(&bt[t][cb0 - col0 + cc], b + i * r + cb0 + cc);
   }
   cp_async_commit();
 }
 
-// Passes 1 (kMaps) and 3: the recursion over chunk blockIdx.x, chain q =
-// blockIdx.y * 32 + lane.  Pass 1: chains q < K are the homogeneous
-// responses (window e_q, b = 0), chains K..K+r-1 the particular solutions
-// of the columns q - K (window 0); their last window goes to hmap[j][p][q]
-// and ymap[j][c][p].  Pass 3: chain q is column q, from the incoming
-// window win[j-1][q] (0 for chunk 0), and writes x.
-template <int K, typename T, bool kMaps>
+// Passes 1 (kMaps) and 3: the recursion over chunk blockIdx.x of the walk,
+// chain q = blockIdx.y * 32 + lane.  Pass 1: chains q < K are the
+// homogeneous responses (window e_q, b = 0), chains K..K+r-1 the
+// particular solutions of the columns q - K (window 0); their last window
+// goes to hmap[j][p][q] and ymap[j][c][p].  Pass 3: chain q is column q,
+// from the incoming window win[j-1][q] (0 for chunk 0), and writes x.
+template <int K, typename T, bool kUpper, bool kMaps>
 __global__ void __launch_bounds__(kChains)
-solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
-                         const T* __restrict__ b, T* __restrict__ x,
-                         const T* __restrict__ win, T* __restrict__ hmap,
-                         T* __restrict__ ymap) {
+solve_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
+                   const T* __restrict__ b, T* __restrict__ x,
+                   const T* __restrict__ win, T* __restrict__ hmap,
+                   T* __restrict__ ymap) {
   __shared__ T g[2][K + 1][kTile];
   __shared__ T bt[2][kTile][kChains];
   const int j = blockIdx.x;
@@ -182,7 +195,7 @@ solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
   const int cb1 = (col0 + kChains < r) ? col0 + kChains : r;
   const size_t rs = static_cast<size_t>(r);
 
-  // X[p] = x_{i-1-p}: the window
+  // X[p]: the x of walk position u-1-p, the window
   T X[K];
 #pragma unroll
   for (int p = 0; p < K; ++p) {
@@ -194,15 +207,15 @@ solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
   }
 
   const int ntiles = (e - s + kTile - 1) / kTile;
-  stage_tile<K, T>(g[0], bt[0], l, b, m, r, s, min(kTile, e - s), col0, cb0, cb1);
+  stage_tile<K, T, kUpper>(g[0], bt[0], l, b, m, r, s, min(kTile, e - s), col0, cb0, cb1);
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
-    const int i0 = s + tile * kTile;
-    const int n = min(kTile, e - i0);
+    const int u0 = s + tile * kTile;
+    const int n = min(kTile, e - u0);
     if (tile + 1 < ntiles) {
-      const int i1 = i0 + kTile;
-      stage_tile<K, T>(g[buf ^ 1], bt[buf ^ 1], l, b, m, r, i1, min(kTile, e - i1), col0,
-                       cb0, cb1);
+      const int u1 = u0 + kTile;
+      stage_tile<K, T, kUpper>(g[buf ^ 1], bt[buf ^ 1], l, b, m, r, u1, min(kTile, e - u1),
+                               col0, cb0, cb1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -214,7 +227,9 @@ solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
       for (int p = 2; p <= K; ++p) acc = add_rn(acc, mul_rn(g[buf][p][t], X[p - 1]));
       const T bi = has_b ? bt[buf][t][lane] : T(0);
       const T xi = div_rn(sub_rn(bi, acc), g[buf][0][t]);
-      if (!kMaps && has_b) x[static_cast<size_t>(i0 + t) * rs + c] = xi;
+      if (!kMaps && has_b) {
+        x[static_cast<size_t>(walk_row<kUpper>(m, u0 + t)) * rs + c] = xi;
+      }
 #pragma unroll
       for (int p = K - 1; p > 0; --p) X[p] = X[p - 1];
       X[0] = xi;
@@ -239,8 +254,8 @@ solve_lower_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
 // rounding serves here.
 template <int K, typename T>
 __global__ void __launch_bounds__(32)
-solve_lower_scan_kernel(int r, int nmap, const T* __restrict__ hmap,
-                        const T* __restrict__ ymap, T* __restrict__ win) {
+solve_scan_kernel(int r, int nmap, const T* __restrict__ hmap,
+                  const T* __restrict__ ymap, T* __restrict__ win) {
   extern __shared__ __align__(16) unsigned char scan_smem[];
   T* hs = reinterpret_cast<T*>(scan_smem);            // nmap K K
   T* ys = hs + static_cast<size_t>(nmap) * K * K;     // nmap kScanCols K
@@ -286,17 +301,33 @@ size_t scan_smem_bytes(int nmap) {
   return static_cast<size_t>(nmap) * (K * K + kScanCols * K) * sizeof(T);
 }
 
+// Lets the scan kernel take up to kSmemLimit of dynamic shared memory, once
+// per device (the attribute holds for the device current when it is set).
+template <int K, typename T>
+cudaError_t allow_scan_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(solve_scan_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kSmemLimit));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
 // Elements of T of the workspace: H (P-1, K, K), y (P-1, r, K) and the
 // incoming windows (P-1, r, K); 0 when P = 1.
-size_t lower_workspace(int k, int m, int r) {
+size_t solve_workspace(int k, int m, int r) {
   const int lc = chunk_rows(m, r);
   const size_t nmap = static_cast<size_t>((m + lc - 1) / lc - 1);
   return nmap * k * (k + 2 * static_cast<size_t>(r));
 }
 
-template <int K, typename T>
-cudaError_t launch_solve_lower(int m, int r, const T* l, const T* b, T* x, T* ws,
-                               cudaStream_t st) {
+template <int K, typename T, bool kUpper>
+cudaError_t launch_solve(int m, int r, const T* l, const T* b, T* x, T* ws,
+                         cudaStream_t st) {
   const int lc = chunk_rows(m, r);
   const int nchunks = (m + lc - 1) / lc;
   const unsigned col_blocks = static_cast<unsigned>((r + kChains - 1) / kChains);
@@ -308,81 +339,22 @@ cudaError_t launch_solve_lower(int m, int r, const T* l, const T* b, T* x, T* ws
     T* ymap = hmap + static_cast<size_t>(nmap) * K * K;
     T* w = ymap + static_cast<size_t>(nmap) * r * K;
     const dim3 maps_grid(nmap, (K + r + kChains - 1) / kChains);
-    solve_lower_chunk_kernel<K, T, true><<<maps_grid, kChains, 0, st>>>(
+    solve_chunk_kernel<K, T, kUpper, true><<<maps_grid, kChains, 0, st>>>(
         m, r, lc, l, b, nullptr, nullptr, hmap, ymap);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const size_t smem = scan_smem_bytes<K, T>(nmap);
     if (smem > kSmemLimit) return cudaErrorInvalidValue;
-    e = cudaFuncSetAttribute(solve_lower_scan_kernel<K, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = allow_scan_smem<K, T>();
     if (e != cudaSuccess) return e;
-    solve_lower_scan_kernel<K, T><<<(r + kScanCols - 1) / kScanCols, 32, smem, st>>>(
+    solve_scan_kernel<K, T><<<(r + kScanCols - 1) / kScanCols, 32, smem, st>>>(
         r, nmap, hmap, ymap, w);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     win = w;
   }
-  solve_lower_chunk_kernel<K, T, false><<<dim3(nchunks, col_blocks), kChains, 0, st>>>(
+  solve_chunk_kernel<K, T, kUpper, false><<<dim3(nchunks, col_blocks), kChains, 0, st>>>(
       m, r, lc, l, b, x, win, nullptr, nullptr);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K14 / K22: solve_upper_t<K, T>
-//
-// Rows i = m-1..0, with the window X[p-1] = x_{i+p} (zero beyond row m-1)
-// and L[i+p, i] = band[p, i] (a padding slot, zero, for i + p >= m).
-// ---------------------------------------------------------------------------
-template <int K, typename T>
-__global__ void __launch_bounds__(128)
-solve_upper_t_kernel(int m, int r, const T* __restrict__ l,
-                     const T* __restrict__ b, T* __restrict__ x) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= r) return;
-  const size_t ms = static_cast<size_t>(m);
-  const size_t rs = static_cast<size_t>(r);
-
-  T X[K];
-#pragma unroll
-  for (int p = 0; p < K; ++p) X[p] = T(0);
-  T ln[K + 1];
-#pragma unroll
-  for (int p = 0; p <= K; ++p) ln[p] = l[p * ms + (m - 1)];
-  T bn = b[static_cast<size_t>(m - 1) * rs + c];
-
-  for (int i = m - 1; i >= 0; --i) {
-    T lc[K + 1];
-#pragma unroll
-    for (int p = 0; p <= K; ++p) lc[p] = ln[p];
-    const T bi = bn;
-    if (i > 0) {
-#pragma unroll
-      for (int p = 0; p <= K; ++p) ln[p] = l[p * ms + (i - 1)];
-      bn = b[static_cast<size_t>(i - 1) * rs + c];
-    }
-
-    T acc = mul_rn(lc[1], X[0]);
-#pragma unroll
-    for (int p = 2; p <= K; ++p) acc = add_rn(acc, mul_rn(lc[p], X[p - 1]));
-    const T xi = div_rn(sub_rn(bi, acc), lc[0]);
-    x[static_cast<size_t>(i) * rs + c] = xi;
-
-#pragma unroll
-    for (int p = K - 1; p > 0; --p) X[p] = X[p - 1];
-    X[0] = xi;
-  }
-}
-
-// one thread per column of b, in blocks of up to 128
-inline unsigned blocks(int r) { return static_cast<unsigned>((r + 127) / 128); }
-inline unsigned threads(int r) { return static_cast<unsigned>(r < 128 ? r : 128); }
-
-template <int K, typename T>
-cudaError_t launch_solve_upper_t(int m, int r, const T* l, const T* b, T* x,
-                                 cudaStream_t st) {
-  solve_upper_t_kernel<K, T><<<blocks(r), threads(r), 0, st>>>(m, r, l, b, x);
   return cudaGetLastError();
 }
 
@@ -401,35 +373,26 @@ cudaError_t launch_solve_upper_t(int m, int r, const T* l, const T* b, T* x,
 
 extern "C" {
 
-// Elements of workspace (of the solve's dtype) that K13 / K21 need for a
-// (k+1, m) band and r columns: 0 when the rows form one chunk.
-int asvgp_solve_lower_workspace(int k, int m, int r) {
+// Elements of workspace (of the solve's dtype) that K13 / K14 / K21 / K22
+// need for a (k+1, m) band and r columns: 0 when the rows form one chunk.
+int asvgp_solve_workspace(int k, int m, int r) {
   if (k < 1 || m < 1 || r < 1) return -1;
-  return static_cast<int>(lower_workspace(k, m, r));
+  return static_cast<int>(solve_workspace(k, m, r));
 }
 
-// K13 (double) / K21 (float).  l: a (k+1, m) lower band, b: (m, r), ws:
-// asvgp_solve_lower_workspace(k, m, r) elements, or NULL when that is 0.
-// Writes x = L^-1 b, (m, r).
-#define ASVGP_SOLVE_LOWER(NAME, T)                                       \
+// K13 (double) / K21 (float): x = L^-1 b; K14 (double) / K22 (float):
+// x = L^-T b.  l: a (k+1, m) lower band, b and x: (m, r), ws:
+// asvgp_solve_workspace(k, m, r) elements, or NULL when that is 0.
+#define ASVGP_SOLVE(NAME, T, UPPER)                                      \
   int NAME(int k, int m, int r, const T* l, const T* b, T* x, T* ws,     \
            void* stream) {                                               \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
     if (m < 1 || r < 1) return static_cast<int>(cudaErrorInvalidValue);  \
-    ASVGP_DISPATCH_K(k, (launch_solve_lower<K, T>(m, r, l, b, x, ws, st)))  \
+    ASVGP_DISPATCH_K(k, (launch_solve<K, T, UPPER>(m, r, l, b, x, ws, st)))  \
   }
-ASVGP_SOLVE_LOWER(asvgp_solve_lower, double)
-ASVGP_SOLVE_LOWER(asvgp_solve_lower_f32, float)
-
-// K14 (double) / K22 (float).  Writes x = L^-T b, (m, r).
-#define ASVGP_SOLVE_UPPER_T(NAME, T)                                     \
-  int NAME(int k, int m, int r, const T* l, const T* b, T* x,            \
-           void* stream) {                                               \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
-    if (m < 1 || r < 1) return static_cast<int>(cudaErrorInvalidValue);  \
-    ASVGP_DISPATCH_K(k, (launch_solve_upper_t<K, T>(m, r, l, b, x, st))) \
-  }
-ASVGP_SOLVE_UPPER_T(asvgp_solve_upper_t, double)
-ASVGP_SOLVE_UPPER_T(asvgp_solve_upper_t_f32, float)
+ASVGP_SOLVE(asvgp_solve_lower, double, false)
+ASVGP_SOLVE(asvgp_solve_lower_f32, float, false)
+ASVGP_SOLVE(asvgp_solve_upper_t, double, true)
+ASVGP_SOLVE(asvgp_solve_upper_t_f32, float, true)
 
 }  // extern "C"

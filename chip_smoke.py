@@ -69,10 +69,10 @@ points, on the card:
      bands, the solves with a vector and a matrix right-hand side; at the
      north star, banded.cholesky_solve_band on the real L_P and Kuf·y
      (K9 + K13 + K14, on fresh counters) against banded_posterior's u
-     (K1 + K2), and the largest entry of the composed chunk maps K13 built
-     there; K13/K21 at the edges of their partition (one row, one chunk, a
-     ragged chunk, 4096 columns); the solves' autograd Functions against
-     autograd through the plain versions
+     (K1 + K2), and the largest entry of the composed chunk maps K13 and
+     K14 built there; K13/K21 and K14/K22 at the edges of their partitions
+     (one row, one chunk, a ragged chunk, 4096 columns); the solves'
+     autograd Functions against autograd through the plain versions
   6k. the float32 GPR1D at the north star (GPR1D(..., dtype=float32)):
      training_loss() and .backward(), the posterior, predict_f on the 10⁵
      held-out points in batches and NLPD, held to tools/f32_anchors.py's
@@ -86,8 +86,9 @@ points, on the card:
      arguments the step and the posterior gave them
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock), the device time of K13, K21 and K16
-     alone (torch.profiler), each kernel's bound, cholesky_solve_band, the
+     REPS times on the host clock), the device time of K13, K14, K21, K22
+     and K16 alone (torch.profiler) and the four solves' event time less
+     their device time, each kernel's bound, cholesky_solve_band, the
      float32 step, posterior and predict beside the float64 ones, and the
      library
      counterparts: K16's (torch.linalg.cholesky, then solve_triangular
@@ -311,9 +312,11 @@ TOL_F32_FWD = 1e-5
 TOL_F32_ADJOINT = 1e-4
 F32_ADJOINTS = ("chol_bwd_f32", "tak_bwd_f32")
 SOLVE_RHS = 5  # columns of the matrix right-hand sides
-# K13/K21 at the edges of their partition into 64-row chunks (phase 6j),
-# (k, m, r): one row; one chunk (m < 64, m = 64); a ragged last chunk;
-# 4096 columns, where the rows form one chunk
+SOLVES = ("solve_lower", "solve_upper_t", "solve_lower_f32", "solve_upper_t_f32")
+# K13/K21 and K14/K22 at the edges of their partitions into 64-row chunks
+# (phase 6j), (k, m, r): one row; one chunk (m < 64, m = 64); a ragged last
+# chunk (the top rows of the upper solve); 4096 columns, where the rows
+# form one chunk
 SOLVE_EDGES = ((1, 1, 1), (3, 40, 1), (3, 40, SOLVE_RHS), (6, 64, 1), (2, 65, SOLVE_RHS),
                (4, 4097, 1), (3, 1000, 4096))
 # K17-K22 on the arguments the float32 path gave them at the north star:
@@ -1209,8 +1212,9 @@ def solve_north_star(device, bands) -> dict:
 
 
 def solve_edge_parity(device, rng) -> dict:
-    """Phase 6j: K13 and K21 on random SPD bands at SOLVE_EDGES against
-    their plain versions on CPU copies, at phase 6j's random-band bars."""
+    """Phase 6j: K13, K21, K14 and K22 on random SPD bands at SOLVE_EDGES
+    against their plain versions on CPU copies, at phase 6j's random-band
+    bars."""
     from asvgp_tpu_torch.banded import ops, solve
 
     rows = []
@@ -1218,34 +1222,37 @@ def solve_edge_parity(device, rng) -> dict:
         l = ops.cholesky_band_plain(torch.as_tensor(spd_band(k, m, rng)))
         b = torch.as_tensor(rng.randn(m) if r == 1 else rng.randn(m, r))
         row = {"k": k, "m": m, "r": r}
-        for dtype, name in ((torch.float64, "solve_lower"), (torch.float32, "solve_lower_f32")):
+        for dtype, suffix in ((torch.float64, ""), (torch.float32, "_f32")):
             lh, bh = l.to(dtype), b.to(dtype)
-            got = solve.solve_lower(lh.to(device), bh.to(device))
-            row |= _errs(name, (got,), (solve.solve_lower_plain(lh, bh),))
+            for name, fn, plain in (
+                    ("solve_lower", solve.solve_lower, solve.solve_lower_plain),
+                    ("solve_upper_t", solve.solve_upper_t, solve.solve_upper_t_plain)):
+                got = fn(lh.to(device), bh.to(device))
+                row |= _errs(name + suffix, (got,), (plain(lh, bh),))
         rows.append(row)
     return {"rows": rows,
-            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows)
-               for n in ("solve_lower", "solve_lower_f32")}}
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows) for n in SOLVES}}
 
 
-def lower_solve_maps(l_band: torch.Tensor, b: torch.Tensor) -> dict:
-    """The chunks of K13/K21 on (L, b) and the largest entry of their
-    composed maps: one direct launch of the C entry point (not counted)
-    with a workspace kept here, whose first (chunks − 1)·k² entries are the
-    maps' homogeneous parts H_j (csrc/banded_solve.cu)."""
+def solve_maps(name: str, l_band: torch.Tensor, b: torch.Tensor) -> dict:
+    """The chunks of solve ``name`` (K13/K21 or K14/K22) on (L, b) and the
+    largest entry of their composed maps: one direct launch of the C entry
+    point (not counted) with a workspace kept here, whose first
+    (chunks − 1)·k² entries are the maps' homogeneous parts H_j
+    (csrc/banded_solve.cu)."""
     from asvgp_tpu_torch.banded import _build
     from asvgp_tpu_torch.banded.single import route
 
     lib = _build.load()
     k, m = l_band.shape[0] - 1, l_band.shape[1]
     r = 1 if b.ndim == 1 else b.shape[1]
-    n = lib.asvgp_solve_lower_workspace(k, m, r)
+    n = lib.asvgp_solve_workspace(k, m, r)
     maps = n // (k * (k + 2 * r))
     if maps == 0:
         return {"chunks": 1, "h_max": 0.0}
     ws = l_band.new_empty(n)
     x = torch.empty_like(b)
-    _, entry = route("solve_lower", l_band)
+    _, entry = route(name, l_band)
     with torch.cuda.device(l_band.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(k, m, r, l_band.data_ptr(), b.data_ptr(), x.data_ptr(),
@@ -1750,14 +1757,14 @@ def main() -> None:
     check_each(fn_parity, lambda name: TOL_F32_ADJOINT if name.endswith("_f32") else TOL_PARITY,
                "of the solves' autograd Functions")
     edges = solve_edge_parity(device, rng)
-    emit("6j_parity_lower_solve_edges", **edges,
-         tol={"solve_lower": TOL_PARITY_ADJOINT, "solve_lower_f32": TOL_F32_FWD})
-    check_each(edges, f32_tol, "of K13/K21 at the edges of their partition")
+    emit("6j_parity_solve_edges", **edges, tol={n: f32_tol(n) for n in SOLVES})
+    check_each(edges, f32_tol, "of K13/K14/K21/K22 at the edges of their partitions")
     sol = solve_north_star(device, main_bands)
     emit("6j_solves_north_star", m=M, u_rel_vs_banded_posterior=sol["u_rel"],
          tol=TOL_SOLVE_NORTH_STAR, launches=sol["launches"], **sol["main"],
          tol_main=TOL_PARITY_MAIN,
-         lower_solve_maps=lower_solve_maps(*sol["args"]["solve_lower"][0]))
+         lower_solve_maps=solve_maps("solve_lower", *sol["args"]["solve_lower"][0]),
+         upper_solve_maps=solve_maps("solve_upper_t", *sol["args"]["solve_upper_t"][0]))
     if not sol["u_rel"] <= TOL_SOLVE_NORTH_STAR:
         raise AssertionError(f"cholesky_solve_band vs banded_posterior's u: {sol['u_rel']}")
     check_parity(sol["main"], TOL_PARITY_MAIN, "of K13/K14 at the north star")
@@ -1806,7 +1813,8 @@ def main() -> None:
     f32_main = adjoint_parity(f32_main_args, f32_calls())
     emit("6l_proof_of_f32_path", launches=f32["launches"], **f32_main,
          calls={n: len(a) for n, a in f32["args"].items()}, tol=TOL_F32_MAIN,
-         lower_solve_maps=lower_solve_maps(*f32["args"]["solve_lower_f32"][0]))
+         lower_solve_maps=solve_maps("solve_lower", *f32["args"]["solve_lower_f32"][0]),
+         upper_solve_maps=solve_maps("solve_upper_t", *f32["args"]["solve_upper_t_f32"][0]))
     check_parity(f32_main, TOL_F32_MAIN, "of K17-K22 on the float32 path's arguments")
     main_parity |= f32_main
     path_launches |= {n: f32["launches"]["step"][n] + f32["launches"]["posterior"][n]
@@ -1944,13 +1952,18 @@ def main() -> None:
         times[name] = cuda_ms(kernel_fn)
     for name, t in times.items():
         emit("7_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
-    # the redesigned kernels' device time alone: with a vector, K13/K21 take
-    # less time on the card than their call takes on the host
-    for name, fn in (("solve_lower", calls["solve_lower"][0]),
-                     ("solve_lower_f32", calls["solve_lower_f32"][0]),
-                     ("chol_inv_dense", calls["chol_inv_dense"][0]),
-                     ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))):
-        emit("7_device_time", what=name, card=smi, **kernel_device_ms(fn))
+    # the redesigned kernels' device time alone: with a vector, the solves
+    # take less time on the card than their call takes on the host; the gap
+    # is the event time less the device time, the wrapper's and launches'
+    alone = [(n, calls[n][0]) for n in SOLVES] + [
+        ("chol_inv_dense", calls["chol_inv_dense"][0]),
+        ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
+    for name, fn in alone:
+        dev_ms = kernel_device_ms(fn)
+        if name in SOLVES and dev_ms["device_ms"] != "not measured":
+            event_ms = times[name]["median_ms"]
+            dev_ms |= {"event_ms": event_ms, "gap_ms": event_ms - dev_ms["device_ms"]}
+        emit("7_device_time", what=name, card=smi, **dev_ms)
     for name, path in (("adam_step", ad), ("svgp_step", sv)):
         emit("7_time", what=name, card=smi, median_ms=path["ms_per_step"],
              ms=path["ms_per_step_all"], clock="host, per step of a 20-step fit")
@@ -2003,7 +2016,7 @@ def main() -> None:
              dtype=str(dense.dtype), batch=dense.shape[0], median_ms=t["median_ms"], ms=t["ms"],
              factored=bool((info == 0).all()))
         del dense
-    for name in ("solve_lower", "solve_upper_t", "solve_lower_f32", "solve_upper_t_f32"):
+    for name in SOLVES:
         l_band, rhs = io[name][0]
         dense = lower_band_to_dense(l_band)
         lhs, upper = (dense, False) if name.startswith("solve_lower") else (dense.mT, True)

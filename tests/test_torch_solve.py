@@ -18,14 +18,16 @@ order of summation.  The float32 Functions are held to the float64 ones
 at 1e-4 (well-conditioned random bands: float32 rounding, a few ulps times
 the chain).
 
-K13 and K21 partition the forward substitution into chunks of 64 rows
-(csrc/banded_solve.cu ``chunk_rows`` at these sizes): each chunk's affine
-map from its incoming window to its outgoing one, a scan over the maps for
-the true windows, and the plain recursion from them.  A numpy emulation of
-those three passes, in the kernel's order of operations and in the
-working dtype, is held to the plain version at the bars ``chip_smoke.py``
-holds the kernels to (phase 6j): 1e-13 (float64) and 1e-5 (float32) on
-random bands, 1e-8 and 1e-4 on a GPR1D P band at the north star's ℓ/δ = 10.
+K13/K21 partition the forward substitution, and K14/K22 the backward one
+(the same kernel walking the rows from the bottom up), into chunks of 64
+rows (csrc/banded_solve.cu ``chunk_rows`` at these sizes): each chunk's
+affine map from its incoming window to its outgoing one, a scan over the
+maps for the true windows, and the plain recursion from them.  A numpy
+emulation of those three passes, in the kernel's order of operations and
+in the working dtype, is held to the plain version at the bars
+``chip_smoke.py`` holds the kernels to (phase 6j): 1e-13 (float64) and
+1e-5 (float32) on random bands, 1e-8 and 1e-4 on a GPR1D P band at the
+north star's ℓ/δ = 10.
 
 The CUDA kernels have no CPU mode: their tests are marked ``cuda`` and skip
 without a card; there each kernel is held to its plain version at
@@ -173,38 +175,48 @@ def test_solve_checks_shapes():
 
 
 # ---------------------------------------------------------------------------
-# the partition of K13 / K21, emulated
+# the partition of K13 / K21 and of K14 / K22, emulated
 # ---------------------------------------------------------------------------
 
 CHUNK = 64  # rows per chunk of csrc/banded_solve.cu at m <= 16384, r <= 64
 # phase 6j's bars: random bands (TOL_PARITY_ADJOINT, TOL_F32_FWD) and the
 # north star's own arguments (TOL_PARITY_MAIN, TOL_F32_MAIN)
 BARS = {np.float64: (1e-13, 1e-8), np.float32: (1e-5, 1e-4)}
+DIRECTIONS = {False: solve.solve_lower_plain, True: solve.solve_upper_t_plain}
 
 
-def partitioned_solve_lower(l, b, lc=CHUNK):
-    """x = L⁻¹ b by the kernel's three passes, in ``l``'s dtype, and the
-    largest entry of the composed maps.  Each pass runs every chunk at once;
-    rows past m are identity rows (pivot 1, no band, b = 0)."""
+def partitioned_solve(l, b, upper, lc=CHUNK):
+    """x = L⁻¹ b, or x = L⁻ᵀ b when ``upper``, by the kernel's three passes,
+    in ``l``'s dtype, and the largest entry of the composed maps.  The rows
+    are walked in the kernel's order, 0..m-1 (m-1..0 when ``upper``), and
+    the walk is cut into chunks of ``lc`` positions from its start.  Each
+    pass runs every chunk at once; positions past m are identity rows
+    (pivot 1, no band, b = 0)."""
     dt = l.dtype.type
     k, m = l.shape[0] - 1, l.shape[1]
     b2 = b[:, None] if b.ndim == 1 else b
     r = b2.shape[1]
     n_chunks = -(-m // lc)
-    g = np.zeros((k + 1, n_chunks * lc), dt)  # g[p, i] = L[i, i-p]
+    # g[p, u]: the entry the window's X[p-1] meets at walk position u, row i
+    g = np.zeros((k + 1, n_chunks * lc), dt)
     g[0] = 1
-    g[0, :m] = l[0]
-    for p in range(1, k + 1):
-        g[p, p:m] = l[p, :m - p]
+    if upper:
+        g[:, :m] = l[:, ::-1]  # L[i+p, i], i = m-1-u: one run per p
+    else:
+        g[0, :m] = l[0]
+        for p in range(1, k + 1):
+            g[p, p:m] = l[p, :m - p]  # L[i, i-p], i = u
     g = g.reshape(k + 1, n_chunks, lc)
+    walk = slice(None, None, -1) if upper else slice(None)
     bp = np.zeros((n_chunks * lc, r), dt)
-    bp[:m] = b2
+    bp[:m] = b2[walk]
     bp = bp.reshape(n_chunks, lc, r)
 
     def sweep(window, rhs):
         """The plain recursion over every chunk from ``window`` (chunks, k,
-        chains), X[:, p] = x_{i-1-p}: the sum over p increasing, each
-        product, sum, difference and quotient rounded in ``dt``."""
+        chains), X[:, p] = the x walked 1 + p positions before: the sum over
+        p increasing, each product, sum, difference and quotient rounded in
+        ``dt``."""
         xs = []
         for t in range(lc):
             acc = g[1, :, t, None] * window[:, 0]
@@ -229,34 +241,49 @@ def partitioned_solve_lower(l, b, lc=CHUNK):
         win[j + 1] = y[j] + h[j] @ win[j]
     # pass 3: the plain recursion from the true windows
     _, x = sweep(win, lambda t: bp[:, t])
-    x = x.reshape(n_chunks * lc, r)[:m]
+    x = x.reshape(n_chunks * lc, r)[:m][walk]
     h_max = float(np.abs(h[:-1]).max()) if n_chunks > 1 else 0.0
     return (x[:, 0] if b.ndim == 1 else x), h_max
 
 
-@pytest.mark.parametrize("k", range(1, 7))
-def test_partitioned_lower_solve_matches_plain(k):
-    """Random SPD bands at m = 1000 (15 chunks and a ragged one of 40 rows)
-    and m = 40 (one chunk), a vector and 5 columns, in float64 and
-    float32; also at 8-row chunks, where the maps' homogeneous part has
-    not yet decayed below rounding and the scan must carry it."""
+def check_partition_on_random_bands(k, upper):
+    """The emulation against the plain version at m = 1000 (15 chunks and a
+    ragged one of 40 rows) and m = 40 (one chunk), a vector and 5 columns,
+    in float64 and float32, at 64- and 8-row chunks."""
     for m in (1000, 40):
         for r in (None, 5):
             l, b = factor(k, m, 60 + k, r)
             for dt in (np.float64, np.float32):
                 lh, bh = l.numpy().astype(dt), b.numpy().astype(dt)
-                want = solve.solve_lower_plain(torch.from_numpy(lh), torch.from_numpy(bh))
+                want = DIRECTIONS[upper](torch.from_numpy(lh), torch.from_numpy(bh))
                 for lc in (CHUNK, 8):
-                    got, h_max = partitioned_solve_lower(lh, bh, lc)
+                    got, h_max = partitioned_solve(lh, bh, upper, lc)
                     assert got.dtype == dt and np.isfinite(h_max)
                     assert rel(got, want) <= BARS[dt][0], (m, r, dt, lc)
 
 
+@pytest.mark.parametrize("k", range(1, 7))
+def test_partitioned_lower_solve_matches_plain(k):
+    """K13/K21's partition on random SPD bands; at 8-row chunks the maps'
+    homogeneous part has not yet decayed below rounding and the scan must
+    carry it."""
+    check_partition_on_random_bands(k, upper=False)
+
+
+@pytest.mark.parametrize("k", range(1, 7))
+def test_partitioned_upper_solve_matches_plain(k):
+    """K14/K22's partition, the same walked from the bottom row up: the
+    chunk that holds row m-1 is solved from the zero window, the ragged
+    chunk holds row 0."""
+    check_partition_on_random_bands(k, upper=True)
+
+
 def test_partitioned_lower_solve_at_north_star_conditioning():
-    """The solve of the collapsed bound and of ``cholesky_solve_band``, L_P⁻¹
-    Kuf·y, on a GPR1D at the north star's ℓ/δ = 10 and N/m = 100 (m = 320,
-    B3, Matérn-3/2, noise 0.1), L_P in each dtype from its own Cholesky;
-    the composed maps stay bounded."""
+    """The two solves of ``cholesky_solve_band``, L_P⁻¹ Kuf·y (also the
+    collapsed bound's) and L_P⁻ᵀ of it, on a GPR1D at the north star's
+    ℓ/δ = 10 and N/m = 100 (m = 320, B3, Matérn-3/2, noise 0.1), L_P in
+    each dtype from its own Cholesky; the composed maps of both directions
+    stay bounded."""
     m = 320
     rng = np.random.RandomState(5)
     x = rng.uniform(0.005, 0.995, 100 * m)
@@ -268,9 +295,11 @@ def test_partitioned_lower_solve_at_north_star_conditioning():
     for dt, tdt in ((np.float64, torch.float64), (np.float32, torch.float32)):
         l = ops.cholesky_band_plain(p_band.to(tdt))
         b = model.kuf_y.to(tdt)
-        got, h_max = partitioned_solve_lower(l.numpy(), b.numpy())
-        assert got.dtype == dt and h_max <= 1.0
-        assert rel(got, solve.solve_lower_plain(l, b)) <= BARS[dt][1]
+        for upper, plain in DIRECTIONS.items():
+            got, h_max = partitioned_solve(l.numpy(), b.numpy(), upper)
+            assert got.dtype == dt and h_max <= 1.0
+            assert rel(got, plain(l, b)) <= BARS[dt][1], (dt, upper)
+            b = plain(l, b)  # the upper solve takes the lower one's x
 
 
 @pytest.fixture
@@ -323,16 +352,19 @@ def test_cuda_solve_functions_launch_the_kernels(cuda_device):
                                      (2, 65, 5), (4, 4097, None), (3, 10_000, None),
                                      (5, 10_000, 5), (3, 1000, 4096)])
 def test_cuda_lower_solve_partition_edges(cuda_device, k, m, r):
-    """K13 and K21 at the partition's edges: one row, one chunk (m < 64, and
-    m = 64 exactly), a ragged last chunk, the north star's m = 10⁴, and 4096
-    columns, where the rows form one chunk; each launched once."""
+    """K13, K21 and K14, K22 at their partitions' edges: one row, one chunk
+    (m < 64, and m = 64 exactly), a ragged last chunk (the top rows of the
+    upper solve), the north star's m = 10⁴, and 4096 columns, where the rows
+    form one chunk; each launched once."""
     l, b = factor(k, m, 70 + k, r)
     core.reset_counters()
     for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
         lh, bh = l.to(dtype), b.to(dtype)
-        got = solve.solve_lower(lh.to(cuda_device), bh.to(cuda_device))
-        assert got.is_cuda and got.dtype == dtype and got.shape == bh.shape
-        assert rel(got.cpu(), solve.solve_lower_plain(lh, bh)) <= tol
+        for fn, plain in ((solve.solve_lower, solve.solve_lower_plain),
+                          (solve.solve_upper_t, solve.solve_upper_t_plain)):
+            got = fn(lh.to(cuda_device), bh.to(cuda_device))
+            assert got.is_cuda and got.dtype == dtype and got.shape == bh.shape
+            assert rel(got.cpu(), plain(lh, bh)) <= tol
     torch.cuda.synchronize()
-    assert core.LAUNCHES["solve_lower"] == 1 and core.LAUNCHES["solve_lower_f32"] == 1
+    assert [core.LAUNCHES[key] for key in KEYS] == [1, 1, 1, 1]
     assert core.PLAIN_CALLS["cuda"] == 0
