@@ -4,7 +4,8 @@ At first use, ``load()`` compiles ``asvgp_tpu_torch/csrc/*.cu`` with
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
 together, and links the objects into one shared library with a plain C
 interface, under ``build/asvgp_tpu_torch/`` beside the package, named by a
-hash of the sources and flags so that an edited source is rebuilt.  The
+hash of the sources, the headers they include and the flags, so that an
+edited source or header is rebuilt.  The
 library is loaded with ctypes; every pointer and the stream are passed as
 ``ctypes.c_void_p``.  Nothing here runs at import time: a machine without
 ``nvcc`` or a GPU can import the port and run its CPU paths.
@@ -25,6 +26,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("banded_core.cu", "banded_tan.cu", "banded_adjoint.cu",
                  "banded_solve.cu", "block_chol_inv.cu"))
+# included by the sources: part of the library's hash
+HEADERS = tuple(_PKG / "csrc" / name for name in ("chunk_scan.cuh",))
 BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,22 +46,24 @@ ENTRY_POINTS = {
     "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 10,
     "asvgp_tak_quad_solve_tan": (_I, _I, _I) + (_VP,) * 12,
     "asvgp_chol_fwd": (_I, _I, _I) + (_VP,) * 3,
-    "asvgp_chol_bwd": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_chol_bwd": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_tak_fwd": (_I, _I, _I) + (_VP,) * 3,
-    "asvgp_tak_bwd": (_I, _I, _I) + (_VP,) * 6,
+    "asvgp_tak_bwd": (_I, _I, _I) + (_VP,) * 7,
     "asvgp_chol_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
-    "asvgp_chol_bwd_f32": (_I, _I, _I) + (_VP,) * 4,
+    "asvgp_chol_bwd_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_tak_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
-    "asvgp_tak_bwd_f32": (_I, _I, _I) + (_VP,) * 6,
+    "asvgp_tak_bwd_f32": (_I, _I, _I) + (_VP,) * 7,
     "asvgp_solve_lower": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_upper_t": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_lower_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
     # not launches: the doubles of global workspace per block of K16, the
-    # elements of workspace of K13 / K14 / K21 / K22
+    # elements of workspace of K13 / K14 / K21 / K22 and of the adjoints
+    # K7 / K8 / K10 / K12 / K18 / K20 / K23
     "asvgp_chol_inv_dense_workspace": (_I,),
     "asvgp_solve_workspace": (_I, _I, _I),
+    "asvgp_adjoint_workspace": (_I, _I, _I),
 }
 
 
@@ -79,7 +84,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libbanded_core-{h.hexdigest()[:16]}.so"

@@ -24,6 +24,10 @@ except for the trace term, which runs
   K8 ``chol_bwd_pair``: the Cholesky adjoint K̄uu from (L, L̄), batched and
      called on one matrix (``chol_bwd<K>``).
 
+Both adjoint kernels cut their walk over the columns into chunks (three
+launches: the chunks' affine maps, a scan over them, the outputs), with
+scratch from here (``adjoint_workspace``); a call counts one launch.
+
 ``tak_bwd_pair`` (K23) is K7 for two matrices in one launch.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper and
@@ -32,6 +36,8 @@ run can show which path it took.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -121,6 +127,14 @@ def _check_cuda(k: int, tensors, dtypes=(torch.float64,)) -> None:
             "cholesky_band, takahashi_inverse_band, collapsed_core_matern), or call "
             "it under torch.no_grad()"
         )
+
+
+@functools.lru_cache(maxsize=64)
+def adjoint_workspace(k: int, m: int, nb: int) -> int:
+    """Elements of scratch the chunk maps of an adjoint (K7, K8, K10, K12,
+    K18, K20, K23) need for nb (k+1, m) bands (0 when the columns form one
+    chunk), asked of the kernels' library once per shape."""
+    return _build.load().asvgp_adjoint_workspace(k, m, nb)
 
 
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
@@ -262,8 +276,9 @@ def tak_bwd_vec(l_band, s_band, cot, iv):
         return tak_bwd_vec_plain(l_band, s_band, cot, iv)
     _check_cuda(k, (l_band, s_band, cot, iv))
     l_bar = torch.empty_like(l_band)
+    ws = l_band.new_empty(adjoint_workspace(k, m, 1))
     _launch("tak_bwd_vec", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
-            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr())
+            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr(), ws.data_ptr())
     return l_bar
 
 
@@ -289,8 +304,9 @@ def tak_bwd_pair(l_band, s_band, cot, iv):
         return tak_bwd_pair_plain(l_band, s_band, cot, iv)
     _check_cuda(k, (l_band, s_band, cot, iv))
     l_bar = torch.empty_like(l_band)
+    ws = l_band.new_empty(adjoint_workspace(k, m, 2))
     _launch("tak_bwd_pair", "asvgp_tak_bwd", l_band.device, k, m, 2, l_band.data_ptr(),
-            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr())
+            s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr(), ws.data_ptr())
     return l_bar
 
 
@@ -324,8 +340,9 @@ def chol_bwd_pair(l_band, l_bar):
     _check_cuda(k, (l_band, l_bar))
     a_bar = torch.empty_like(l_band)
     nb = 1 if l_band.ndim == 2 else l_band.shape[0]
+    ws = l_band.new_empty(adjoint_workspace(k, m, nb))
     _launch("chol_bwd_pair", "asvgp_chol_bwd", l_band.device, k, m, nb, l_band.data_ptr(),
-            l_bar.data_ptr(), a_bar.data_ptr())
+            l_bar.data_ptr(), a_bar.data_ptr(), ws.data_ptr())
     return a_bar
 
 

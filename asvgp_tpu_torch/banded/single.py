@@ -14,7 +14,9 @@ Takahashi kernels and their custom VJPs) and of the forward pair kernel of
       K1's reciprocal pivots);
 
 as hand-written CUDA kernels (csrc/banded_adjoint.cu ``chol_fwd<K>``,
-``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``) on CUDA tensors, and as
+``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``; the two adjoints
+partitioned into chunks, three launches with scratch from
+``core.adjoint_workspace``, one count per call) on CUDA tensors, and as
 their plain versions on CPU tensors: the recursions of banded/ops.py,
 forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
 raises.  The four wrappers dispatch on the dtype: float64 runs K9–K12,
@@ -128,8 +130,9 @@ def chol_bwd(l_band, l_bar):
         return chol_bwd_plain(l_band, l_bar)
     core._check_cuda(k, (l_band, l_bar), BOTH)
     a_bar = torch.empty_like(l_band)
+    ws = l_band.new_empty(core.adjoint_workspace(k, m, 1))
     core._launch(*route("chol_bwd", l_band), l_band.device, k, m, 1,
-                 l_band.data_ptr(), l_bar.data_ptr(), a_bar.data_ptr())
+                 l_band.data_ptr(), l_bar.data_ptr(), a_bar.data_ptr(), ws.data_ptr())
     return a_bar
 
 
@@ -181,8 +184,9 @@ def tak_bwd(l_band, s_band, s_bar):
         return tak_bwd_plain(l_band, s_band, s_bar)
     core._check_cuda(k, (l_band, s_band, s_bar), BOTH)
     l_bar = torch.empty_like(l_band)
+    ws = l_band.new_empty(core.adjoint_workspace(k, m, 1))
     core._launch(*route("tak_bwd", l_band), l_band.device, k, m, 1, l_band.data_ptr(),
-                 s_band.data_ptr(), s_bar.data_ptr(), None, l_bar.data_ptr())
+                 s_band.data_ptr(), s_bar.data_ptr(), None, l_bar.data_ptr(), ws.data_ptr())
     return l_bar
 
 

@@ -49,8 +49,9 @@
 //        window e_q) and the r particular solutions (window 0), of which
 //        only the last K rows are kept: the chunk's outgoing window is
 //        y + H w;
-//     2. scan (solve_scan_kernel): one thread per column walks the P - 1
-//        maps, w_{j+1} = y_j + H_j w_j, from the staged maps;
+//     2. scan (chunk_scan_kernel<K, T> of chunk_scan.cuh, shared with the
+//        adjoints of banded_adjoint.cu): one thread per column walks the
+//        P - 1 maps, w_{j+1} = y_j + H_j w_j, from the staged maps;
 //     3. solve (solve_chunk_kernel<.., false>), one CTA per chunk: the
 //        plain recursion from the chunk's true incoming window, in the
 //        plain version's order, writing x.
@@ -73,8 +74,9 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstddef>
+
+#include "chunk_scan.cuh"
 
 namespace {
 
@@ -86,21 +88,13 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return __fma_rn(a, b, c); }
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
 // ---------------------------------------------------------------------------
 // K13 / K21 solve_lower<K, T> and K14 / K22 solve_upper_t<K, T>
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;         // walk positions of a staged tile
 constexpr int kChains = 32;       // chains of one CTA of passes 1 and 3: a warp
-constexpr int kMinChunk = 64;     // rows of a chunk, at least
-constexpr long kMaxChunks = 256;  // bounds pass 2's staged maps
 constexpr long kFill = 4096;      // chunks x columns that fill the card
-constexpr int kScanCols = 8;      // columns of one CTA of pass 2
-// the shared memory one CTA may use on an H100: 227 KB
-constexpr size_t kSmemLimit = 232448;
 
 // rows per chunk: at least kMinChunk, at most kMaxChunks chunks, and about
 // kFill chains over the columns; a multiple of the tile.  lc >= m is P = 1.
@@ -112,20 +106,6 @@ int chunk_rows(int m, int r) {
   if (by_fill > lc) lc = by_fill;
   lc = (lc + kTile - 1) / kTile * kTile;
   return static_cast<int>(lc < m ? lc : m);
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // the row at walk position u
@@ -248,75 +228,6 @@ solve_chunk_kernel(int m, int r, int lc, const T* __restrict__ l,
   }
 }
 
-// Pass 2: one thread per column c walks the P - 1 maps, w_{j+1} = y_j +
-// H_j w_j from w_0 = 0, and writes win[j][c] = w_{j+1}, the incoming window
-// of chunk j + 1.  The maps of its columns are staged first; any order of
-// rounding serves here.
-template <int K, typename T>
-__global__ void __launch_bounds__(32)
-solve_scan_kernel(int r, int nmap, const T* __restrict__ hmap,
-                  const T* __restrict__ ymap, T* __restrict__ win) {
-  extern __shared__ __align__(16) unsigned char scan_smem[];
-  T* hs = reinterpret_cast<T*>(scan_smem);            // nmap K K
-  T* ys = hs + static_cast<size_t>(nmap) * K * K;     // nmap kScanCols K
-  const int lane = threadIdx.x;
-  const int c0 = blockIdx.x * kScanCols;
-  const int nc = (r - c0 < kScanCols) ? r - c0 : kScanCols;
-  const size_t rs = static_cast<size_t>(r);
-  for (int idx = lane; idx < nmap * K * K; idx += 32) cp_async(&hs[idx], hmap + idx);
-  for (int idx = lane; idx < nmap * nc * K; idx += 32) {
-    const int jj = idx / (nc * K);
-    const int rem = idx % (nc * K);
-    cp_async(&ys[jj * kScanCols * K + rem], ymap + (jj * rs + c0) * K + rem);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (lane >= nc) return;
-
-  T w[K];
-#pragma unroll
-  for (int p = 0; p < K; ++p) w[p] = T(0);
-  for (int jj = 0; jj < nmap; ++jj) {
-    const T* h = hs + jj * K * K;
-    const T* y = ys + (jj * kScanCols + lane) * K;
-    T nw[K];
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      T a = y[p];
-#pragma unroll
-      for (int qq = 0; qq < K; ++qq) a = fma_t(h[p * K + qq], w[qq], a);
-      nw[p] = a;
-    }
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      w[p] = nw[p];
-      win[(jj * rs + c0 + lane) * K + p] = nw[p];
-    }
-  }
-}
-
-template <int K, typename T>
-size_t scan_smem_bytes(int nmap) {
-  return static_cast<size_t>(nmap) * (K * K + kScanCols * K) * sizeof(T);
-}
-
-// Lets the scan kernel take up to kSmemLimit of dynamic shared memory, once
-// per device (the attribute holds for the device current when it is set).
-template <int K, typename T>
-cudaError_t allow_scan_smem() {
-  static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(solve_scan_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmemLimit));
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
-}
-
 // Elements of T of the workspace: H (P-1, K, K), y (P-1, r, K) and the
 // incoming windows (P-1, r, K); 0 when P = 1.
 size_t solve_workspace(int k, int m, int r) {
@@ -343,13 +254,7 @@ cudaError_t launch_solve(int m, int r, const T* l, const T* b, T* x, T* ws,
         m, r, lc, l, b, nullptr, nullptr, hmap, ymap);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    const size_t smem = scan_smem_bytes<K, T>(nmap);
-    if (smem > kSmemLimit) return cudaErrorInvalidValue;
-    e = allow_scan_smem<K, T>();
-    if (e != cudaSuccess) return e;
-    solve_scan_kernel<K, T><<<(r + kScanCols - 1) / kScanCols, 32, smem, st>>>(
-        r, nmap, hmap, ymap, w);
-    e = cudaGetLastError();
+    e = launch_chunk_scan<K, T>(r, 1, nmap, hmap, 0, ymap, 0, w, st);
     if (e != cudaSuccess) return e;
     win = w;
   }

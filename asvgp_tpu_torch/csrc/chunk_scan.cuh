@@ -1,0 +1,139 @@
+// What the chunk-partitioned linear recursions of the port share: the
+// staging helpers (cp.async), the partition's constants, and pass 2, the
+// scan over the chunks' affine maps.
+//
+// A recursion whose carry w (D values) is affine in what it reads, given a
+// fixed operand (a Cholesky factor), is cut into chunks of its walk: over
+// chunk j the outgoing carry is y_j + H_j w_j, w_j the incoming one.  Pass 1
+// builds every chunk's map (H_j: the D homogeneous responses, y_j: the
+// particular one), pass 2 (here) walks the maps for the true incoming
+// carries, pass 3 reruns the recursion from them.  Used by
+// banded_solve.cu (the solves, D = K, one map per column of the right-hand
+// side) and banded_adjoint.cu (the Cholesky and Takahashi adjoints,
+// D = K(K+1)/2, one map sequence per matrix of a batch).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstddef>
+
+namespace {
+
+constexpr int kTile = 64;         // walk positions of a staged tile
+constexpr int kMinChunk = 64;     // positions of a chunk, at least
+constexpr long kMaxChunks = 256;  // bounds pass 2's walk
+constexpr int kScanCols = 8;      // columns of one CTA of pass 2
+// the shared memory one CTA may use on an H100: 227 KB
+constexpr size_t kSmemLimit = 232448;
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ double scan_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float scan_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// Pass 2.  Batch entry blockIdx.y has nmap maps, H at hmap + y·h_stride
+// ((nmap, D, D): H[j][p][q] at (j D + p) D + q) and the particular parts of
+// its r columns at ymap + y·y_stride ((nmap, r, D)).  One thread per column
+// c walks w_{j+1} = y_j + H_j w_j from w_0 = 0 and writes w_{j+1}, the
+// incoming carry of chunk j + 1, to win (laid out as ymap).  The maps of
+// its columns are staged in shared memory first; any order of rounding
+// serves here.
+template <int D, typename T>
+__global__ void __launch_bounds__(32)
+chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
+                  const T* __restrict__ ymap, size_t y_stride, T* __restrict__ win) {
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  const int ncs = r < kScanCols ? r : kScanCols;     // y columns per staged map
+  T* hs = reinterpret_cast<T*>(scan_smem);            // nmap D D
+  T* ys = hs + static_cast<size_t>(nmap) * D * D;     // nmap ncs D
+  const size_t bat = blockIdx.y;
+  hmap += bat * h_stride;
+  ymap += bat * y_stride;
+  win += bat * y_stride;
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * kScanCols;
+  const int nc = (r - c0 < kScanCols) ? r - c0 : kScanCols;
+  const size_t rs = static_cast<size_t>(r);
+  for (int idx = lane; idx < nmap * D * D; idx += 32) cp_async(&hs[idx], hmap + idx);
+  for (int idx = lane; idx < nmap * nc * D; idx += 32) {
+    const int jj = idx / (nc * D);
+    const int rem = idx % (nc * D);
+    cp_async(&ys[jj * ncs * D + rem], ymap + (jj * rs + c0) * D + rem);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (lane >= nc) return;
+
+  T w[D];
+#pragma unroll
+  for (int p = 0; p < D; ++p) w[p] = T(0);
+  for (int jj = 0; jj < nmap; ++jj) {
+    const T* h = hs + jj * D * D;
+    const T* y = ys + (jj * ncs + lane) * D;
+    T nw[D];
+#pragma unroll
+    for (int p = 0; p < D; ++p) {
+      T a = y[p];
+#pragma unroll
+      for (int qq = 0; qq < D; ++qq) a = scan_fma(h[p * D + qq], w[qq], a);
+      nw[p] = a;
+    }
+#pragma unroll
+    for (int p = 0; p < D; ++p) {
+      w[p] = nw[p];
+      win[(jj * rs + c0 + lane) * D + p] = nw[p];
+    }
+  }
+}
+
+template <int D, typename T>
+size_t scan_smem_bytes(int nmap, int r) {
+  const int ncs = r < kScanCols ? r : kScanCols;
+  return static_cast<size_t>(nmap) * (D * D + ncs * D) * sizeof(T);
+}
+
+// Lets the scan kernel take up to kSmemLimit of dynamic shared memory, once
+// per device (the attribute holds for the device current when it is set).
+template <int D, typename T>
+cudaError_t allow_scan_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(chunk_scan_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kSmemLimit));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// Launches pass 2 over nbatch map sequences of r columns each.
+template <int D, typename T>
+cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t h_stride,
+                              const T* ymap, size_t y_stride, T* win, cudaStream_t st) {
+  const size_t smem = scan_smem_bytes<D, T>(nmap, r);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e = allow_scan_smem<D, T>();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((r + kScanCols - 1) / kScanCols, nbatch);
+  chunk_scan_kernel<D, T><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap, y_stride, win);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -15,7 +15,9 @@ points, on the card:
      PyTorch versions, for k = 1..6 on random SPD bands (with a random
      symmetric tangent band), and at the main path's shapes on its real
      Kuu, T = ∂Kuu/∂ℓ, P and Kuf·y; K7–K12 for k = 1..6 on random SPD
-     bands and cotangents
+     bands and cotangents; the partitioned adjoints (K7, K8, K10, K12,
+     K18, K20, K23) at the edges of their partitions (one column, one
+     chunk, a ragged chunk, two matrices, k = 6 at m = 10⁴)
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -83,12 +85,16 @@ points, on the card:
      nothing; a step K17 ×2, K19, K21, K18 ×2, K20, K22 once each; the
      posterior K17 ×2, K19 ×2, K21, K22; no float64 kernel and no plain
      version on a CUDA tensor; K17–K22 against their plain versions on the
-     arguments the step and the posterior gave them
+     arguments the step and the posterior gave them; the largest entry of
+     the adjoints' composed chunk maps on the factors the main paths gave
+     them (L_Kuu and L_P at the north star, the Adam and SVGP steps', the
+     GPRKron step's, the float32 step's)
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock), the device time of K13, K14, K21, K22
-     and K16 alone (torch.profiler) and the four solves' event time less
-     their device time, each kernel's bound, cholesky_solve_band, the
+     REPS times on the host clock), the device time of K13, K14, K21, K22,
+     the adjoints K7, K8, K10, K12, K18, K20, K23 and K16 alone
+     (torch.profiler) and the solves' and adjoints' event time less their
+     device time, each kernel's bound, cholesky_solve_band, the
      float32 step, posterior and predict beside the float64 ones, and the
      library
      counterparts: K16's (torch.linalg.cholesky, then solve_triangular
@@ -319,6 +325,15 @@ SOLVES = ("solve_lower", "solve_upper_t", "solve_lower_f32", "solve_upper_t_f32"
 # form one chunk
 SOLVE_EDGES = ((1, 1, 1), (3, 40, 1), (3, 40, SOLVE_RHS), (6, 64, 1), (2, 65, SOLVE_RHS),
                (4, 4097, 1), (3, 1000, 4096))
+# the adjoints K7/K8/K10/K12 and K18/K20 (one matrix), K8/K23 (two) at the
+# edges of their partitions into chunks (phase 2), (k, m, nb): one column;
+# one chunk (m < 64, m = 64); a ragged last chunk; k = 6 at m = 10⁴, whose
+# chunks are the longest (192 columns) so that the scan's maps fit in
+# shared memory
+ADJOINT_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (4, 4097, 1), (3, 1000, 2),
+                 (6, 10_000, 1), (6, 10_000, 2))
+ADJOINTS = ("tak_bwd_vec", "chol_bwd_pair", "chol_bwd", "tak_bwd", "tak_bwd_pair",
+            "chol_bwd_f32", "tak_bwd_f32")
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -1054,7 +1069,7 @@ def kron_path(device) -> dict:
     posterior at the fitted parameters, predictions, MSE and NLPD, and the
     same predictions from a posterior built by the plain versions on a CPU
     copy."""
-    from asvgp_tpu_torch.banded import block, core
+    from asvgp_tpu_torch.banded import block, core, single
     from asvgp_tpu_torch.basis import BSplineBasis
     from asvgp_tpu_torch.models import GPRKron, Matern32
     from asvgp_tpu_torch.stats import compute_kron_stats
@@ -1084,7 +1099,7 @@ def kron_path(device) -> dict:
 
     args: dict = {}
     core.reset_counters()
-    with capture(args, block, "chol_inv_dense"):
+    with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_bwd", "tak_bwd"):
         loss, grad = kron_value_and_grad(model)
     step_launches = read_launches(device, "GPRKron value-and-grad step", KRON_STEP)
 
@@ -1259,6 +1274,89 @@ def solve_maps(name: str, l_band: torch.Tensor, b: torch.Tensor) -> dict:
                                  ws.data_ptr(), stream)
     _build.check(lib, rc, entry)
     return {"chunks": maps + 1, "h_max": float(ws[: maps * k * k].abs().max())}
+
+
+def adjoint_edge_parity(device, rng) -> dict:
+    """Phase 2: the partitioned adjoints on random SPD bands at
+    ADJOINT_EDGES against their plain versions on CPU copies, at the
+    random-band bars: one matrix K10, K12, their float32 forms K18, K20
+    (the float32 inputs rounded once from float64), K7 and K8; two K8 and
+    K23."""
+    from asvgp_tpu_torch.banded import core, ops, single
+
+    rows = []
+    for k, m, nb in ADJOINT_EDGES:
+        ls = [ops.cholesky_band_plain(torch.as_tensor(spd_band(k, m, rng))) for _ in range(nb)]
+        l = torch.stack(ls)
+        s = torch.stack([ops.takahashi_inverse_band_plain(x) for x in ls])
+        l_bar, s_bar = (torch.as_tensor(rng.randn(nb, k + 1, m)) for _ in range(2))
+        iv = (1.0 / l[:, 0]).contiguous()
+        row = {"k": k, "m": m, "nb": nb}
+
+        def hold(name, fn, plain, *args):
+            row.update(_errs(name, (fn(*[t.to(device) for t in args]),), (plain(*args),)))
+
+        if nb == 1:
+            hold("chol_bwd_pair", core.chol_bwd_pair, core.chol_bwd_pair_plain, l[0], l_bar[0])
+            hold("tak_bwd_vec", core.tak_bwd_vec, core.tak_bwd_vec_plain,
+                 l[0], s[0], s_bar[0], iv[0])
+            for dtype, suffix in ((torch.float64, ""), (torch.float32, "_f32")):
+                lh, sh, lbh, sbh = (t.to(dtype) for t in (l[0], s[0], l_bar[0], s_bar[0]))
+                hold("chol_bwd" + suffix, single.chol_bwd, single.chol_bwd_plain, lh, lbh)
+                hold("tak_bwd" + suffix, single.tak_bwd, single.tak_bwd_plain, lh, sh, sbh)
+        else:
+            hold("chol_bwd_pair", core.chol_bwd_pair, core.chol_bwd_pair_plain, l, l_bar)
+            hold("tak_bwd_pair", core.tak_bwd_pair, core.tak_bwd_pair_plain, l, s, s_bar, iv)
+        rows.append(row)
+    return {"rows": rows,
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows if f"{n}_rel" in r)
+               for n in ADJOINTS}}
+
+
+def adjoint_maps(args) -> dict:
+    """The chunks of an adjoint (K7, K8, K10, K12, K18, K20, K23) on its
+    wrapper's arguments ``args`` and the largest entry of their composed
+    maps: one direct launch of the C entry point (not counted) with a
+    workspace kept here, whose first nb·(chunks − 1)·D² entries are the
+    maps' homogeneous parts H_j, D = k(k+1)/2 (csrc/banded_adjoint.cu).
+    Two arguments are (L, L̄) of the Cholesky adjoint, three or four (L, S,
+    S̄[, 1/diag L]) of the Takahashi one; the maps depend on L (and
+    1/diag L) alone."""
+    from asvgp_tpu_torch.banded import _build
+
+    lib = _build.load()
+    l_band = args[0]
+    nb = 1 if l_band.ndim == 2 else l_band.shape[0]
+    k, m = l_band.shape[-2] - 1, l_band.shape[-1]
+    d = k * (k + 1) // 2
+    n = lib.asvgp_adjoint_workspace(k, m, nb)
+    maps = n // (nb * (d * d + 2 * d))
+    if maps == 0:
+        return {"chunks": 1, "h_max": 0.0}
+    ws = l_band.new_empty(n)
+    out = torch.empty_like(l_band)
+    suffix = "_f32" if l_band.dtype == torch.float32 else ""
+    if len(args) == 2:
+        entry, ptrs = "asvgp_chol_bwd", (args[0].data_ptr(), args[1].data_ptr())
+    else:
+        iv = args[3].data_ptr() if len(args) == 4 else None
+        entry, ptrs = "asvgp_tak_bwd", (*(t.data_ptr() for t in args[:3]), iv)
+    with torch.cuda.device(l_band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry + suffix)(k, m, nb, *ptrs, out.data_ptr(), ws.data_ptr(), stream)
+    _build.check(lib, rc, entry + suffix)
+    return {"chunks": maps + 1, "h_max": float(ws[: nb * maps * d * d].abs().max())}
+
+
+def adjoint_maps_of(calls: dict) -> dict:
+    """adjoint_maps of every captured call, by wrapper: the chunks and the
+    largest entry over its calls, and each call's."""
+    out = {}
+    for name, arg_lists in calls.items():
+        each = [adjoint_maps(args) for args in arg_lists]
+        out[name] = {"chunks": each[0]["chunks"], "h_max": max(e["h_max"] for e in each),
+                     "h_max_each": [e["h_max"] for e in each]}
+    return out
 
 
 def f32_path(device, x_d, y_d, x_test, y_test) -> dict:
@@ -1542,6 +1640,9 @@ def main() -> None:
         res = adjoint_parity(random_adjoint_inputs(k, PARITY_M, rng, device))
         emit("2_parity_adjoint_random", k=k, m=PARITY_M, **res, tol=TOL_PARITY_ADJOINT)
         check_parity(res, TOL_PARITY_ADJOINT, f"of K7-K12 at k={k}")
+    adj_edges = adjoint_edge_parity(device, rng)
+    emit("2_parity_adjoint_edges", **adj_edges, tol={n: f32_tol(n) for n in ADJOINTS})
+    check_each(adj_edges, f32_tol, "of the adjoints at the edges of their partitions")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -1819,6 +1920,18 @@ def main() -> None:
     main_parity |= f32_main
     path_launches |= {n: f32["launches"]["step"][n] + f32["launches"]["posterior"][n]
                       for n in F32_STEP}
+    # the adjoints' composed chunk maps on the factors the main paths pass
+    # them: L_Kuu and L_P at the north star (phase 6f's pair), the Adam
+    # step's L_Kuu, the SVGP step's R and L_Kuu, the two GPRKron factors and
+    # the float32 step's
+    pair_l, pair_s, pair_cot, pair_iv = pair["io"]["tak_bwd_pair"][0]
+    emit("6l_adjoint_maps", card=smi,
+         north_star=adjoint_maps_of({"chol_bwd_pair": [(pair_l, pair_cot)],
+                                     "tak_bwd_pair": [(pair_l, pair_s, pair_cot, pair_iv)]}),
+         adam=adjoint_maps_of({n: ad["args"][n] for n in ("tak_bwd_vec", "chol_bwd_pair")}),
+         svgp=adjoint_maps_of({n: sv["args"][n] for n in ("chol_bwd", "tak_bwd")}),
+         kron=adjoint_maps_of({n: kr["args"][n] for n in ("chol_bwd", "tak_bwd")}),
+         f32=adjoint_maps_of({n: f32["args"][n] for n in ("chol_bwd_f32", "tak_bwd_f32")}))
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
@@ -1952,15 +2065,16 @@ def main() -> None:
         times[name] = cuda_ms(kernel_fn)
     for name, t in times.items():
         emit("7_time", what=name, card=smi, median_ms=t["median_ms"], ms=t["ms"])
-    # the redesigned kernels' device time alone: with a vector, the solves
-    # take less time on the card than their call takes on the host; the gap
-    # is the event time less the device time, the wrapper's and launches'
-    alone = [(n, calls[n][0]) for n in SOLVES] + [
+    # the redesigned kernels' device time alone: the solves and the
+    # adjoints take less time on the card than their call takes on the
+    # host; the gap is the event time less the device time, the wrapper's
+    # and launches'
+    alone = [(n, calls[n][0]) for n in SOLVES + ADJOINTS] + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),
         ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
-        if name in SOLVES and dev_ms["device_ms"] != "not measured":
+        if name in SOLVES + ADJOINTS and dev_ms["device_ms"] != "not measured":
             event_ms = times[name]["median_ms"]
             dev_ms |= {"event_ms": event_ms, "gap_ms": event_ms - dev_ms["device_ms"]}
         emit("7_device_time", what=name, card=smi, **dev_ms)

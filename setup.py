@@ -10,7 +10,7 @@ setup(
     packages=find_packages(
         include=["asvgp_tpu", "asvgp_tpu.*", "asvgp_tpu_torch", "asvgp_tpu_torch.*"]
     ),
-    package_data={"asvgp_tpu_torch": ["csrc/*.cu"]},
+    package_data={"asvgp_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "optax", "numpy"],
 )
