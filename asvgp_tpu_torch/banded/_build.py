@@ -45,13 +45,13 @@ ENTRY_POINTS = {
     "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 11,
     "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 10,
     "asvgp_tak_quad_solve_tan": (_I, _I, _I) + (_VP,) * 12,
-    "asvgp_chol_fwd": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_chol_fwd": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_chol_bwd": (_I, _I, _I) + (_VP,) * 5,
-    "asvgp_tak_fwd": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_tak_fwd": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_tak_bwd": (_I, _I, _I) + (_VP,) * 7,
-    "asvgp_chol_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_chol_fwd_f32": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_chol_bwd_f32": (_I, _I, _I) + (_VP,) * 5,
-    "asvgp_tak_fwd_f32": (_I, _I, _I) + (_VP,) * 3,
+    "asvgp_tak_fwd_f32": (_I, _I, _I) + (_VP,) * 4,
     "asvgp_tak_bwd_f32": (_I, _I, _I) + (_VP,) * 7,
     "asvgp_solve_lower": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_upper_t": (_I, _I, _I) + (_VP,) * 5,
@@ -59,11 +59,13 @@ ENTRY_POINTS = {
     "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
     # not launches: the doubles of global workspace per block of K16, the
-    # elements of workspace of K13 / K14 / K21 / K22 and of the adjoints
-    # K7 / K8 / K10 / K12 / K18 / K20 / K23
+    # elements of workspace of K13 / K14 / K21 / K22, of the linear sweeps
+    # K11 / K19 and the adjoints K7 / K8 / K10 / K12 / K18 / K20 / K23, and
+    # of the Cholesky sweep K9 / K15 / K17
     "asvgp_chol_inv_dense_workspace": (_I,),
     "asvgp_solve_workspace": (_I, _I, _I),
-    "asvgp_adjoint_workspace": (_I, _I, _I),
+    "asvgp_carry_workspace": (_I, _I, _I),
+    "asvgp_schur_workspace": (_I, _I, _I),
 }
 
 

@@ -26,7 +26,7 @@ except for the trace term, which runs
 
 Both adjoint kernels cut their walk over the columns into chunks (three
 launches: the chunks' affine maps, a scan over them, the outputs), with
-scratch from here (``adjoint_workspace``); a call counts one launch.
+scratch from here (``carry_workspace``); a call counts one launch.
 
 ``tak_bwd_pair`` (K23) is K7 for two matrices in one launch.
 
@@ -130,11 +130,21 @@ def _check_cuda(k: int, tensors, dtypes=(torch.float64,)) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def adjoint_workspace(k: int, m: int, nb: int) -> int:
-    """Elements of scratch the chunk maps of an adjoint (K7, K8, K10, K12,
-    K18, K20, K23) need for nb (k+1, m) bands (0 when the columns form one
-    chunk), asked of the kernels' library once per shape."""
-    return _build.load().asvgp_adjoint_workspace(k, m, nb)
+def carry_workspace(k: int, m: int, nb: int) -> int:
+    """Elements of scratch the chunk maps of a linear sweep (the Takahashi
+    band K11, K19 and the adjoints K7, K8, K10, K12, K18, K20, K23) need
+    for nb (k+1, m) bands (0 when the columns form one chunk), asked of the
+    kernels' library once per shape."""
+    return _build.load().asvgp_carry_workspace(k, m, nb)
+
+
+@functools.lru_cache(maxsize=64)
+def schur_workspace(k: int, m: int, nb: int) -> int:
+    """Elements of scratch the chunk triples and walked Schur-complement
+    updates of the Cholesky sweep (K9, K15, K17) need for nb (k+1, m)
+    bands (0 when the columns form one chunk), asked of the kernels'
+    library once per shape."""
+    return _build.load().asvgp_schur_workspace(k, m, nb)
 
 
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
@@ -276,7 +286,7 @@ def tak_bwd_vec(l_band, s_band, cot, iv):
         return tak_bwd_vec_plain(l_band, s_band, cot, iv)
     _check_cuda(k, (l_band, s_band, cot, iv))
     l_bar = torch.empty_like(l_band)
-    ws = l_band.new_empty(adjoint_workspace(k, m, 1))
+    ws = l_band.new_empty(carry_workspace(k, m, 1))
     _launch("tak_bwd_vec", "asvgp_tak_bwd", l_band.device, k, m, 1, l_band.data_ptr(),
             s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr(), ws.data_ptr())
     return l_bar
@@ -304,7 +314,7 @@ def tak_bwd_pair(l_band, s_band, cot, iv):
         return tak_bwd_pair_plain(l_band, s_band, cot, iv)
     _check_cuda(k, (l_band, s_band, cot, iv))
     l_bar = torch.empty_like(l_band)
-    ws = l_band.new_empty(adjoint_workspace(k, m, 2))
+    ws = l_band.new_empty(carry_workspace(k, m, 2))
     _launch("tak_bwd_pair", "asvgp_tak_bwd", l_band.device, k, m, 2, l_band.data_ptr(),
             s_band.data_ptr(), cot.data_ptr(), iv.data_ptr(), l_bar.data_ptr(), ws.data_ptr())
     return l_bar
@@ -340,7 +350,7 @@ def chol_bwd_pair(l_band, l_bar):
     _check_cuda(k, (l_band, l_bar))
     a_bar = torch.empty_like(l_band)
     nb = 1 if l_band.ndim == 2 else l_band.shape[0]
-    ws = l_band.new_empty(adjoint_workspace(k, m, nb))
+    ws = l_band.new_empty(carry_workspace(k, m, nb))
     _launch("chol_bwd_pair", "asvgp_chol_bwd", l_band.device, k, m, nb, l_band.data_ptr(),
             l_bar.data_ptr(), a_bar.data_ptr(), ws.data_ptr())
     return a_bar

@@ -14,11 +14,11 @@ Takahashi kernels and their custom VJPs) and of the forward pair kernel of
       K1's reciprocal pivots);
 
 as hand-written CUDA kernels (csrc/banded_adjoint.cu ``chol_fwd<K>``,
-``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``; the two adjoints
-partitioned into chunks, three launches with scratch from
-``core.adjoint_workspace``, one count per call) on CUDA tensors, and as
-their plain versions on CPU tensors: the recursions of banded/ops.py,
-forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
+``chol_bwd<K>``, ``tak_fwd<K>``, ``tak_bwd<K>``; each partitioned into
+chunks, three launches with scratch from ``core.schur_workspace`` for the
+Cholesky and ``core.carry_workspace`` for the other three, one count per
+call) on CUDA tensors, and as their plain versions on CPU tensors: the
+recursions of banded/ops.py, forward and explicit reverse-mode.  A CUDA tensor launches the kernel or
 raises.  The four wrappers dispatch on the dtype: float64 runs K9–K12,
 float32 the same kernels' float instantiation, K17–K20 (the JAX package's
 ``pallas_kernels.py``: ``_chol_fwd_kernel``, ``_chol_bwd_kernel``,
@@ -75,8 +75,9 @@ def chol_fwd(a_band):
         return chol_fwd_plain(a_band)
     core._check_cuda(k, (a_band,), BOTH)
     l_band = torch.empty_like(a_band)
+    ws = a_band.new_empty(core.schur_workspace(k, m, 1))
     core._launch(*route("chol_fwd", a_band), a_band.device, k, m, 1,
-                 a_band.data_ptr(), l_band.data_ptr())
+                 a_band.data_ptr(), l_band.data_ptr(), ws.data_ptr())
     return l_band
 
 
@@ -94,7 +95,7 @@ def chol_fwd_pair_plain(a_band, b_band):
 def chol_fwd_pair(a_band, b_band):
     """K15 on CUDA tensors, its plain version on CPU tensors: the lower
     bands of chol(A) and chol(B) for two bands of one shape, from one
-    launch of K9's kernel with a batch of two, one chain per matrix
+    call of K9's kernel with a batch of two
     (``pallas_ds_pair.cholesky_band_pair_fwd_ds``)."""
     k, m = core._check_shapes((a_band, b_band), ())
     if k == 0:
@@ -104,8 +105,9 @@ def chol_fwd_pair(a_band, b_band):
     core._check_cuda(k, (a_band, b_band))
     a2 = torch.stack([a_band, b_band])
     l2 = torch.empty_like(a2)
+    ws = a_band.new_empty(core.schur_workspace(k, m, 2))
     core._launch("chol_fwd_pair", "asvgp_chol_fwd", a_band.device, k, m, 2,
-                 a2.data_ptr(), l2.data_ptr())
+                 a2.data_ptr(), l2.data_ptr(), ws.data_ptr())
     return l2[0], l2[1]
 
 
@@ -130,7 +132,7 @@ def chol_bwd(l_band, l_bar):
         return chol_bwd_plain(l_band, l_bar)
     core._check_cuda(k, (l_band, l_bar), BOTH)
     a_bar = torch.empty_like(l_band)
-    ws = l_band.new_empty(core.adjoint_workspace(k, m, 1))
+    ws = l_band.new_empty(core.carry_workspace(k, m, 1))
     core._launch(*route("chol_bwd", l_band), l_band.device, k, m, 1,
                  l_band.data_ptr(), l_bar.data_ptr(), a_bar.data_ptr(), ws.data_ptr())
     return a_bar
@@ -158,8 +160,9 @@ def tak_fwd(l_band):
         return tak_fwd_plain(l_band)
     core._check_cuda(k, (l_band,), BOTH)
     s_band = torch.empty_like(l_band)
+    ws = l_band.new_empty(core.carry_workspace(k, m, 1))
     core._launch(*route("tak_fwd", l_band), l_band.device, k, m, 1,
-                 l_band.data_ptr(), s_band.data_ptr())
+                 l_band.data_ptr(), s_band.data_ptr(), ws.data_ptr())
     return s_band
 
 
@@ -184,7 +187,7 @@ def tak_bwd(l_band, s_band, s_bar):
         return tak_bwd_plain(l_band, s_band, s_bar)
     core._check_cuda(k, (l_band, s_band, s_bar), BOTH)
     l_bar = torch.empty_like(l_band)
-    ws = l_band.new_empty(core.adjoint_workspace(k, m, 1))
+    ws = l_band.new_empty(core.carry_workspace(k, m, 1))
     core._launch(*route("tak_bwd", l_band), l_band.device, k, m, 1, l_band.data_ptr(),
                  s_band.data_ptr(), s_bar.data_ptr(), None, l_bar.data_ptr(), ws.data_ptr())
     return l_bar

@@ -41,22 +41,31 @@
 // recursion of asvgp_tpu_torch/banded/ops.py (cholesky_band_plain,
 // takahashi_inverse_band_plain, cholesky_band_bwd_plain,
 // takahashi_bwd_plain) in the native type, fully unrolled for K, with the
-// window of neighbouring columns and the carried columns in registers.
-// The forward sweeps run one thread per matrix of the batch through all m
-// columns.  The adjoints carry what is affine in their cotangent, so
-// their chain is cut into chunks of 64-192 columns run in parallel: three
-// launches, maps, a scan over the maps (chunk_scan.cuh, shared with
+// window of neighbouring columns and the carried columns in registers, and
+// every chain is cut into chunks of 64-192 columns run in parallel, three
+// launches each (one pass when the columns form one chunk).  The Takahashi sweep and the adjoints carry what is
+// affine (given L): maps, a scan over the maps (chunk_scan.cuh, shared with
 // banded_solve.cu) and the outputs from the true incoming carries (see
-// "The adjoints" below).  The float instantiation is the same code: only
+// "The linear sweeps" below).  The Cholesky sweep is joined across chunks
+// by a K x K Schur-complement update instead: triples, a walk, the factor
+// (see chol_fwd below).  The float instantiation is the same code: only
 // the type of every value, constant and intrinsic changes.
 //
 // A pivot d <= 0 gives NaN, as the reference recursions do; nothing clamps.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 #include "chunk_scan.cuh"
+
+// The Cholesky sweep's chunks are at least this many columns (a multiple
+// of the 64-column tile); a build may set it to measure another length
+// (tools/forward_ab.py --schur-chunk).
+#ifndef ASVGP_SCHUR_CHUNK
+#define ASVGP_SCHUR_CHUNK 128
+#endif
 
 namespace {
 
@@ -67,107 +76,8 @@ __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
-
-// ---------------------------------------------------------------------------
-// K9 / K17: chol_fwd<K, T>
-//
-// Columns i = 0..m-1, with the window w[p-1][r] = L[i-p+r, i-p]:
-//   s_j = sum_p L[i, i-p] L[i+j, i-p],  L[i, i] = sqrt(a_0 - s_0),
-//   L[i+j, i] = (a_j - s_j) / L[i, i],  rows i + j >= m zeroed
-// (the right-padding mask of the TPU kernel's _col_mask).
-// ---------------------------------------------------------------------------
-template <int K, typename T>
-__global__ void __launch_bounds__(32)
-chol_fwd_kernel(int nb, int m, const T* __restrict__ a_all,
-                T* __restrict__ l_all) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nb) return;
-  const size_t ms = static_cast<size_t>(m);
-  const T* __restrict__ a = a_all + static_cast<size_t>(t) * (K + 1) * ms;
-  T* __restrict__ l = l_all + static_cast<size_t>(t) * (K + 1) * ms;
-
-  T w[K][K + 1];
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-#pragma unroll
-    for (int r = 0; r <= K; ++r) w[q][r] = T(0);
-  }
-  T an[K + 1];
-#pragma unroll
-  for (int r = 0; r <= K; ++r) an[r] = a[r * ms];
-
-  for (int i = 0; i < m; ++i) {
-    T ac[K + 1];
-#pragma unroll
-    for (int r = 0; r <= K; ++r) ac[r] = an[r];
-    if (i + 1 < m) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) an[r] = a[r * ms + i + 1];
-    }
-
-    T s[K + 1];
-#pragma unroll
-    for (int j = 0; j <= K; ++j) s[j] = T(0);
-#pragma unroll
-    for (int q = 1; q <= K; ++q) {
-      const T g = w[q - 1][q];  // L[i, i-q]
-#pragma unroll
-      for (int j = 0; j + q <= K; ++j) s[j] = fma_t(g, w[q - 1][q + j], s[j]);
-    }
-
-    const T l0 = sqrt_t(ac[0] - s[0]);
-    const T rv = T(1) / l0;
-    T col[K + 1];
-    col[0] = l0;
-#pragma unroll
-    for (int j = 1; j <= K; ++j) {
-      // multiply by the mask (not select) so a NaN pivot stays NaN
-      col[j] = (ac[j] - s[j]) * rv * ((i + j < m) ? T(1) : T(0));
-    }
-#pragma unroll
-    for (int j = 0; j <= K; ++j) l[j * ms + i] = col[j];
-
-#pragma unroll
-    for (int q = K - 1; q > 0; --q) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) w[q][r] = w[q - 1][r];
-    }
-#pragma unroll
-    for (int r = 0; r <= K; ++r) w[0][r] = col[r];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The adjoints chol_bwd<K, T> and tak_bwd<K, T>: linear recursions
-// partitioned into chunks
-//
-// Given L, each adjoint walks the columns carrying D = K(K+1)/2 values that
-// are affine in the cotangent, and only L (and K7's reciprocal pivots)
-// enter the carry's update; S and the cotangent enter the outputs.  So
-// their walks are cut into chunks of lc columns (adjoint_chunk_cols) and run
-// in the three passes of chunk_scan.cuh, chunk 0 first:
-//   1. maps (*_chunk_kernel<.., true>), grid (chunks but the last, matrices):
-//      lane d < D runs the chunk from the carry e_d with no cotangent, lane
-//      D from the carry 0 with the cotangent; their final carries are H_j's
-//      column d and y_j.  No output is written.
-//   2. scan (chunk_scan_kernel<D, T>), one thread per matrix: the incoming
-//      carry of every chunk.
-//   3. outputs (*_chunk_kernel<.., false>), grid (chunks, matrices): lane 0
-//      runs the chunk from its true incoming carry and writes the outputs.
-// All three run one column step (chol_bwd_step, tak_bwd_step), in the order
-// of operations of the one-chain recursion, so chunk 0, which starts from
-// the zero carry, is that recursion bit for bit; the other chunks differ by
-// the rounding of their incoming carries.  For a well-conditioned factor
-// the homogeneous responses decay along a chunk (at the north star's
-// ratio of lengthscale to knot spacing their entries are below 1e-6 after
-// 64 columns); at a much higher condition number they grow (to hundreds
-// at 10x that ratio), and so does the rounding the scan passes on.
-// Each CTA stages its chunk's columns, 64 a tile, in shared memory with
-// cp.async, two tiles in flight, so no global load sits on a chain; the
-// window of L (or S) that a chunk starts from is read from global memory
-// once, at its first column.  Pass 3 runs one chain per CTA: every CTA of
-// it is resident at once, so packing chunks would not shorten the chain.
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ float rsqrt_t(float a) { return rsqrtf(a); }
+__device__ __forceinline__ double rsqrt_t(double a) { return rsqrt(a); }
 
 // the column of walk position u: m-1-u walking down, u walking up
 template <bool kDown>
@@ -196,6 +106,426 @@ __device__ __forceinline__ void stage_cols(T (*dst)[kTile], const T* __restrict_
     }
   }
 }
+
+// The lower Cholesky factor of the K x K symmetric matrix whose lower
+// triangle f holds, in place, and the reciprocals rd of its diagonal; the
+// strict upper triangle is set to 0.  One reciprocal square root a
+// column, so a pivot <= 0 gives NaN (or inf at 0) from its column on.
+template <int K, typename T>
+__device__ __forceinline__ void chol_small(T (&f)[K][K], T (&rd)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    T dj = f[j][j];
+#pragma unroll
+    for (int p = 0; p < j; ++p) dj = fma_t(-f[j][p], f[j][p], dj);
+    rd[j] = rsqrt_t(dj);
+    f[j][j] = dj * rd[j];
+#pragma unroll
+    for (int i = j + 1; i < K; ++i) {
+      T x = f[i][j];
+#pragma unroll
+      for (int p = 0; p < j; ++p) x = fma_t(-f[i][p], f[j][p], x);
+      f[i][j] = x * rd[j];
+    }
+#pragma unroll
+    for (int i = 0; i < j; ++i) f[i][j] = T(0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9 / K15 / K17: chol_fwd<K, T>
+//
+// Columns i = 0..m-1, with the window w[p-1][r] = L[i-p+r, i-p]:
+//   s_j = sum_p L[i, i-p] L[i+j, i-p],  L[i, i] = sqrt(a_0 - s_0),
+//   L[i+j, i] = (a_j - s_j) / L[i, i],  rows i + j >= m zeroed
+// (the right-padding mask of the TPU kernel's _col_mask).
+//
+// The step takes square roots and divides of what it carries, so the
+// scan of the linear sweeps does not apply.  What the columns before a
+// chunk (columns c0..c1-1) send into it is only the K x K Schur-complement
+// update of its first K rows, W = L[c0:c0+K, :c0] L[c0:c0+K, :c0]^T: the
+// chunk's columns of L are the plain recursion on its diagonal block A_c
+// with W subtracted from the first K rows, started from a zero window.
+// Over a chunk, W maps to the next chunk's by a matrix Riccati map fixed
+// by three K x K matrices of A_c alone:
+//   W' = R + Q^T (I - W P)^-1 W Q,
+// P = (A_c^-1)[:K, :K] = V^T V with V = L_c^-1 E (L_c = chol(A_c), E the
+// first K unit columns), Q = V_last^T X^T and R = X X^T, V_last the last K
+// rows of V and X the entries L_c's last K columns put in the next
+// chunk's first K rows (the plain recursion writes them; X and the
+// coupling block of A are upper triangular).  With U = chol(P),
+// G = [U Q]^T W [U Q] and F = chol(I - G11):
+//   W' = R + G22 + Y^T Y,  Y = F^-1 G12.
+// I - G11 = I - U^T W U has the eigenvalues of I - W P and is positive
+// definite exactly when the chunk's true Schur complement A_c - E W E^T
+// is: a pivot d <= 0 in a chunk makes F, and every later W, NaN, so the
+// factor is NaN from the failing column on, as the one-chain recursion
+// gives it.  No pivoting, and no factor of W (only semidefinite where the
+// band's outer diagonal is zero).  Three launches when m spans more than
+// one chunk (schur_chunk_cols):
+//   1. triples (chol_fwd_chunk_kernel<.., true>), grid (chunks but the
+//      last, matrices): the chunk's plain recursion from W = 0, V's rows
+//      substituted along it; writes (U, Q, R), no L.
+//   2. walk (schur_walk_kernel), one thread per matrix: every chunk's W.
+//   3. factor (chol_fwd_chunk_kernel<.., false>), grid (chunks, matrices):
+//      W subtracted from the staged first K columns of A, the plain
+//      recursion from a zero window, L written.
+// Passes 1 and 3 run one column step (chol_fwd_step) in the order of
+// operations of the one-chain recursion, so chunk 0 (W = 0) is that
+// recursion bit for bit.  Each CTA stages A's columns as the linear sweeps
+// stage theirs (below); pass 2 stages every triple of a matrix in shared
+// memory, K^2 + K(K+1) values a chunk, which caps the chunk count.
+// ---------------------------------------------------------------------------
+template <int K, typename T>
+__device__ __forceinline__ T chol_fwd_step(T (&w)[K][K + 1], const T (&ac)[K + 1], int i, int m,
+                                           T (&col)[K + 1]) {
+  T s[K + 1];
+#pragma unroll
+  for (int j = 0; j <= K; ++j) s[j] = T(0);
+#pragma unroll
+  for (int q = 1; q <= K; ++q) {
+    const T g = w[q - 1][q];  // L[i, i-q]
+#pragma unroll
+    for (int j = 0; j + q <= K; ++j) s[j] = fma_t(g, w[q - 1][q + j], s[j]);
+  }
+
+  const T l0 = sqrt_t(ac[0] - s[0]);
+  const T rv = T(1) / l0;
+  col[0] = l0;
+#pragma unroll
+  for (int j = 1; j <= K; ++j) {
+    // multiply by the mask (not select) so a NaN pivot stays NaN
+    col[j] = (ac[j] - s[j]) * rv * ((i + j < m) ? T(1) : T(0));
+  }
+
+#pragma unroll
+  for (int q = K - 1; q > 0; --q) {
+#pragma unroll
+    for (int r = 0; r <= K; ++r) w[q][r] = w[q - 1][r];
+  }
+#pragma unroll
+  for (int r = 0; r <= K; ++r) w[0][r] = col[r];
+  return rv;
+}
+
+// Passes 1 (kMaps) and 3 over chunk blockIdx.x of matrix blockIdx.y:
+// columns i = s..e-1.  A tile stages A's columns.  A triple is, packed:
+// U's lower triangle by rows (D values), Q (K x K, row-major), R's upper
+// triangle by rows (D); W is packed as R.
+template <int K, typename T, bool kMaps>
+__global__ void __launch_bounds__(32)
+chol_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ a_all,
+                      T* __restrict__ l_all, const T* __restrict__ win,
+                      T* __restrict__ tri) {
+  constexpr int D = K * (K + 1) / 2;
+  __shared__ T at[2][K + 1][kTile];  // A columns of the positions
+  const int j0 = blockIdx.x;
+  const size_t mat = blockIdx.y;
+  const int lane = threadIdx.x;
+  const size_t ms = static_cast<size_t>(m);
+  const size_t off = mat * (K + 1) * ms;
+  const T* __restrict__ a = a_all + off;
+  const int s = j0 * lc;
+  const int e = (s + lc < m) ? s + lc : m;
+
+  T w[K][K + 1];
+  T vw[K][K];  // pass 1: vw[p-1][f] = V[i-p-s, f], the last K rows of V
+  T pa[K][K];  // pass 1: P = V^T V, its upper triangle
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+#pragma unroll
+    for (int r = 0; r <= K; ++r) w[q][r] = T(0);
+#pragma unroll
+    for (int f = 0; f < K; ++f) {
+      vw[q][f] = T(0);
+      pa[q][f] = T(0);
+    }
+  }
+
+  const int ntiles = (e - s + kTile - 1) / kTile;
+  stage_cols<K + 1, T, false>(at[0], a, m, s, min(kTile, e - s), 0);
+  cp_async_commit();
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    const int u0 = s + tile * kTile;
+    const int n = min(kTile, e - u0);
+    if (tile + 1 < ntiles) {
+      const int u1 = u0 + kTile;
+      stage_cols<K + 1, T, false>(at[buf ^ 1], a, m, u1, min(kTile, e - u1), 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!kMaps && tile == 0 && j0 > 0) {
+      // W off the chunk's first K rows: lane d takes slot d = (r, r + c),
+      // band entry c of column s + r
+      if (lane < D) {
+        int r = 0;
+        int c = lane;
+        while (c >= K - r) {
+          c -= K - r;
+          ++r;
+        }
+        if (r < n) at[0][c][r] -= win[(mat * nmap + j0 - 1) * D + lane];
+      }
+      __syncthreads();
+    }
+    for (int t = 0; t < n; ++t) {
+      const int i = u0 + t;
+      T ac[K + 1];
+#pragma unroll
+      for (int r = 0; r <= K; ++r) ac[r] = at[buf][r][t];
+      T g[K];  // L[i, i-p], before the step shifts the window
+#pragma unroll
+      for (int p = 1; p <= K; ++p) g[p - 1] = w[p - 1][p];
+      T col[K + 1];
+      const T rv = chol_fwd_step<K, T>(w, ac, i, m, col);
+      if (kMaps) {
+        // row i-s of V: (delta_{i-s, f} - sum_p L[i, i-p] V[i-p-s, f]) / L[i, i]
+        T vn[K];
+#pragma unroll
+        for (int f = 0; f < K; ++f) {
+          T acc = (i - s == f) ? T(1) : T(0);
+#pragma unroll
+          for (int p = 1; p <= K; ++p) acc = fma_t(-g[p - 1], vw[p - 1][f], acc);
+          vn[f] = acc * rv;
+        }
+#pragma unroll
+        for (int f = 0; f < K; ++f) {
+#pragma unroll
+          for (int h = f; h < K; ++h) pa[f][h] = fma_t(vn[f], vn[h], pa[f][h]);
+        }
+#pragma unroll
+        for (int q = K - 1; q > 0; --q) {
+#pragma unroll
+          for (int f = 0; f < K; ++f) vw[q][f] = vw[q - 1][f];
+        }
+#pragma unroll
+        for (int f = 0; f < K; ++f) vw[0][f] = vn[f];
+      } else if (lane == 0) {
+        T* __restrict__ l = l_all + off;
+#pragma unroll
+        for (int r = 0; r <= K; ++r) l[r * ms + i] = col[r];
+      }
+    }
+    __syncthreads();
+  }
+
+  if (kMaps && lane == 0) {
+    // X[a][b] = L_c[e+a, e-K+b] = w[K-1-b][K+a-b] for a <= b, else 0;
+    // V_last[b][f] = V[e-K+b-s, f] = vw[K-1-b][f]
+    T u[K][K];
+#pragma unroll
+    for (int f = 0; f < K; ++f) {
+#pragma unroll
+      for (int h = 0; h <= f; ++h) u[f][h] = pa[h][f];
+    }
+    T rd[K];
+    chol_small<K, T>(u, rd);
+    T* __restrict__ o = tri + (mat * nmap + j0) * (K * K + 2 * D);
+    int d = 0;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+#pragma unroll
+      for (int c = 0; c <= r; ++c) o[d++] = u[r][c];
+    }
+#pragma unroll
+    for (int f = 0; f < K; ++f) {
+#pragma unroll
+      for (int x = 0; x < K; ++x) {
+        T acc = T(0);
+#pragma unroll
+        for (int b = x; b < K; ++b) acc = fma_t(vw[K - 1 - b][f], w[K - 1 - b][K + x - b], acc);
+        o[d++] = acc;  // Q[f][x]
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < K; ++x) {
+#pragma unroll
+      for (int y = x; y < K; ++y) {
+        T acc = T(0);
+#pragma unroll
+        for (int b = y; b < K; ++b) acc = fma_t(w[K - 1 - b][K + x - b], w[K - 1 - b][K + y - b], acc);
+        o[d++] = acc;  // R[x][y]
+      }
+    }
+  }
+}
+
+// One step of pass 2: W (K x K, symmetric) through the chunk whose triple
+// is at cur (U's lower triangle by rows, Q[f][x] at f K + x, R's upper
+// triangle by rows) to the next chunk's, written also at wout (packed as
+// R).
+template <int K, typename T>
+__device__ __forceinline__ void schur_step(T (&W)[K][K], const T* cur, T* __restrict__ wout) {
+  constexpr int D = K * (K + 1) / 2;
+  T u[K][K];
+  {
+    int d = 0;
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+#pragma unroll
+      for (int cc = 0; cc < K; ++cc) u[r][cc] = (cc <= r) ? cur[d + cc] : T(0);
+      d += r + 1;
+    }
+  }
+  const T* q = cur + D;
+  const T* rp = q + K * K;
+  // WU = W U, then F = chol(I - U^T W U)
+  T wu[K][K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = 0; y < K; ++y) {
+      T acc = T(0);
+#pragma unroll
+      for (int z = y; z < K; ++z) acc = fma_t(W[x][z], u[z][y], acc);
+      wu[x][y] = acc;
+    }
+  }
+  T f[K][K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = 0; y <= x; ++y) {
+      T acc = (x == y) ? T(1) : T(0);
+#pragma unroll
+      for (int z = x; z < K; ++z) acc = fma_t(-u[z][x], wu[z][y], acc);
+      f[x][y] = acc;
+    }
+  }
+  T rd[K];
+  chol_small<K, T>(f, rd);
+  // Y = F^-1 U^T W Q = F^-1 WU^T Q, and WQ = W Q
+  T yy[K][K];
+  T wq[K][K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = 0; y < K; ++y) {
+      T acc = T(0);
+      T acq = T(0);
+#pragma unroll
+      for (int z = 0; z < K; ++z) {
+        acc = fma_t(wu[z][x], q[z * K + y], acc);
+        acq = fma_t(W[x][z], q[z * K + y], acq);
+      }
+      yy[x][y] = acc;
+      wq[x][y] = acq;
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = 0; y < K; ++y) {
+      T acc = yy[x][y];
+#pragma unroll
+      for (int z = 0; z < x; ++z) acc = fma_t(-f[x][z], yy[z][y], acc);
+      yy[x][y] = acc * rd[x];
+    }
+  }
+  // W' = R + Q^T W Q + Y^T Y, symmetric: the upper triangle, mirrored
+  int d = 0;
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = x; y < K; ++y) {
+      T acc = rp[d];
+#pragma unroll
+      for (int z = 0; z < K; ++z) {
+        acc = fma_t(q[z * K + x], wq[z][y], acc);
+        acc = fma_t(yy[z][x], yy[z][y], acc);
+      }
+      W[x][y] = acc;
+      W[y][x] = acc;
+      wout[d] = acc;
+      ++d;
+    }
+  }
+}
+
+// Pass 2 for matrix blockIdx.y: its nmap triples staged in shared memory,
+// then one thread walks W from 0 and writes the W of chunk c + 1 at
+// win + c D.  Up to K = 3 the next chunk's triple is read into registers
+// while the current one's step runs; beyond, it would not fit beside the
+// step's.
+template <int K, typename T>
+__global__ void __launch_bounds__(32)
+schur_walk_kernel(int nmap, const T* __restrict__ tri, T* __restrict__ win) {
+  constexpr int D = K * (K + 1) / 2;
+  constexpr int kTri = K * K + 2 * D;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  T* ts = reinterpret_cast<T*>(walk_smem);
+  const size_t mat = blockIdx.y;
+  tri += mat * nmap * kTri;
+  win += mat * nmap * D;
+  for (int idx = threadIdx.x; idx < nmap * kTri; idx += 32) cp_async(&ts[idx], tri + idx);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  T W[K][K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+#pragma unroll
+    for (int y = 0; y < K; ++y) W[x][y] = T(0);
+  }
+  if constexpr (K <= 3) {
+    T nx[kTri];
+#pragma unroll
+    for (int i = 0; i < kTri; ++i) nx[i] = ts[i];
+    for (int c = 0; c < nmap; ++c) {
+      T cur[kTri];
+#pragma unroll
+      for (int i = 0; i < kTri; ++i) cur[i] = nx[i];
+      if (c + 1 < nmap) {
+#pragma unroll
+        for (int i = 0; i < kTri; ++i) nx[i] = ts[(c + 1) * kTri + i];
+      }
+      schur_step<K, T>(W, cur, win + c * D);
+    }
+  } else {
+    for (int c = 0; c < nmap; ++c) schur_step<K, T>(W, ts + c * kTri, win + c * D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The linear sweeps tak_fwd<K, T>, chol_bwd<K, T> and tak_bwd<K, T>:
+// affine recursions partitioned into chunks
+//
+// Given L, each walks the columns carrying D = K(K+1)/2 values that are
+// affine in what it reads: the Takahashi sweep the entries of its window
+// of S (the d^2 term its particular part), the adjoints their carried
+// adjoints (the cotangent); only L (and K7's reciprocal pivots) enter the
+// carry's update, S and the cotangent enter the outputs.  So their walks
+// are cut into chunks of lc columns (carry_chunk_cols) and run in the
+// three passes of chunk_scan.cuh, chunk 0 first:
+//   1. maps (*_chunk_kernel<.., true>), grid (chunks but the last, matrices):
+//      lane d < D runs the chunk from the carry e_d with no particular part
+//      (the d^2 term, the cotangent), lane D from the carry 0 with it; their
+//      final carries are H_j's column d and y_j.  No output is written.
+//   2. scan (chunk_scan_kernel<D, T>), one thread per matrix: the incoming
+//      carry of every chunk.
+//   3. outputs (*_chunk_kernel<.., false>), grid (chunks, matrices): lane 0
+//      runs the chunk from its true incoming carry and writes the outputs.
+// All three run one column step (tak_fwd_step, chol_bwd_step,
+// tak_bwd_step), in the order of operations of the one-chain recursion, so
+// chunk 0, which starts from the zero carry, is that recursion bit for bit;
+// the other chunks differ by the rounding of their incoming carries.  For a
+// well-conditioned factor the homogeneous responses decay along a chunk (at
+// the north star's ratio of lengthscale to knot spacing their entries are
+// below 1e-6 after 64 columns); at a much higher condition number they
+// grow (to hundreds at 10x that ratio), and so does the rounding the scan
+// passes on.  Each CTA stages its chunk's columns, 64 a tile, in shared
+// memory with cp.async, two tiles in flight, so no global load sits on a
+// chain; the window of L (or S) that an adjoint's chunk starts from is read
+// from global memory once, at its first column.  Pass 3 runs one chain per
+// CTA: every CTA of it is resident at once, so packing chunks would not
+// shorten the chain.
+// ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
 // K10 / K8 / K18: chol_bwd<K, T>
@@ -367,70 +697,127 @@ chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
 // S[j+p+r, j+p] of the columns already done:
 //   s_q = -d sum_p S[j+max(p,q), j+min(p,q)] L[j+p, j],   q = 1..K,
 //   S[j, j] = d^2 - d sum_q L[j+q, j] s_q,  rows j + q >= m zeroed.
-// K2's reverse sweep without the solve, dividing for d itself.
+// K2's reverse sweep without the solve, dividing for d itself.  The step
+// reads the D slots cs[c][r], r < K - c, of the window; given L the new
+// column is affine in them, d^2 the particular part.
 // ---------------------------------------------------------------------------
-template <int K, typename T>
+template <int K, typename T, bool kMaps>
+__device__ __forceinline__ void tak_fwd_step(T (&cs)[K][K + 1], const T (&lc)[K + 1], T part,
+                                             int j, int m, T (&col)[K + 1]) {
+  const T d = T(1) / lc[0];
+  T sq[K + 1];
+  sq[0] = T(0);
+#pragma unroll
+  for (int q = 1; q <= K; ++q) {
+    T acc = T(0);
+#pragma unroll
+    for (int p = 1; p <= K; ++p) {
+      const int lo = (p < q) ? p : q;
+      const int df = (p < q) ? (q - p) : (p - q);
+      acc = fma_t(cs[lo - 1][df], lc[p], acc);
+    }
+    sq[q] = -d * acc;
+  }
+  T ws = T(0);
+#pragma unroll
+  for (int q = 1; q <= K; ++q) ws = fma_t(lc[q], sq[q], ws);
+
+  // pass 1's homogeneous lanes (part = 0) leave the d^2 term out
+  col[0] = kMaps ? part * (d * d) - d * ws : d * d - d * ws;
+#pragma unroll
+  for (int q = 1; q <= K; ++q) col[q] = sq[q] * ((j + q < m) ? T(1) : T(0));
+
+#pragma unroll
+  for (int q = K - 1; q > 0; --q) {
+#pragma unroll
+    for (int rr = 0; rr <= K; ++rr) cs[q][rr] = cs[q - 1][rr];
+  }
+#pragma unroll
+  for (int rr = 0; rr <= K; ++rr) cs[0][rr] = col[rr];
+}
+
+// Passes 1 (kMaps) and 3 over chunk blockIdx.x of matrix blockIdx.y: walk
+// positions s..e-1, columns j = m-1-u.  A tile stages L's columns.
+template <int K, typename T, bool kMaps>
 __global__ void __launch_bounds__(32)
-tak_fwd_kernel(int nb, int m, const T* __restrict__ l_all,
-               T* __restrict__ s_all) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nb) return;
+tak_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
+                     T* __restrict__ s_all, const T* __restrict__ win,
+                     T* __restrict__ hmap, T* __restrict__ ymap) {
+  constexpr int D = K * (K + 1) / 2;
+  __shared__ T lt[2][K + 1][kTile];  // L columns of the positions
+  const int j0 = blockIdx.x;
+  const size_t mat = blockIdx.y;
+  const int lane = threadIdx.x;
   const size_t ms = static_cast<size_t>(m);
-  const size_t off = static_cast<size_t>(t) * (K + 1) * ms;
+  const size_t off = mat * (K + 1) * ms;
   const T* __restrict__ l = l_all + off;
-  T* __restrict__ s_out = s_all + off;
+  const int s = j0 * lc;
+  const int e = (s + lc < m) ? s + lc : m;
 
   T cs[K][K + 1];
+  {
+    int d = 0;
 #pragma unroll
-  for (int q = 0; q < K; ++q) {
+    for (int c = 0; c < K; ++c) {
 #pragma unroll
-    for (int r = 0; r <= K; ++r) cs[q][r] = T(0);
-  }
-  T ln[K + 1];
+      for (int r = 0; r <= K; ++r) cs[c][r] = T(0);
 #pragma unroll
-  for (int r = 0; r <= K; ++r) ln[r] = l[r * ms + (m - 1)];
-
-  for (int j = m - 1; j >= 0; --j) {
-    T lc[K + 1];
-#pragma unroll
-    for (int r = 0; r <= K; ++r) lc[r] = ln[r];
-    if (j > 0) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) ln[r] = l[r * ms + (j - 1)];
-    }
-    const T d = T(1) / lc[0];
-
-    T sq[K + 1];
-    sq[0] = T(0);
-#pragma unroll
-    for (int q = 1; q <= K; ++q) {
-      T acc = T(0);
-#pragma unroll
-      for (int p = 1; p <= K; ++p) {
-        const int lo = (p < q) ? p : q;
-        const int df = (p < q) ? (q - p) : (p - q);
-        acc = fma_t(cs[lo - 1][df], lc[p], acc);
+      for (int r = 0; r < K - c; ++r, ++d) {
+        if (kMaps) {
+          cs[c][r] = (lane == d) ? T(1) : T(0);
+        } else if (j0 > 0) {
+          cs[c][r] = win[(mat * nmap + j0 - 1) * D + d];
+        }
       }
-      sq[q] = -d * acc;
     }
-    T ws = T(0);
-#pragma unroll
-    for (int q = 1; q <= K; ++q) ws = fma_t(lc[q], sq[q], ws);
+  }
+  const T part = (!kMaps || lane == D) ? T(1) : T(0);
 
-    T col[K + 1];
-    col[0] = d * d - d * ws;
-#pragma unroll
-    for (int q = 1; q <= K; ++q) col[q] = sq[q] * ((j + q < m) ? T(1) : T(0));
-#pragma unroll
-    for (int r = 0; r <= K; ++r) s_out[r * ms + j] = col[r];
-
-#pragma unroll
-    for (int q = K - 1; q > 0; --q) {
-#pragma unroll
-      for (int rr = 0; rr <= K; ++rr) cs[q][rr] = cs[q - 1][rr];
+  const int ntiles = (e - s + kTile - 1) / kTile;
+  stage_cols<K + 1, T, true>(lt[0], l, m, s, min(kTile, e - s), 0);
+  cp_async_commit();
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    const int u0 = s + tile * kTile;
+    const int n = min(kTile, e - u0);
+    if (tile + 1 < ntiles) {
+      const int u1 = u0 + kTile;
+      stage_cols<K + 1, T, true>(lt[buf ^ 1], l, m, u1, min(kTile, e - u1), 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      const int j = m - 1 - (u0 + t);
+      T lcur[K + 1];
 #pragma unroll
-    for (int rr = 0; rr <= K; ++rr) cs[0][rr] = col[rr];
+      for (int r = 0; r <= K; ++r) lcur[r] = lt[buf][r][t];
+      T col[K + 1];
+      tak_fwd_step<K, T, kMaps>(cs, lcur, part, j, m, col);
+      if (!kMaps && lane == 0) {
+        T* __restrict__ s_out = s_all + off;
+#pragma unroll
+        for (int r = 0; r <= K; ++r) s_out[r * ms + j] = col[r];
+      }
+    }
+    __syncthreads();
+  }
+
+  if (kMaps) {
+    int d = 0;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int r = 0; r < K - c; ++r, ++d) {
+        if (lane < D) {
+          hmap[((mat * nmap + j0) * D + d) * D + lane] = cs[c][r];
+        } else if (lane == D) {
+          ymap[(mat * nmap + j0) * D + d] = cs[c][r];
+        }
+      }
+    }
   }
 }
 
@@ -638,12 +1025,12 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
   }
 }
 
-// Columns per chunk of the adjoints: at least kMinChunk, at most kMaxChunks
-// chunks and at most as many as the scan can stage the maps of in shared
-// memory (D^2 + D doubles each, whatever T), a multiple of the tile.
-// lc >= m is one chunk.  At m = 10^4: 64 columns for k <= 4, 128 at
-// k = 5, 192 at k = 6.
-int adjoint_chunk_cols(int k, int m) {
+// Columns per chunk of the linear sweeps: at least kMinChunk, at most
+// kMaxChunks chunks and at most as many as the scan can stage the maps of
+// in shared memory (D^2 + D doubles each, whatever T), a multiple of the
+// tile.  lc >= m is one chunk.  At m = 10^4: 64 columns for k <= 4, 128
+// at k = 5, 192 at k = 6.
+int carry_chunk_cols(int k, int m) {
   const long d = static_cast<long>(k) * (k + 1) / 2;
   long cap = static_cast<long>(kSmemLimit / ((d * d + d) * sizeof(double))) + 1;
   if (cap > kMaxChunks) cap = kMaxChunks;
@@ -653,41 +1040,82 @@ int adjoint_chunk_cols(int k, int m) {
   return static_cast<int>(lc < m ? lc : m);
 }
 
-// Elements of T of the workspace of nb matrices: H (nb, P-1, D, D), y
-// (nb, P-1, D) and the incoming carries (nb, P-1, D); 0 when P = 1.
-size_t adjoint_workspace(int k, int m, int nb) {
-  const int lc = adjoint_chunk_cols(k, m);
+// Elements of T of the workspace of a linear sweep over nb matrices: H
+// (nb, P-1, D, D), y (nb, P-1, D) and the incoming carries (nb, P-1, D);
+// 0 when P = 1.
+size_t carry_workspace(int k, int m, int nb) {
+  const int lc = carry_chunk_cols(k, m);
   const size_t nmap = static_cast<size_t>((m + lc - 1) / lc - 1);
   const size_t d = static_cast<size_t>(k) * (k + 1) / 2;
   return static_cast<size_t>(nb) * nmap * (d * d + 2 * d);
 }
 
-// one thread per matrix, in blocks of 32
-inline unsigned blocks(int nb) { return static_cast<unsigned>((nb + 31) / 32); }
-inline unsigned threads(int nb) { return static_cast<unsigned>(nb < 32 ? nb : 32); }
+// Columns per chunk of the Cholesky sweep: at least ASVGP_SCHUR_CHUNK, at
+// most kMaxChunks chunks and at most as many as the walk can stage the
+// triples of (k^2 + k(k+1) doubles each, whatever T), a multiple of the
+// tile; lc >= m is one chunk.  At m = 10^4: 128 columns at every k, 79
+// chunks; a pass-1 or pass-3 column costs about half a walk step, and 128
+// took the least device time of 64, 128 and 192 for k = 3 in float64 on
+// an H100 (tools/forward_ab.py --schur-chunk).
+int schur_chunk_cols(int k, int m) {
+  const long per = static_cast<long>(k) * k + static_cast<long>(k) * (k + 1);
+  long cap = static_cast<long>(kSmemLimit / (per * sizeof(double))) + 1;
+  if (cap > kMaxChunks) cap = kMaxChunks;
+  long lc = (m + cap - 1) / cap;
+  if (lc < ASVGP_SCHUR_CHUNK) lc = ASVGP_SCHUR_CHUNK;
+  lc = (lc + kTile - 1) / kTile * kTile;
+  return static_cast<int>(lc < m ? lc : m);
+}
 
-template <int K, typename T>
-cudaError_t launch_chol_fwd(int m, int nb, const T* a, T* l,
-                            cudaStream_t st) {
-  chol_fwd_kernel<K, T><<<blocks(nb), threads(nb), 0, st>>>(nb, m, a, l);
-  return cudaGetLastError();
+// Elements of T of the Cholesky sweep's workspace over nb matrices: the
+// triples (nb, P-1, k^2 + k(k+1)) and the walked W (nb, P-1, k(k+1)/2);
+// 0 when P = 1.
+size_t schur_workspace(int k, int m, int nb) {
+  const int lc = schur_chunk_cols(k, m);
+  const size_t nmap = static_cast<size_t>((m + lc - 1) / lc - 1);
+  const size_t d = static_cast<size_t>(k) * (k + 1) / 2;
+  return static_cast<size_t>(nb) * nmap * (static_cast<size_t>(k) * k + 3 * d);
 }
 
 template <int K, typename T>
-cudaError_t launch_tak_fwd(int m, int nb, const T* l, T* s,
-                           cudaStream_t st) {
-  tak_fwd_kernel<K, T><<<blocks(nb), threads(nb), 0, st>>>(nb, m, l, s);
-  return cudaGetLastError();
-}
-
-// The three passes of an adjoint over nb matrices, on the stream: when the
-// walk has more than one chunk, maps(grid, lc, nmap, hmap, ymap) launches
-// pass 1 and the scan follows; then outs(grid, lc, nmap, win) launches
-// pass 3.
-template <int K, typename T, typename Maps, typename Outs>
-cudaError_t launch_adjoint(int m, int nb, T* ws, Maps maps, Outs outs, cudaStream_t st) {
+cudaError_t launch_chol_fwd(int m, int nb, const T* a, T* l, T* ws, cudaStream_t st) {
   constexpr int D = K * (K + 1) / 2;
-  const int lc = adjoint_chunk_cols(K, m);
+  constexpr int kTri = K * K + 2 * D;
+  const int lc = schur_chunk_cols(K, m);
+  const int nchunks = (m + lc - 1) / lc;
+  const int nmap = nchunks - 1;
+  const T* win = nullptr;
+  if (nmap > 0) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    T* tri = ws;
+    T* w = tri + static_cast<size_t>(nb) * nmap * kTri;
+    chol_fwd_chunk_kernel<K, T, true><<<dim3(nmap, nb), 32, 0, st>>>(
+        m, lc, nmap, a, nullptr, nullptr, tri);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t smem = static_cast<size_t>(nmap) * kTri * sizeof(T);
+    if (smem > kSmemLimit) return cudaErrorInvalidValue;
+    static std::atomic<unsigned long long> done{0};
+    e = allow_smem(schur_walk_kernel<K, T>, done);
+    if (e != cudaSuccess) return e;
+    schur_walk_kernel<K, T><<<dim3(1, nb), 32, smem, st>>>(nmap, tri, w);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    win = w;
+  }
+  chol_fwd_chunk_kernel<K, T, false><<<dim3(nchunks, nb), 32, 0, st>>>(
+      m, lc, nmap, a, l, win, nullptr);
+  return cudaGetLastError();
+}
+
+// The three passes of a linear sweep over nb matrices, on the stream: when
+// the walk has more than one chunk, maps(grid, lc, nmap, hmap, ymap)
+// launches pass 1 and the scan follows; then outs(grid, lc, nmap, win)
+// launches pass 3.
+template <int K, typename T, typename Maps, typename Outs>
+cudaError_t launch_linear(int m, int nb, T* ws, Maps maps, Outs outs, cudaStream_t st) {
+  constexpr int D = K * (K + 1) / 2;
+  const int lc = carry_chunk_cols(K, m);
   const int nchunks = (m + lc - 1) / lc;
   const int nmap = nchunks - 1;
   const T* win = nullptr;
@@ -710,9 +1138,24 @@ cudaError_t launch_adjoint(int m, int nb, T* ws, Maps maps, Outs outs, cudaStrea
 }
 
 template <int K, typename T>
+cudaError_t launch_tak_fwd(int m, int nb, const T* l, T* s, T* ws, cudaStream_t st) {
+  return launch_linear<K, T>(
+      m, nb, ws,
+      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
+        tak_fwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
+            m, lc, nmap, l, nullptr, nullptr, hmap, ymap);
+      },
+      [=](dim3 grid, int lc, int nmap, const T* win) {
+        tak_fwd_chunk_kernel<K, T, false><<<grid, 32, 0, st>>>(
+            m, lc, nmap, l, s, win, nullptr, nullptr);
+      },
+      st);
+}
+
+template <int K, typename T>
 cudaError_t launch_chol_bwd(int m, int nb, const T* l, const T* cot, T* abar, T* ws,
                             cudaStream_t st) {
-  return launch_adjoint<K, T>(
+  return launch_linear<K, T>(
       m, nb, ws,
       [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
         chol_bwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
@@ -728,7 +1171,7 @@ cudaError_t launch_chol_bwd(int m, int nb, const T* l, const T* cot, T* abar, T*
 template <int K, typename T>
 cudaError_t launch_tak_bwd(int m, int nb, const T* l, const T* s, const T* cot,
                            const T* iv, T* lbar, T* ws, cudaStream_t st) {
-  return launch_adjoint<K, T>(
+  return launch_linear<K, T>(
       m, nb, ws,
       [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
         tak_bwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
@@ -756,27 +1199,35 @@ cudaError_t launch_tak_bwd(int m, int nb, const T* l, const T* s, const T* cot,
 
 extern "C" {
 
-// K9 (double) / K17 (float).  a: nb (k+1, m) lower bands.  Writes l: their
-// Cholesky bands.
+// Elements of workspace (of the sweep's dtype) that K9 / K15 / K17 need
+// for nb (k+1, m) bands: 0 when the columns form one chunk.
+int asvgp_schur_workspace(int k, int m, int nb) {
+  if (k < 1 || k > 6 || m < 1 || nb < 1) return -1;
+  return static_cast<int>(schur_workspace(k, m, nb));
+}
+
+// K9, K15 (double) / K17 (float).  a: nb (k+1, m) lower bands, ws:
+// asvgp_schur_workspace(k, m, nb) elements, or NULL when that is 0.
+// Writes l: their Cholesky bands.
 #define ASVGP_CHOL_FWD(NAME, T)                                          \
-  int NAME(int k, int m, int nb, const T* a, T* l, void* stream) {       \
+  int NAME(int k, int m, int nb, const T* a, T* l, T* ws, void* stream) { \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
     if (m < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue); \
-    ASVGP_DISPATCH_K(k, (launch_chol_fwd<K, T>(m, nb, a, l, st)))        \
+    ASVGP_DISPATCH_K(k, (launch_chol_fwd<K, T>(m, nb, a, l, ws, st)))    \
   }
 ASVGP_CHOL_FWD(asvgp_chol_fwd, double)
 ASVGP_CHOL_FWD(asvgp_chol_fwd_f32, float)
 
-// Elements of workspace (of the adjoint's dtype) that K10 / K8 / K18 and
-// K12 / K7 / K20 / K23 need for nb (k+1, m) bands: 0 when the columns form
-// one chunk.
-int asvgp_adjoint_workspace(int k, int m, int nb) {
+// Elements of workspace (of the sweep's dtype) that the linear sweeps need
+// for nb (k+1, m) bands, K11 / K19 and the adjoints K10 / K8 / K18 and
+// K12 / K7 / K20 / K23: 0 when the columns form one chunk.
+int asvgp_carry_workspace(int k, int m, int nb) {
   if (k < 1 || k > 6 || m < 1 || nb < 1) return -1;
-  return static_cast<int>(adjoint_workspace(k, m, nb));
+  return static_cast<int>(carry_workspace(k, m, nb));
 }
 
 // K10 / K8 (double) / K18 (float).  l: nb Cholesky bands, cot: their
-// cotangents, ws: asvgp_adjoint_workspace(k, m, nb) elements, or NULL when
+// cotangents, ws: asvgp_carry_workspace(k, m, nb) elements, or NULL when
 // that is 0.  Writes abar.
 #define ASVGP_CHOL_BWD(NAME, T)                                          \
   int NAME(int k, int m, int nb, const T* l, const T* cot, T* abar,      \
@@ -788,13 +1239,13 @@ int asvgp_adjoint_workspace(int k, int m, int nb) {
 ASVGP_CHOL_BWD(asvgp_chol_bwd, double)
 ASVGP_CHOL_BWD(asvgp_chol_bwd_f32, float)
 
-// K11 (double) / K19 (float).  l: nb Cholesky bands.  Writes s: the bands
-// of their inverses.
+// K11 (double) / K19 (float).  l: nb Cholesky bands, ws as for the
+// adjoints.  Writes s: the bands of their inverses.
 #define ASVGP_TAK_FWD(NAME, T)                                           \
-  int NAME(int k, int m, int nb, const T* l, T* s, void* stream) {       \
+  int NAME(int k, int m, int nb, const T* l, T* s, T* ws, void* stream) { \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                 \
     if (m < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue); \
-    ASVGP_DISPATCH_K(k, (launch_tak_fwd<K, T>(m, nb, l, s, st)))         \
+    ASVGP_DISPATCH_K(k, (launch_tak_fwd<K, T>(m, nb, l, s, ws, st)))     \
   }
 ASVGP_TAK_FWD(asvgp_tak_fwd, double)
 ASVGP_TAK_FWD(asvgp_tak_fwd_f32, float)

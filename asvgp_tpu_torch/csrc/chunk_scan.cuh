@@ -1,6 +1,7 @@
-// What the chunk-partitioned linear recursions of the port share: the
-// staging helpers (cp.async), the partition's constants, and pass 2, the
-// scan over the chunks' affine maps.
+// What the chunk-partitioned recursions of the port share: the staging
+// helpers (cp.async), the partition's constants, the shared-memory
+// attribute of a pass 2 that stages its chunks' data, and the pass 2 of
+// the linear ones, the scan over the chunks' affine maps.
 //
 // A recursion whose carry w (D values) is affine in what it reads, given a
 // fixed operand (a Cholesky factor), is cut into chunks of its walk: over
@@ -9,8 +10,11 @@
 // particular one), pass 2 (here) walks the maps for the true incoming
 // carries, pass 3 reruns the recursion from them.  Used by
 // banded_solve.cu (the solves, D = K, one map per column of the right-hand
-// side) and banded_adjoint.cu (the Cholesky and Takahashi adjoints,
-// D = K(K+1)/2, one map sequence per matrix of a batch).
+// side) and banded_adjoint.cu (the Takahashi sweep and the Cholesky and
+// Takahashi adjoints, D = K(K+1)/2, one map sequence per matrix of a
+// batch).  The Cholesky sweep's chunks are joined by a map that is not
+// affine; its pass 2 (banded_adjoint.cu, schur_walk_kernel) stages its
+// chunks' data the same way.
 
 #pragma once
 
@@ -107,17 +111,17 @@ size_t scan_smem_bytes(int nmap, int r) {
   return static_cast<size_t>(nmap) * (D * D + ncs * D) * sizeof(T);
 }
 
-// Lets the scan kernel take up to kSmemLimit of dynamic shared memory, once
-// per device (the attribute holds for the device current when it is set).
-template <int D, typename T>
-cudaError_t allow_scan_smem() {
-  static std::atomic<unsigned long long> done{0};
+// Lets ``kernel`` take up to kSmemLimit of dynamic shared memory, once per
+// device (the attribute holds for the device current when it is set);
+// ``done`` holds the devices it is set on, one per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(chunk_scan_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kSmemLimit));
   if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return e;
@@ -129,7 +133,8 @@ cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t
                               const T* ymap, size_t y_stride, T* win, cudaStream_t st) {
   const size_t smem = scan_smem_bytes<D, T>(nmap, r);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t e = allow_scan_smem<D, T>();
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem(chunk_scan_kernel<D, T>, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((r + kScanCols - 1) / kScanCols, nbatch);
   chunk_scan_kernel<D, T><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap, y_stride, win);

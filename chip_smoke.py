@@ -16,8 +16,10 @@ points, on the card:
      symmetric tangent band), and at the main path's shapes on its real
      Kuu, T = ∂Kuu/∂ℓ, P and Kuf·y; K7–K12 for k = 1..6 on random SPD
      bands and cotangents; the partitioned adjoints (K7, K8, K10, K12,
-     K18, K20, K23) at the edges of their partitions (one column, one
-     chunk, a ragged chunk, two matrices, k = 6 at m = 10⁴)
+     K18, K20, K23) and forward sweeps (K9, K11, K15, K17, K19) at the
+     edges of their partitions (one column, one chunk, a ragged chunk, two
+     matrices, k = 6 at m = 10⁴), the forward sweeps' first chunk equal
+     bit for bit to the kernel on that chunk alone
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -88,18 +90,23 @@ points, on the card:
      arguments the step and the posterior gave them; the largest entry of
      the adjoints' composed chunk maps on the factors the main paths gave
      them (L_Kuu and L_P at the north star, the Adam and SVGP steps', the
-     GPRKron step's, the float32 step's)
+     GPRKron step's, the float32 step's); for the forward sweeps on the
+     same paths' arguments, the Takahashi maps' largest entry and the
+     Cholesky walk's largest entry of W and smallest singular value of
+     I − W P
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K13, K14, K21, K22,
-     the adjoints K7, K8, K10, K12, K18, K20, K23 and K16 alone
-     (torch.profiler) and the solves' and adjoints' event time less their
-     device time, each kernel's bound, cholesky_solve_band, the
+     the adjoints K7, K8, K10, K12, K18, K20, K23, the forward sweeps K9,
+     K11, K15, K17, K19 and K16 alone (torch.profiler) and the partitioned
+     kernels' event time less their device time, each kernel's bound,
+     cholesky_solve_band, the
      float32 step, posterior and predict beside the float64 ones, and the
      library
      counterparts: K16's (torch.linalg.cholesky, then solve_triangular
-     against I), the dense torch.linalg.cholesky of A for K9, K15 and K17
-     and the dense torch.linalg.solve_triangular for K13, K14, K21 and K22
+     against I), the dense torch.linalg.cholesky of A for K9, K15 and K17,
+     torch.cholesky_inverse of the dense L for K11 and K19 and the dense
+     torch.linalg.solve_triangular for K13, K14, K21 and K22
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -334,6 +341,18 @@ ADJOINT_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (4, 4097, 1), (3
                  (6, 10_000, 1), (6, 10_000, 2))
 ADJOINTS = ("tak_bwd_vec", "chol_bwd_pair", "chol_bwd", "tak_bwd", "tak_bwd_pair",
             "chol_bwd_f32", "tak_bwd_f32")
+# the forward sweeps K9/K17 and K15 (chol_fwd<K, T>, one and two matrices;
+# 128-column chunks) and K11/K19 (tak_fwd<K, T>; 64 at k <= 4) at the
+# edges of their partitions (phase 2), (k, m, nb): one column; one chunk;
+# a ragged last chunk of one column (the Takahashi's at 65, the
+# Cholesky's at 129); two matrices; 4097 columns; k = 6 at m = 10⁴.  Every
+# chunk spans at least FIRST_CHUNK columns, so the first FIRST_CHUNK
+# columns of a walk (the first of the Cholesky's, the last of the
+# Takahashi's) lie in the kernel's first chunk and, alone, form one chunk
+FORWARD_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (4, 4097, 1),
+                 (3, 1000, 2), (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2))
+FORWARDS = ("chol_fwd", "chol_fwd_f32", "chol_fwd_pair", "tak_fwd", "tak_fwd_f32")
+FIRST_CHUNK = 64
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -1099,7 +1118,8 @@ def kron_path(device) -> dict:
 
     args: dict = {}
     core.reset_counters()
-    with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_bwd", "tak_bwd"):
+    with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_fwd", "chol_bwd",
+                                                        "tak_fwd", "tak_bwd"):
         loss, grad = kron_value_and_grad(model)
     step_launches = read_launches(device, "GPRKron value-and-grad step", KRON_STEP)
 
@@ -1329,7 +1349,7 @@ def adjoint_maps(args) -> dict:
     nb = 1 if l_band.ndim == 2 else l_band.shape[0]
     k, m = l_band.shape[-2] - 1, l_band.shape[-1]
     d = k * (k + 1) // 2
-    n = lib.asvgp_adjoint_workspace(k, m, nb)
+    n = lib.asvgp_carry_workspace(k, m, nb)
     maps = n // (nb * (d * d + 2 * d))
     if maps == 0:
         return {"chunks": 1, "h_max": 0.0}
@@ -1356,6 +1376,126 @@ def adjoint_maps_of(calls: dict) -> dict:
         each = [adjoint_maps(args) for args in arg_lists]
         out[name] = {"chunks": each[0]["chunks"], "h_max": max(e["h_max"] for e in each),
                      "h_max_each": [e["h_max"] for e in each]}
+    return out
+
+
+def first_chunk_equal(fn, bands, down: bool) -> bool:
+    """Whether the first FIRST_CHUNK columns of the walk of ``fn`` (a
+    forward sweep's wrapper) over ``bands`` on the card (columns 0.. of the
+    Cholesky walking up, ..m-1 of the Takahashi walking down) equal bit
+    for bit the same wrapper on those columns alone, where the kernel runs
+    one pass, the one-chain recursion; the Cholesky's entries in rows past
+    them are left out."""
+    m = bands[0].shape[-1]
+    c = min(FIRST_CHUNK, m)
+    cut = (lambda x: x[:, m - c:]) if down else (lambda x: x[:, :c])
+    full = fn(*bands)
+    one = fn(*(cut(x).contiguous() for x in bands))
+    full, one = ((t,) if isinstance(t, torch.Tensor) else t for t in (full, one))
+    inside = torch.ones_like(one[0], dtype=torch.bool)
+    if not down:
+        kp1 = inside.shape[0]
+        inside = (torch.arange(kp1)[:, None] + torch.arange(c)[None] < c).to(inside.device)
+    return all(torch.equal(cut(f)[inside], o[inside]) for f, o in zip(full, one))
+
+
+def forward_edge_parity(device, rng) -> dict:
+    """Phase 2: the partitioned forward sweeps on random SPD bands at
+    FORWARD_EDGES against their plain versions on CPU copies, at the
+    random-band bars: one matrix K9, K11 and their float32 forms K17, K19
+    (the float32 inputs rounded once from float64), two K15; and each
+    walk's first chunk against the kernel on that chunk alone."""
+    from asvgp_tpu_torch.banded import ops, single
+
+    rows = []
+    for k, m, nb in FORWARD_EDGES:
+        a = [torch.as_tensor(spd_band(k, m, rng)) for _ in range(nb)]
+        row = {"k": k, "m": m, "nb": nb}
+        if nb == 2:
+            got = single.chol_fwd_pair(*(x.to(device) for x in a))
+            row |= _errs("chol_fwd_pair", got, single.chol_fwd_pair_plain(*a))
+            row["first_chunk_equal"] = first_chunk_equal(
+                single.chol_fwd_pair, [x.to(device) for x in a], False)
+        else:
+            l = ops.cholesky_band_plain(a[0])
+            equal = []
+            for dtype, suffix in ((torch.float64, ""), (torch.float32, "_f32")):
+                ah, lh = a[0].to(dtype), l.to(dtype)
+                row |= _errs("chol_fwd" + suffix, (single.chol_fwd(ah.to(device)),),
+                             (single.chol_fwd_plain(ah),))
+                row |= _errs("tak_fwd" + suffix, (single.tak_fwd(lh.to(device)),),
+                             (single.tak_fwd_plain(lh),))
+                equal += [first_chunk_equal(single.chol_fwd, [ah.to(device)], False),
+                          first_chunk_equal(single.tak_fwd, [lh.to(device)], True)]
+            row["first_chunk_equal"] = all(equal)
+        rows.append(row)
+    return {"rows": rows, "first_chunk_equal": all(r["first_chunk_equal"] for r in rows),
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows if f"{n}_rel" in r)
+               for n in FORWARDS}}
+
+
+def forward_maps(name: str, args) -> dict:
+    """The chunks of forward sweep ``name`` on its wrapper's arguments
+    ``args``: one direct launch of the C entry point (not counted) with a
+    workspace kept here (csrc/banded_adjoint.cu).  The Takahashi sweep
+    (K11, K19; one factor L): the largest entry of its composed maps, the
+    first (chunks − 1)·D² entries.  The Cholesky sweep (K9, K17; K15 with
+    two bands): the largest entry of the walked Schur-complement updates W
+    and the smallest singular value of I − W_c P_c over the chunks c whose
+    W is not 0, P_c = U Uᵀ from the chunk's triple."""
+    from asvgp_tpu_torch.banded import _build
+
+    lib = _build.load()
+    band = args[0] if len(args) == 1 else torch.stack(args)
+    nb = 1 if band.ndim == 2 else band.shape[0]
+    k, m = band.shape[-2] - 1, band.shape[-1]
+    d = k * (k + 1) // 2
+    chol = name.startswith("chol")
+    n = (lib.asvgp_schur_workspace if chol else lib.asvgp_carry_workspace)(k, m, nb)
+    per = k * k + 3 * d if chol else d * d + 2 * d
+    maps = n // (nb * per)
+    if maps == 0:
+        return {"chunks": 1}
+    ws = band.new_empty(n)
+    out = torch.empty_like(band)
+    entry = ("asvgp_chol_fwd" if chol else "asvgp_tak_fwd") + (
+        "_f32" if band.dtype == torch.float32 else "")
+    with torch.cuda.device(band.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(k, m, nb, band.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                                 stream)
+    _build.check(lib, rc, entry)
+    if not chol:
+        return {"chunks": maps + 1, "h_max": float(ws[: nb * maps * d * d].abs().max())}
+    tri = ws[: nb * maps * (k * k + 2 * d)].view(nb, maps, -1).double()
+    packed = ws[nb * maps * (k * k + 2 * d):].view(nb, maps, d).double()
+    lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
+    u = tri.new_zeros(nb, maps, k, k)
+    u[..., lo[0], lo[1]] = tri[..., :d]
+    w = tri.new_zeros(nb, maps, k, k)
+    w[..., up[0], up[1]] = packed
+    w = w + torch.triu(w, 1).mT
+    # W_c = w[:, c-1] meets the triple of chunk c, c = 1..maps-1
+    res = {"chunks": maps + 1, "w_max": float(w.abs().max())}
+    if maps > 1:
+        eye = torch.eye(k, dtype=torch.float64, device=band.device)
+        p = u[:, 1:] @ u[:, 1:].mT
+        res["sigma_min"] = float(torch.linalg.svdvals(eye - w[:, :-1] @ p).min())
+    return res
+
+
+def forward_maps_of(calls: dict) -> dict:
+    """forward_maps of every captured call, by wrapper: the chunks and the
+    extremes over its calls, and each call's."""
+    out = {}
+    for name, arg_lists in calls.items():
+        each = [forward_maps(name, args) for args in arg_lists]
+        res = {"chunks": each[0]["chunks"], "each": each}
+        for key, pick in (("h_max", max), ("w_max", max), ("sigma_min", min)):
+            vals = [e[key] for e in each if key in e]
+            if vals:
+                res[key] = pick(vals)
+        out[name] = res
     return out
 
 
@@ -1643,6 +1783,12 @@ def main() -> None:
     adj_edges = adjoint_edge_parity(device, rng)
     emit("2_parity_adjoint_edges", **adj_edges, tol={n: f32_tol(n) for n in ADJOINTS})
     check_each(adj_edges, f32_tol, "of the adjoints at the edges of their partitions")
+    fwd_edges = forward_edge_parity(device, rng)
+    emit("2_parity_forward_edges", **fwd_edges, tol={n: f32_tol(n) for n in FORWARDS})
+    check_each(fwd_edges, f32_tol, "of the forward sweeps at the edges of their partitions")
+    if not fwd_edges["first_chunk_equal"]:
+        raise AssertionError(f"a forward sweep's first chunk is not the one-pass recursion: "
+                             f"{fwd_edges['rows']}")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -1932,6 +2078,16 @@ def main() -> None:
          svgp=adjoint_maps_of({n: sv["args"][n] for n in ("chol_bwd", "tak_bwd")}),
          kron=adjoint_maps_of({n: kr["args"][n] for n in ("chol_bwd", "tak_bwd")}),
          f32=adjoint_maps_of({n: f32["args"][n] for n in ("chol_bwd_f32", "tak_bwd_f32")}))
+    # the forward sweeps' partitions on the same paths' arguments (the Adam
+    # step runs neither): the north star's Kuu and P (K15) and their
+    # factors, the SVGP step's, the GPRKron step's and the float32 step's
+    # and posterior's
+    emit("6l_forward_maps", card=smi,
+         north_star=forward_maps_of({"chol_fwd_pair": [pair["io"]["chol_fwd_pair"][0]],
+                                     "tak_fwd": [(pair_l[0],), (pair_l[1],)]}),
+         svgp=forward_maps_of({n: sv["args"][n] for n in ("chol_fwd", "tak_fwd")}),
+         kron=forward_maps_of({n: kr["args"][n] for n in ("chol_fwd", "tak_fwd")}),
+         f32=forward_maps_of({n: f32["args"][n] for n in ("chol_fwd_f32", "tak_fwd_f32")}))
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
@@ -2069,12 +2225,13 @@ def main() -> None:
     # adjoints take less time on the card than their call takes on the
     # host; the gap is the event time less the device time, the wrapper's
     # and launches'
-    alone = [(n, calls[n][0]) for n in SOLVES + ADJOINTS] + [
+    partitioned = SOLVES + ADJOINTS + FORWARDS
+    alone = [(n, calls[n][0]) for n in partitioned] + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),
         ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
-        if name in SOLVES + ADJOINTS and dev_ms["device_ms"] != "not measured":
+        if name in partitioned and dev_ms["device_ms"] != "not measured":
             event_ms = times[name]["median_ms"]
             dev_ms |= {"event_ms": event_ms, "gap_ms": event_ms - dev_ms["device_ms"]}
         emit("7_device_time", what=name, card=smi, **dev_ms)
@@ -2113,10 +2270,12 @@ def main() -> None:
 
     # one PyTorch call computes the same function, on the dense matrix, for
     # K16 (the pair above), the Cholesky sweeps K9, K15 and K17
-    # (torch.linalg.cholesky of A: dense O(m³) work) and the solves K13,
-    # K14, K21 and K22 (torch.linalg.solve_triangular with the dense L:
-    # O(m²) work); each is timed on the inputs the kernel got, and the
-    # other kernels (Takahashi, the adjoints, the fused sweeps) have none
+    # (torch.linalg.cholesky of A: dense O(m³) work), the Takahashi sweeps
+    # K11 and K19 (torch.cholesky_inverse of the dense L, whose band is
+    # S: O(m³)) and the solves K13, K14, K21 and K22
+    # (torch.linalg.solve_triangular with the dense L: O(m²) work); each is
+    # timed on the inputs the kernel got, and the other kernels (the
+    # adjoints, the fused sweeps) have none
     library_ms = {"chol_inv_dense": times["chol_inv_dense_library"]["median_ms"]}
     library = {"chol_fwd": lambda a: torch.stack([dense_spd(a)]),
                "chol_fwd_pair": lambda a, b: torch.stack([dense_spd(a), dense_spd(b)]),
@@ -2129,6 +2288,13 @@ def main() -> None:
         emit("7_library", what=name, call="torch.linalg.cholesky_ex", m=m, card=smi,
              dtype=str(dense.dtype), batch=dense.shape[0], median_ms=t["median_ms"], ms=t["ms"],
              factored=bool((info == 0).all()))
+        del dense
+    for name in ("tak_fwd", "tak_fwd_f32"):
+        dense = lower_band_to_dense(io[name][0][0])
+        t = cuda_ms(lambda: torch.cholesky_inverse(dense))
+        library_ms[name] = t["median_ms"]
+        emit("7_library", what=name, call="torch.cholesky_inverse", m=m, card=smi,
+             dtype=str(dense.dtype), median_ms=t["median_ms"], ms=t["ms"])
         del dense
     for name in SOLVES:
         l_band, rhs = io[name][0]

@@ -403,7 +403,7 @@ def test_cuda_adjoints_at_partition_edges(cuda_device, k, m, nb):
     call counted once; the kernels' workspace is that of ``chunk_cols``'s
     chunks."""
     d = k * (k + 1) // 2
-    assert core.adjoint_workspace(k, m, nb) == nb * (-(-m // chunk_cols(k, m)) - 1) * (d * d + 2 * d)
+    assert core.carry_workspace(k, m, nb) == nb * (-(-m // chunk_cols(k, m)) - 1) * (d * d + 2 * d)
     l, s, l_bar, s_bar = adjoint_inputs(k, m, nb, 90 + k)
     dev = cuda_device
     iv = (1.0 / l[:, 0]).contiguous()
