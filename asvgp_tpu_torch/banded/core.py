@@ -147,6 +147,15 @@ def schur_workspace(k: int, m: int, nb: int) -> int:
     return _build.load().asvgp_schur_workspace(k, m, nb)
 
 
+@functools.lru_cache(maxsize=64)
+def twist_workspace(k: int, m: int) -> int:
+    """Elements of float64 scratch the twisted sweeps (K5's chunk triples
+    and walked Schur-complement updates, K6's chunk maps) need at (k, m),
+    for the four matrices of both streams (0 when every stream is one
+    chunk), asked of the kernels' library once per shape."""
+    return _build.load().asvgp_twist_workspace(k, m)
+
+
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream
     of ``device``, raise on its error code, and count the launch."""

@@ -22,7 +22,12 @@ both:
 
 Same contract and elementwise backward as banded/tan.py (``MaternCore``).
 On CPU tensors the kernels' plain versions run; on CUDA tensors the
-kernels (csrc/banded_tan.cu) launch or the wrapper raises.
+kernels (csrc/banded_tan.cu) launch or the wrapper raises.  On the card
+each stream is cut into chunks run in parallel (three launches a kernel,
+scratch from ``core.twist_workspace``, one count per call): K5 joined by
+the k×k Schur-complement update of each chunk's first rows (with its
+tangent, or the lower solve's coupling), K6 by the affine maps of its
+windows and a scan over them.
 """
 
 from __future__ import annotations
@@ -119,12 +124,13 @@ def chol_quad_solve_tan(kuu_band, tan_band, p_band, b):
     iv = kuu_band.new_empty((4, h))
     ivdot = kuu_band.new_empty((2, h))
     y = kuu_band.new_empty((2, h))
+    ws = kuu_band.new_empty(core.twist_workspace(k, m))
     with torch.cuda.device(kuu_band.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.asvgp_chol_quad_solve_tan(
             k, m, h, kuu_band.data_ptr(), tan_band.data_ptr(), p_band.data_ptr(),
             b.data_ptr(), l.data_ptr(), ldot.data_ptr(), iv.data_ptr(),
-            ivdot.data_ptr(), y.data_ptr(), stream,
+            ivdot.data_ptr(), y.data_ptr(), ws.data_ptr(), stream,
         )
     _build.check(lib, rc, "chol_quad_solve_tan")
     LAUNCHES["chol_quad_solve_tan"] += 1
@@ -220,12 +226,14 @@ def tak_quad_solve_tan(l, ldot, iv, ivdot, y, z, x2, m: int):
     s_p = l.new_empty((k + 1, m))
     u = l.new_empty((m,))
     sdot = l.new_empty((k + 1, m))
+    ws = l.new_empty(core.twist_workspace(k, m))
     with torch.cuda.device(l.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.asvgp_tak_quad_solve_tan(
             k, m, h, l.data_ptr(), ldot.data_ptr(), iv.data_ptr(), ivdot.data_ptr(),
             y.data_ptr(), z.data_ptr(), x2.data_ptr(),
-            s_kuu.data_ptr(), s_p.data_ptr(), u.data_ptr(), sdot.data_ptr(), stream,
+            s_kuu.data_ptr(), s_p.data_ptr(), u.data_ptr(), sdot.data_ptr(),
+            ws.data_ptr(), stream,
         )
     _build.check(lib, rc, "tak_quad_solve_tan")
     LAUNCHES["tak_quad_solve_tan"] += 1

@@ -59,25 +59,9 @@
 #include <cstddef>
 
 #include "chunk_scan.cuh"
-
-// The Cholesky sweep's chunks are at least this many columns (a multiple
-// of the 64-column tile); a build may set it to measure another length
-// (tools/forward_ab.py --schur-chunk).
-#ifndef ASVGP_SCHUR_CHUNK
-#define ASVGP_SCHUR_CHUNK 128
-#endif
+#include "schur_walk.cuh"
 
 namespace {
-
-// the scalar type's fused multiply-add and square root (IEEE-rounded: the
-// library is built without fast math), so a float instantiation never
-// promotes to double
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
-__device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
-__device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
-__device__ __forceinline__ float rsqrt_t(float a) { return rsqrtf(a); }
-__device__ __forceinline__ double rsqrt_t(double a) { return rsqrt(a); }
 
 // the column of walk position u: m-1-u walking down, u walking up
 template <bool kDown>
@@ -104,31 +88,6 @@ __device__ __forceinline__ void stage_cols(T (*dst)[kTile], const T* __restrict_
         dst[r][t] = T(0);
       }
     }
-  }
-}
-
-// The lower Cholesky factor of the K x K symmetric matrix whose lower
-// triangle f holds, in place, and the reciprocals rd of its diagonal; the
-// strict upper triangle is set to 0.  One reciprocal square root a
-// column, so a pivot <= 0 gives NaN (or inf at 0) from its column on.
-template <int K, typename T>
-__device__ __forceinline__ void chol_small(T (&f)[K][K], T (&rd)[K]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    T dj = f[j][j];
-#pragma unroll
-    for (int p = 0; p < j; ++p) dj = fma_t(-f[j][p], f[j][p], dj);
-    rd[j] = rsqrt_t(dj);
-    f[j][j] = dj * rd[j];
-#pragma unroll
-    for (int i = j + 1; i < K; ++i) {
-      T x = f[i][j];
-#pragma unroll
-      for (int p = 0; p < j; ++p) x = fma_t(-f[i][p], f[j][p], x);
-      f[i][j] = x * rd[j];
-    }
-#pragma unroll
-    for (int i = 0; i < j; ++i) f[i][j] = T(0);
   }
 }
 
@@ -174,7 +133,9 @@ __device__ __forceinline__ void chol_small(T (&f)[K][K], T (&rd)[K]) {
 // operations of the one-chain recursion, so chunk 0 (W = 0) is that
 // recursion bit for bit.  Each CTA stages A's columns as the linear sweeps
 // stage theirs (below); pass 2 stages every triple of a matrix in shared
-// memory, K^2 + K(K+1) values a chunk, which caps the chunk count.
+// memory, K^2 + K(K+1) values a chunk, which caps the chunk count.  The
+// triples' and the walk's arithmetic (schur_v_row, schur_triple,
+// schur_step) is in schur_walk.cuh, shared with K5 (banded_tan.cu).
 // ---------------------------------------------------------------------------
 template <int K, typename T>
 __device__ __forceinline__ T chol_fwd_step(T (&w)[K][K + 1], const T (&ac)[K + 1], int i, int m,
@@ -283,27 +244,8 @@ chol_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ a_all,
       T col[K + 1];
       const T rv = chol_fwd_step<K, T>(w, ac, i, m, col);
       if (kMaps) {
-        // row i-s of V: (delta_{i-s, f} - sum_p L[i, i-p] V[i-p-s, f]) / L[i, i]
         T vn[K];
-#pragma unroll
-        for (int f = 0; f < K; ++f) {
-          T acc = (i - s == f) ? T(1) : T(0);
-#pragma unroll
-          for (int p = 1; p <= K; ++p) acc = fma_t(-g[p - 1], vw[p - 1][f], acc);
-          vn[f] = acc * rv;
-        }
-#pragma unroll
-        for (int f = 0; f < K; ++f) {
-#pragma unroll
-          for (int h = f; h < K; ++h) pa[f][h] = fma_t(vn[f], vn[h], pa[f][h]);
-        }
-#pragma unroll
-        for (int q = K - 1; q > 0; --q) {
-#pragma unroll
-          for (int f = 0; f < K; ++f) vw[q][f] = vw[q - 1][f];
-        }
-#pragma unroll
-        for (int f = 0; f < K; ++f) vw[0][f] = vn[f];
+        schur_v_row<K, T>(g, rv, i - s, vw, pa, vn);
       } else if (lane == 0) {
         T* __restrict__ l = l_all + off;
 #pragma unroll
@@ -314,135 +256,7 @@ chol_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ a_all,
   }
 
   if (kMaps && lane == 0) {
-    // X[a][b] = L_c[e+a, e-K+b] = w[K-1-b][K+a-b] for a <= b, else 0;
-    // V_last[b][f] = V[e-K+b-s, f] = vw[K-1-b][f]
-    T u[K][K];
-#pragma unroll
-    for (int f = 0; f < K; ++f) {
-#pragma unroll
-      for (int h = 0; h <= f; ++h) u[f][h] = pa[h][f];
-    }
-    T rd[K];
-    chol_small<K, T>(u, rd);
-    T* __restrict__ o = tri + (mat * nmap + j0) * (K * K + 2 * D);
-    int d = 0;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-#pragma unroll
-      for (int c = 0; c <= r; ++c) o[d++] = u[r][c];
-    }
-#pragma unroll
-    for (int f = 0; f < K; ++f) {
-#pragma unroll
-      for (int x = 0; x < K; ++x) {
-        T acc = T(0);
-#pragma unroll
-        for (int b = x; b < K; ++b) acc = fma_t(vw[K - 1 - b][f], w[K - 1 - b][K + x - b], acc);
-        o[d++] = acc;  // Q[f][x]
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < K; ++x) {
-#pragma unroll
-      for (int y = x; y < K; ++y) {
-        T acc = T(0);
-#pragma unroll
-        for (int b = y; b < K; ++b) acc = fma_t(w[K - 1 - b][K + x - b], w[K - 1 - b][K + y - b], acc);
-        o[d++] = acc;  // R[x][y]
-      }
-    }
-  }
-}
-
-// One step of pass 2: W (K x K, symmetric) through the chunk whose triple
-// is at cur (U's lower triangle by rows, Q[f][x] at f K + x, R's upper
-// triangle by rows) to the next chunk's, written also at wout (packed as
-// R).
-template <int K, typename T>
-__device__ __forceinline__ void schur_step(T (&W)[K][K], const T* cur, T* __restrict__ wout) {
-  constexpr int D = K * (K + 1) / 2;
-  T u[K][K];
-  {
-    int d = 0;
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-#pragma unroll
-      for (int cc = 0; cc < K; ++cc) u[r][cc] = (cc <= r) ? cur[d + cc] : T(0);
-      d += r + 1;
-    }
-  }
-  const T* q = cur + D;
-  const T* rp = q + K * K;
-  // WU = W U, then F = chol(I - U^T W U)
-  T wu[K][K];
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = 0; y < K; ++y) {
-      T acc = T(0);
-#pragma unroll
-      for (int z = y; z < K; ++z) acc = fma_t(W[x][z], u[z][y], acc);
-      wu[x][y] = acc;
-    }
-  }
-  T f[K][K];
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = 0; y <= x; ++y) {
-      T acc = (x == y) ? T(1) : T(0);
-#pragma unroll
-      for (int z = x; z < K; ++z) acc = fma_t(-u[z][x], wu[z][y], acc);
-      f[x][y] = acc;
-    }
-  }
-  T rd[K];
-  chol_small<K, T>(f, rd);
-  // Y = F^-1 U^T W Q = F^-1 WU^T Q, and WQ = W Q
-  T yy[K][K];
-  T wq[K][K];
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = 0; y < K; ++y) {
-      T acc = T(0);
-      T acq = T(0);
-#pragma unroll
-      for (int z = 0; z < K; ++z) {
-        acc = fma_t(wu[z][x], q[z * K + y], acc);
-        acq = fma_t(W[x][z], q[z * K + y], acq);
-      }
-      yy[x][y] = acc;
-      wq[x][y] = acq;
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = 0; y < K; ++y) {
-      T acc = yy[x][y];
-#pragma unroll
-      for (int z = 0; z < x; ++z) acc = fma_t(-f[x][z], yy[z][y], acc);
-      yy[x][y] = acc * rd[x];
-    }
-  }
-  // W' = R + Q^T W Q + Y^T Y, symmetric: the upper triangle, mirrored
-  int d = 0;
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = x; y < K; ++y) {
-      T acc = rp[d];
-#pragma unroll
-      for (int z = 0; z < K; ++z) {
-        acc = fma_t(q[z * K + x], wq[z][y], acc);
-        acc = fma_t(yy[z][x], yy[z][y], acc);
-      }
-      W[x][y] = acc;
-      W[y][x] = acc;
-      wout[d] = acc;
-      ++d;
-    }
+    schur_triple<K, T>(w, vw, pa, tri + (mat * nmap + j0) * (K * K + 2 * D));
   }
 }
 
@@ -1185,17 +999,6 @@ cudaError_t launch_tak_bwd(int m, int nb, const T* l, const T* s, const T* cot,
 }
 
 }  // namespace
-
-#define ASVGP_DISPATCH_K(k, call)                               \
-  switch (k) {                                                  \
-    case 1: { constexpr int K = 1; return static_cast<int>(call); } \
-    case 2: { constexpr int K = 2; return static_cast<int>(call); } \
-    case 3: { constexpr int K = 3; return static_cast<int>(call); } \
-    case 4: { constexpr int K = 4; return static_cast<int>(call); } \
-    case 5: { constexpr int K = 5; return static_cast<int>(call); } \
-    case 6: { constexpr int K = 6; return static_cast<int>(call); } \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
-  }
 
 extern "C" {
 

@@ -265,17 +265,6 @@ cudaError_t launch_solve(int m, int r, const T* l, const T* b, T* x, T* ws,
 
 }  // namespace
 
-#define ASVGP_DISPATCH_K(k, call)                               \
-  switch (k) {                                                  \
-    case 1: { constexpr int K = 1; return static_cast<int>(call); } \
-    case 2: { constexpr int K = 2; return static_cast<int>(call); } \
-    case 3: { constexpr int K = 3; return static_cast<int>(call); } \
-    case 4: { constexpr int K = 4; return static_cast<int>(call); } \
-    case 5: { constexpr int K = 5; return static_cast<int>(call); } \
-    case 6: { constexpr int K = 6; return static_cast<int>(call); } \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
-  }
-
 extern "C" {
 
 // Elements of workspace (of the solve's dtype) that K13 / K14 / K21 / K22

@@ -1,7 +1,8 @@
-// What the chunk-partitioned recursions of the port share: the staging
-// helpers (cp.async), the partition's constants, the shared-memory
-// attribute of a pass 2 that stages its chunks' data, and the pass 2 of
-// the linear ones, the scan over the chunks' affine maps.
+// What the chunk-partitioned recursions of the port share: the entry
+// points' dispatch on K, the staging helpers (cp.async), the partition's
+// constants, the shared-memory attribute of a pass 2 that stages its
+// chunks' data, and the pass 2 of the linear ones, the scan over the
+// chunks' affine maps.
 //
 // A recursion whose carry w (D values) is affine in what it reads, given a
 // fixed operand (a Cholesky factor), is cut into chunks of its walk: over
@@ -12,8 +13,10 @@
 // banded_solve.cu (the solves, D = K, one map per column of the right-hand
 // side) and banded_adjoint.cu (the Takahashi sweep and the Cholesky and
 // Takahashi adjoints, D = K(K+1)/2, one map sequence per matrix of a
-// batch).  The Cholesky sweep's chunks are joined by a map that is not
-// affine; its pass 2 (banded_adjoint.cu, schur_walk_kernel) stages its
+// batch) and banded_tan.cu (the twisted Takahashi sweep K6, D = K(K+1):
+// the window of S with that of its tangent or of the upper solve, one
+// sequence per matrix and stream).  The Cholesky sweeps' chunks are joined
+// by a map that is not affine; their pass 2 (schur_walk.cuh) stages its
 // chunks' data the same way.
 
 #pragma once
@@ -22,6 +25,19 @@
 
 #include <atomic>
 #include <cstddef>
+
+// In an entry point: return call's error code as an int, with the
+// compile-time bandwidth K = k (1..6), or cudaErrorInvalidValue.
+#define ASVGP_DISPATCH_K(k, call)                                   \
+  switch (k) {                                                      \
+    case 1: { constexpr int K = 1; return static_cast<int>(call); } \
+    case 2: { constexpr int K = 2; return static_cast<int>(call); } \
+    case 3: { constexpr int K = 3; return static_cast<int>(call); } \
+    case 4: { constexpr int K = 4; return static_cast<int>(call); } \
+    case 5: { constexpr int K = 5; return static_cast<int>(call); } \
+    case 6: { constexpr int K = 6; return static_cast<int>(call); } \
+    default: return static_cast<int>(cudaErrorInvalidValue);        \
+  }
 
 namespace {
 

@@ -19,7 +19,11 @@ points, on the card:
      K18, K20, K23) and forward sweeps (K9, K11, K15, K17, K19) at the
      edges of their partitions (one column, one chunk, a ragged chunk, two
      matrices, k = 6 at m = 10⁴), the forward sweeps' first chunk equal
-     bit for bit to the kernel on that chunk alone
+     bit for bit to the kernel on that chunk alone; the twisted sweeps K5
+     and K6 at the edges of their partitions (both parities of m − k, the
+     reversed stream a chunk shorter, one chunk, a chunk edge at the middle
+     block, k = 6 at m = 10⁴), each stream's first chunk equal bit for bit
+     to the kernel on a problem made of that chunk alone
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -93,13 +97,17 @@ points, on the card:
      GPRKron step's, the float32 step's); for the forward sweeps on the
      same paths' arguments, the Takahashi maps' largest entry and the
      Cholesky walk's largest entry of W and smallest singular value of
-     I − W P
+     I − W P; for K5 and K6 on the north star's bands, each stream's
+     largest W, Ẇ (Kuu) and β (P), the smallest eigenvalue of I − UᵀWU
+     and K6's maps' largest entry
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K13, K14, K21, K22,
      the adjoints K7, K8, K10, K12, K18, K20, K23, the forward sweeps K9,
-     K11, K15, K17, K19 and K16 alone (torch.profiler) and the partitioned
-     kernels' event time less their device time, each kernel's bound,
+     K11, K15, K17, K19, the twisted sweeps K5, K6, and K16 alone
+     (torch.profiler), of the mid step, of K5 + mid + K6 and of the twisted
+     value-and-grad step, and the partitioned kernels' and those steps'
+     event time less their device time, each kernel's bound,
      cholesky_solve_band, the
      float32 step, posterior and predict beside the float64 ones, and the
      library
@@ -353,6 +361,17 @@ FORWARD_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (4,
                  (3, 1000, 2), (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2))
 FORWARDS = ("chol_fwd", "chol_fwd_f32", "chol_fwd_pair", "tak_fwd", "tak_fwd_f32")
 FIRST_CHUNK = 64
+# the twisted sweeps K5 (chol_quad_solve_tan; 128-column chunks, its walk
+# stages 2(k² + k(k+1)) doubles a chunk) and K6 (tak_quad_solve_tan; 64 at
+# k <= 3, as many as the scan can stage maps of (2D)² + 2D doubles, 2D =
+# k(k+1)) at the edges of their partitions (phase 2), (k, m): both parities
+# of m - k; the reversed stream one K5 chunk shorter (h = 129, g = 128);
+# both streams one chunk (h = g = 64); a chunk edge at the middle block
+# (h = g = 256); k = 6 at m = 10⁴ (K6's 320-column chunks)
+TWIST_EDGES = ((1, 1001), (2, 1000), (2, 2 * 129 + 1), (3, 2 * 129 + 2), (3, 2 * 64 + 3),
+               (4, 2 * 256 + 4), (5, 2 * 256 + 5), (6, 2 * 256 + 6), (6, 10_000))
+TWISTED = ("chol_quad_solve_tan", "tak_quad_solve_tan")
+SMEM_LIMIT, MAX_CHUNKS, TILE = 232448, 256, 64  # csrc/chunk_scan.cuh
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -1499,6 +1518,153 @@ def forward_maps_of(calls: dict) -> dict:
     return out
 
 
+def twist_chunk_cols(k: int, m: int) -> tuple[int, int]:
+    """(K5's, K6's) columns per chunk at (k, m), as csrc/banded_tan.cu's
+    chol_quad_chunk_cols and tak_quad_chunk_cols give them for streams of
+    at most h columns: at least 128 (K5) or 64 (K6), at most MAX_CHUNKS
+    chunks and as many as K5's walk (2(k² + k(k+1)) doubles a chunk) or K6's
+    scan ((2D)² + 2D, 2D = k(k+1)) can stage, a multiple of the tile."""
+    from asvgp_tpu_torch.banded.twisted import split_point
+
+    h = split_point(m, k)
+    dd = k * (k + 1)
+    out = []
+    for per, least in ((2 * (k * k + dd), 128), (dd * dd + dd, 64)):
+        cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
+        lc = max(least, -(-h // cap))
+        out.append(min(-(-lc // TILE) * TILE, h))
+    return out[0], out[1]
+
+
+def twist_short(bands, c: int):
+    """K5's arguments of a problem whose two streams are the first c
+    columns of each stream of ``bands`` (F reads band columns < h, R the
+    last g + k: so the first c and the last c + k, m' = 2c + k), on which
+    K5 runs one pass, the one-chain recursion."""
+    m, tail = bands[0].shape[-1], c + bands[0].shape[0] - 1
+    return [torch.cat([t[..., :c], t[..., m - tail:]], -1).contiguous() for t in bands]
+
+
+def twist_edge_parity(device, rng) -> dict:
+    """Phase 2: K5 and K6 on random SPD Kuu and P, a random symmetric
+    tangent band and a random b at TWIST_EDGES against their plain versions
+    on CPU copies (K6 on the plain K5's outputs and their mid step), at the
+    random-band bar; and each stream's first chunk against the kernel on a
+    problem made of that chunk alone: K5 on twist_short's bands, K6 on the
+    last c columns of each stream's K5 outputs (m' = 2c + k), whose every
+    output is the long run's, shifted by h - c, but the band entries of R's
+    last k columns (beyond the short R stream's end)."""
+    from asvgp_tpu_torch.banded import twist
+    from asvgp_tpu_torch.banded.twisted import split_point
+
+    rows = []
+    for k, m in TWIST_EDGES:
+        host = [torch.as_tensor(a) for a in (spd_band(k, m, rng), sym_band(k, m, rng),
+                                              spd_band(k, m, rng), rng.randn(m))]
+        bands = [t.to(device) for t in host]
+        h = split_point(m, k)
+        g = m - h - k
+        row = {"k": k, "m": m, "h": h, "g": g, "chunks": twist_chunk_cols(k, m)}
+        k5 = twist.chol_quad_solve_tan(*bands)
+        want5 = twist.chol_quad_solve_tan_plain(*host)
+        row |= _errs("chol_quad_solve_tan", k5, want5)
+        _, z, x2, _ = twist.mid_step(*host, want5[0], want5[1], want5[4])
+        z, x2 = z.contiguous(), x2.contiguous()
+        in6 = [t.to(device) for t in (*want5, z, x2)]
+        k6 = twist.tak_quad_solve_tan(*in6, m)
+        row |= _errs("tak_quad_solve_tan", k6, twist.tak_quad_solve_tan_plain(*want5, z, x2, m))
+        c = min(FIRST_CHUNK, g)
+        one5 = twist.chol_quad_solve_tan(*twist_short(bands, c))
+        equal = all(torch.equal(a[..., :c], o[..., :c]) for a, o in zip(k5, one5))
+        # K6's inputs of the short problem: each stream's last c columns
+        def last(t, ends):
+            return torch.stack([t[i, ..., n - c: n] for i, n in enumerate(ends)]).contiguous()
+
+        short6 = [last(in6[0], (h, h, g, g)), last(in6[1], (h, g)), last(in6[2], (h, h, g, g)),
+                  last(in6[3], (h, g)), last(in6[4], (h, g))]
+        m1 = 2 * c + k
+        one6 = twist.tak_quad_solve_tan(*short6, z.to(device), x2.to(device), m1)
+        for a, o in zip(k6, one6):
+            if a.ndim == 1:
+                equal &= torch.equal(a[h - c: h - c + m1], o)
+            else:
+                equal &= torch.equal(a[:, h - c: h - c + m1 - k], o[:, : m1 - k])
+        row["first_chunk_equal"] = bool(equal)
+        rows.append(row)
+    return {"rows": rows, "first_chunk_equal": all(r["first_chunk_equal"] for r in rows),
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows) for n in TWISTED}}
+
+
+def twist_maps(bands) -> dict:
+    """K5's and K6's chunks on the arguments ``bands`` = (Kuu, T, P, b):
+    one direct launch of each C entry point (not counted), with a
+    workspace kept here, filled with NaN first (csrc/banded_tan.cu's
+    layout).  For each of [F Kuu, F P, R Kuu, R P]: the largest entries of
+    the walked W (and of Ẇ on Kuu, of β on P) and the smallest eigenvalue
+    of I − UᵀWU over the chunks c whose W is not 0 (U from the chunk's
+    triple; its singular values are its eigenvalues); and the largest entry
+    of K6's composed maps (chunk 0's is 0)."""
+    from asvgp_tpu_torch.banded import _build, twist
+    from asvgp_tpu_torch.banded.twisted import split_point
+
+    lib = _build.load()
+    kuu, tanb, p, b = bands
+    k, m = kuu.shape[0] - 1, kuu.shape[1]
+    h = split_point(m, k)
+    g = m - h - k
+    d, dd = k * (k + 1) // 2, k * (k + 1)
+    lc5, lc6 = twist_chunk_cols(k, m)
+    n5, n6 = -(-h // lc5) - 1, -(-h // lc6) - 1
+    stride = 2 * (k * k + dd)
+    n = lib.asvgp_twist_workspace(k, m)
+    if n != max(4 * n5 * (stride + dd), 4 * n6 * (dd * dd + 2 * dd)):
+        raise AssertionError(f"twist_chunk_cols {lc5, lc6} disagrees with the kernels' "
+                             f"workspace of {n} at k={k}, m={m}")
+    ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
+    k5 = [kuu.new_empty(shape) for shape in ((4, k + 1, h), (2, k + 1, h), (4, h), (2, h), (2, h))]
+    with torch.cuda.device(kuu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.asvgp_chol_quad_solve_tan(k, m, h, *(t.data_ptr() for t in (*bands, *k5, ws)),
+                                           stream)
+        _build.check(lib, rc, "asvgp_chol_quad_solve_tan")
+        res = {"chunks": [n5 + 1, n6 + 1]}
+        tri = ws[: 4 * n5 * stride].view(4, n5, stride)
+        win = ws[4 * n5 * stride: 4 * n5 * (stride + dd)].view(4, n5, dd)
+        lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
+        eye = torch.eye(k, dtype=torch.float64, device=kuu.device)
+        for t, name in enumerate(("F_kuu", "F_p", "R_kuu", "R_p")):
+            nm = -(-(h if t < 2 else g) // lc5) - 1
+            if nm < 1:  # one chunk: no walk
+                continue
+            kuu_role = t % 2 == 0
+            tv = tri[t, :nm].view(nm, stride // 2, 2)[..., 0] if kuu_role else tri[t, :nm]
+            wv = win[t, :nm].view(nm, d, 2) if kuu_role else win[t, :nm]
+            u = tv.new_zeros(nm, k, k)
+            u[:, lo[0], lo[1]] = tv[:, :d]
+            w = tv.new_zeros(nm, k, k)
+            w[:, up[0], up[1]] = wv[..., 0] if kuu_role else wv[:, :d]
+            w = w + torch.triu(w, 1).mT
+            row = {"w_max": float(w.abs().max())}
+            if kuu_role:
+                row["wdot_max"] = float(wv[..., 1].abs().max())
+            else:
+                row["beta_max"] = float(wv[:, d: d + k].abs().max())
+            if nm > 1:
+                nmat = eye - u[1:].mT @ w[:-1] @ u[1:]
+                row["sigma_min"] = float(torch.linalg.eigvalsh(nmat).min())
+            res[name] = row
+        _, z, x2, _ = twist.mid_step(*bands, k5[0], k5[1], k5[4])
+        ws.fill_(float("nan"))
+        out6 = [kuu.new_empty(shape) for shape in ((k + 1, m), (k + 1, m), (m,), (k + 1, m))]
+        rc = lib.asvgp_tak_quad_solve_tan(k, m, h, *(t.data_ptr() for t in (
+            *k5, z.contiguous(), x2.contiguous(), *out6, ws)), stream)
+        _build.check(lib, rc, "asvgp_tak_quad_solve_tan")
+    if n6 > 1:
+        hmap = ws[: 4 * n6 * dd * dd].view(4, n6, dd, dd)
+        res["k6_h_max"] = float(hmap[:, 1:].abs().max())
+    return res
+
+
 def f32_path(device, x_d, y_d, x_test, y_test) -> dict:
     """Phases 6k and 6l: GPR1D(..., dtype=float32) at the north star, each
     stage on fresh counters: construction, one value-and-grad step and the
@@ -1789,6 +1955,12 @@ def main() -> None:
     if not fwd_edges["first_chunk_equal"]:
         raise AssertionError(f"a forward sweep's first chunk is not the one-pass recursion: "
                              f"{fwd_edges['rows']}")
+    tw_edges = twist_edge_parity(device, rng)
+    emit("2_parity_twist_edges", **tw_edges, tol=TOL_PARITY_ADJOINT)
+    check_parity(tw_edges, TOL_PARITY_ADJOINT, "of K5/K6 at the edges of their partitions")
+    if not tw_edges["first_chunk_equal"]:
+        raise AssertionError(f"a twisted sweep's first chunk is not the one-pass recursion: "
+                             f"{tw_edges['rows']}")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -2089,6 +2261,10 @@ def main() -> None:
          kron=forward_maps_of({n: kr["args"][n] for n in ("chol_fwd", "tak_fwd")}),
          f32=forward_maps_of({n: f32["args"][n] for n in ("chol_fwd_f32", "tak_fwd_f32")}))
 
+    # the twisted sweeps' partitions on the north star's Kuu, T, P and Kuf·y
+    # (the bands every twisted step of the fit meets first)
+    emit("6l_twist_maps", card=smi, north_star=twist_maps(main_bands))
+
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
@@ -2225,13 +2401,20 @@ def main() -> None:
     # adjoints take less time on the card than their call takes on the
     # host; the gap is the event time less the device time, the wrapper's
     # and launches'
-    partitioned = SOLVES + ADJOINTS + FORWARDS
-    alone = [(n, calls[n][0]) for n in partitioned] + [
+    partitioned = SOLVES + ADJOINTS + FORWARDS + TWISTED
+    # the mid step and the twisted route's sweeps and step around K5 and K6
+    twisted_steps = {
+        "mid_step": lambda: twist.mid_step(*main_bands, k5[0], k5[1], k5[4]),
+        "twisted_sweeps_k5_mid_k6": lambda: twist.factor_takahashi_solve_tan_twist(*main_bands),
+        "value_and_grad_twisted": lambda: value_and_grad(tmodel),
+    }
+    alone = [(n, calls[n][0]) for n in partitioned] + list(twisted_steps.items()) + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),
         ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
-        if name in partitioned and dev_ms["device_ms"] != "not measured":
+        if ((name in partitioned or name in twisted_steps)
+                and dev_ms["device_ms"] != "not measured"):
             event_ms = times[name]["median_ms"]
             dev_ms |= {"event_ms": event_ms, "gap_ms": event_ms - dev_ms["device_ms"]}
         emit("7_device_time", what=name, card=smi, **dev_ms)
