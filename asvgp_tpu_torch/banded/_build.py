@@ -27,7 +27,8 @@ SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("banded_core.cu", "banded_tan.cu", "banded_adjoint.cu",
                  "banded_solve.cu", "block_chol_inv.cu"))
 # included by the sources: part of the library's hash
-HEADERS = tuple(_PKG / "csrc" / name for name in ("chunk_scan.cuh", "schur_walk.cuh"))
+HEADERS = tuple(_PKG / "csrc" / name
+                for name in ("chunk_scan.cuh", "schur_walk.cuh", "forward_sweeps.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "asvgp_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,8 +40,8 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 ENTRY_POINTS = {
-    "asvgp_chol_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
-    "asvgp_tak_pair_solve": (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP),
+    "asvgp_chol_pair_solve": (_I, _I) + (_VP,) * 9,
+    "asvgp_tak_pair_solve": (_I, _I) + (_VP,) * 9,
     "asvgp_chol_pair_solve_tan": (_I, _I) + (_VP,) * 11,
     "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 11,
     "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 11,
@@ -61,12 +62,14 @@ ENTRY_POINTS = {
     # not launches: the doubles of global workspace per block of K16, the
     # elements of workspace of K13 / K14 / K21 / K22, of the linear sweeps
     # K11 / K19 and the adjoints K7 / K8 / K10 / K12 / K18 / K20 / K23, and
-    # of the Cholesky sweep K9 / K15 / K17, and of the twisted sweeps K5 / K6
+    # of the Cholesky sweep K9 / K15 / K17, of the twisted sweeps K5 / K6 and
+    # of the serving sweeps K1 / K2
     "asvgp_chol_inv_dense_workspace": (_I,),
     "asvgp_solve_workspace": (_I, _I, _I),
     "asvgp_carry_workspace": (_I, _I, _I),
     "asvgp_schur_workspace": (_I, _I, _I),
     "asvgp_twist_workspace": (_I, _I),
+    "asvgp_core_workspace": (_I, _I),
 }
 
 

@@ -10,8 +10,12 @@ PyTorch counterpart of ``asvgp_tpu/banded/pallas_ds_core.py``.
 
 as hand-written CUDA kernels (csrc/banded_core.cu) on CUDA tensors, and as
 their plain-PyTorch versions (``*_plain``, composed from banded/ops.py) on
-CPU tensors.  For a CUDA tensor a wrapper launches its kernel or raises;
-it never falls back.  Everything the ELBO value and the posterior need is
+CPU tensors.  Each kernel cuts its walk over the columns into chunks run in
+parallel, one matrix a block: K1 joins them by a Schur-complement walk (with
+the solve's coupling on P), K2 by a scan over their affine maps; three
+launches, scratch from here (``core_workspace``), a call counts one launch.
+For a CUDA tensor a wrapper launches its kernel or raises; it never falls
+back.  Everything the ELBO value and the posterior need is
 elementwise in the outputs: log|Kuu| and log|P| from the factor diagonals,
 bᵀP⁻¹b = ‖c₀‖², tr(Kuu⁻¹B) = band-Frobenius(S_Kuu, B).
 
@@ -156,6 +160,15 @@ def twist_workspace(k: int, m: int) -> int:
     return _build.load().asvgp_twist_workspace(k, m)
 
 
+@functools.lru_cache(maxsize=64)
+def core_workspace(k: int, m: int) -> int:
+    """Elements of float64 scratch the serving sweeps (K1's chunk triples
+    and walked Schur-complement updates, K2's chunk maps) need at (k, m),
+    for both matrices (0 when the columns form one chunk), asked of the
+    kernels' library once per shape."""
+    return _build.load().asvgp_core_workspace(k, m)
+
+
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream
     of ``device``, raise on its error code, and count the launch."""
@@ -190,19 +203,13 @@ def chol_pair_solve(kuu_band, p_band, b):
     if kuu_band.device.type == "cpu":
         return chol_pair_solve_plain(kuu_band, p_band, b)
     _check_cuda(k, (kuu_band, p_band, b))
-    lib = _build.load()
     l_kuu = torch.empty_like(kuu_band)
     l_p = torch.empty_like(p_band)
     iv = kuu_band.new_empty((2, m))
     c0 = kuu_band.new_empty((m,))
-    with torch.cuda.device(kuu_band.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.asvgp_chol_pair_solve(
-            k, m, kuu_band.data_ptr(), p_band.data_ptr(), b.data_ptr(),
-            l_kuu.data_ptr(), l_p.data_ptr(), iv.data_ptr(), c0.data_ptr(), stream,
-        )
-    _build.check(lib, rc, "chol_pair_solve")
-    LAUNCHES["chol_pair_solve"] += 1
+    ws = kuu_band.new_empty(core_workspace(k, m))
+    _launch("chol_pair_solve", "asvgp_chol_pair_solve", kuu_band.device, k, m,
+            *(t.data_ptr() for t in (kuu_band, p_band, b, l_kuu, l_p, iv, c0, ws)))
     return l_kuu, l_p, iv, c0
 
 
@@ -232,18 +239,12 @@ def tak_pair_solve(l_kuu, l_p, iv, c0):
     if l_kuu.device.type == "cpu":
         return tak_pair_solve_plain(l_kuu, l_p, iv, c0)
     _check_cuda(k, (l_kuu, l_p, iv, c0))
-    lib = _build.load()
     s_kuu = torch.empty_like(l_kuu)
     s_p = torch.empty_like(l_p)
     u = c0.new_empty((m,))
-    with torch.cuda.device(l_kuu.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.asvgp_tak_pair_solve(
-            k, m, l_kuu.data_ptr(), l_p.data_ptr(), iv.data_ptr(), c0.data_ptr(),
-            s_kuu.data_ptr(), s_p.data_ptr(), u.data_ptr(), stream,
-        )
-    _build.check(lib, rc, "tak_pair_solve")
-    LAUNCHES["tak_pair_solve"] += 1
+    ws = l_kuu.new_empty(core_workspace(k, m))
+    _launch("tak_pair_solve", "asvgp_tak_pair_solve", l_kuu.device, k, m,
+            *(t.data_ptr() for t in (l_kuu, l_p, iv, c0, s_kuu, s_p, u, ws)))
     return s_kuu, s_p, u
 
 

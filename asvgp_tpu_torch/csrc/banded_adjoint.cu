@@ -48,8 +48,10 @@
 // banded_solve.cu) and the outputs from the true incoming carries (see
 // "The linear sweeps" below).  The Cholesky sweep is joined across chunks
 // by a K x K Schur-complement update instead: triples, a walk, the factor
-// (see chol_fwd below).  The float instantiation is the same code: only
-// the type of every value, constant and intrinsic changes.
+// (see chol_fwd in forward_sweeps.cuh, which holds the forward sweeps'
+// chunk passes: K1 and K2 in banded_core.cu run them too).  The float
+// instantiation is the same code: only the type of every value, constant
+// and intrinsic changes.
 //
 // A pivot d <= 0 gives NaN, as the reference recursions do; nothing clamps.
 
@@ -59,251 +61,39 @@
 #include <cstddef>
 
 #include "chunk_scan.cuh"
-#include "schur_walk.cuh"
+#include "forward_sweeps.cuh"
 
 namespace {
 
-// the column of walk position u: m-1-u walking down, u walking up
-template <bool kDown>
-__device__ __forceinline__ int walk_col(int m, int u) {
-  return kDown ? m - 1 - u : u;
-}
-
-// Stage dst[r][t] = band[r][col] for t < n, col = the column of walk
-// position u0 + shift + t (shift positions further along the walk than
-// u0 + t), or 0 where col lies outside 0..m-1; ROWS = K+1 for a band, 1
-// for a vector.  The caller commits the group.
-template <int ROWS, typename T, bool kDown>
-__device__ __forceinline__ void stage_cols(T (*dst)[kTile], const T* __restrict__ band, int m,
-                                           int u0, int n, int shift) {
-  const size_t ms = static_cast<size_t>(m);
-  for (int idx = threadIdx.x; idx < ROWS * kTile; idx += 32) {
-    const int r = idx / kTile;
-    const int t = idx % kTile;
-    if (t < n) {
-      const int col = walk_col<kDown>(m, u0 + shift + t);
-      if (col >= 0 && col < m) {
-        cp_async(&dst[r][t], band + r * ms + col);
-      } else {
-        dst[r][t] = T(0);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K9 / K15 / K17: chol_fwd<K, T>
-//
-// Columns i = 0..m-1, with the window w[p-1][r] = L[i-p+r, i-p]:
-//   s_j = sum_p L[i, i-p] L[i+j, i-p],  L[i, i] = sqrt(a_0 - s_0),
-//   L[i+j, i] = (a_j - s_j) / L[i, i],  rows i + j >= m zeroed
-// (the right-padding mask of the TPU kernel's _col_mask).
-//
-// The step takes square roots and divides of what it carries, so the
-// scan of the linear sweeps does not apply.  What the columns before a
-// chunk (columns c0..c1-1) send into it is only the K x K Schur-complement
-// update of its first K rows, W = L[c0:c0+K, :c0] L[c0:c0+K, :c0]^T: the
-// chunk's columns of L are the plain recursion on its diagonal block A_c
-// with W subtracted from the first K rows, started from a zero window.
-// Over a chunk, W maps to the next chunk's by a matrix Riccati map fixed
-// by three K x K matrices of A_c alone:
-//   W' = R + Q^T (I - W P)^-1 W Q,
-// P = (A_c^-1)[:K, :K] = V^T V with V = L_c^-1 E (L_c = chol(A_c), E the
-// first K unit columns), Q = V_last^T X^T and R = X X^T, V_last the last K
-// rows of V and X the entries L_c's last K columns put in the next
-// chunk's first K rows (the plain recursion writes them; X and the
-// coupling block of A are upper triangular).  With U = chol(P),
-// G = [U Q]^T W [U Q] and F = chol(I - G11):
-//   W' = R + G22 + Y^T Y,  Y = F^-1 G12.
-// I - G11 = I - U^T W U has the eigenvalues of I - W P and is positive
-// definite exactly when the chunk's true Schur complement A_c - E W E^T
-// is: a pivot d <= 0 in a chunk makes F, and every later W, NaN, so the
-// factor is NaN from the failing column on, as the one-chain recursion
-// gives it.  No pivoting, and no factor of W (only semidefinite where the
-// band's outer diagonal is zero).  Three launches when m spans more than
-// one chunk (schur_chunk_cols):
-//   1. triples (chol_fwd_chunk_kernel<.., true>), grid (chunks but the
-//      last, matrices): the chunk's plain recursion from W = 0, V's rows
-//      substituted along it; writes (U, Q, R), no L.
-//   2. walk (schur_walk_kernel), one thread per matrix: every chunk's W.
-//   3. factor (chol_fwd_chunk_kernel<.., false>), grid (chunks, matrices):
-//      W subtracted from the staged first K columns of A, the plain
-//      recursion from a zero window, L written.
-// Passes 1 and 3 run one column step (chol_fwd_step) in the order of
-// operations of the one-chain recursion, so chunk 0 (W = 0) is that
-// recursion bit for bit.  Each CTA stages A's columns as the linear sweeps
-// stage theirs (below); pass 2 stages every triple of a matrix in shared
-// memory, K^2 + K(K+1) values a chunk, which caps the chunk count.  The
-// triples' and the walk's arithmetic (schur_v_row, schur_triple,
-// schur_step) is in schur_walk.cuh, shared with K5 (banded_tan.cu).
+// K9 / K15 / K17: chol_fwd<K, T>, the kernels of the passes of
+// forward_sweeps.cuh over a batch of matrices (blockIdx.y)
 // ---------------------------------------------------------------------------
-template <int K, typename T>
-__device__ __forceinline__ T chol_fwd_step(T (&w)[K][K + 1], const T (&ac)[K + 1], int i, int m,
-                                           T (&col)[K + 1]) {
-  T s[K + 1];
-#pragma unroll
-  for (int j = 0; j <= K; ++j) s[j] = T(0);
-#pragma unroll
-  for (int q = 1; q <= K; ++q) {
-    const T g = w[q - 1][q];  // L[i, i-q]
-#pragma unroll
-    for (int j = 0; j + q <= K; ++j) s[j] = fma_t(g, w[q - 1][q + j], s[j]);
-  }
-
-  const T l0 = sqrt_t(ac[0] - s[0]);
-  const T rv = T(1) / l0;
-  col[0] = l0;
-#pragma unroll
-  for (int j = 1; j <= K; ++j) {
-    // multiply by the mask (not select) so a NaN pivot stays NaN
-    col[j] = (ac[j] - s[j]) * rv * ((i + j < m) ? T(1) : T(0));
-  }
-
-#pragma unroll
-  for (int q = K - 1; q > 0; --q) {
-#pragma unroll
-    for (int r = 0; r <= K; ++r) w[q][r] = w[q - 1][r];
-  }
-#pragma unroll
-  for (int r = 0; r <= K; ++r) w[0][r] = col[r];
-  return rv;
-}
-
-// Passes 1 (kMaps) and 3 over chunk blockIdx.x of matrix blockIdx.y:
-// columns i = s..e-1.  A tile stages A's columns.  A triple is, packed:
-// U's lower triangle by rows (D values), Q (K x K, row-major), R's upper
-// triangle by rows (D); W is packed as R.
 template <int K, typename T, bool kMaps>
 __global__ void __launch_bounds__(32)
 chol_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ a_all,
                       T* __restrict__ l_all, const T* __restrict__ win,
                       T* __restrict__ tri) {
   constexpr int D = K * (K + 1) / 2;
-  __shared__ T at[2][K + 1][kTile];  // A columns of the positions
   const int j0 = blockIdx.x;
   const size_t mat = blockIdx.y;
-  const int lane = threadIdx.x;
-  const size_t ms = static_cast<size_t>(m);
-  const size_t off = mat * (K + 1) * ms;
-  const T* __restrict__ a = a_all + off;
-  const int s = j0 * lc;
-  const int e = (s + lc < m) ? s + lc : m;
-
-  T w[K][K + 1];
-  T vw[K][K];  // pass 1: vw[p-1][f] = V[i-p-s, f], the last K rows of V
-  T pa[K][K];  // pass 1: P = V^T V, its upper triangle
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-#pragma unroll
-    for (int r = 0; r <= K; ++r) w[q][r] = T(0);
-#pragma unroll
-    for (int f = 0; f < K; ++f) {
-      vw[q][f] = T(0);
-      pa[q][f] = T(0);
-    }
-  }
-
-  const int ntiles = (e - s + kTile - 1) / kTile;
-  stage_cols<K + 1, T, false>(at[0], a, m, s, min(kTile, e - s), 0);
-  cp_async_commit();
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    const int u0 = s + tile * kTile;
-    const int n = min(kTile, e - u0);
-    if (tile + 1 < ntiles) {
-      const int u1 = u0 + kTile;
-      stage_cols<K + 1, T, false>(at[buf ^ 1], a, m, u1, min(kTile, e - u1), 0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (!kMaps && tile == 0 && j0 > 0) {
-      // W off the chunk's first K rows: lane d takes slot d = (r, r + c),
-      // band entry c of column s + r
-      if (lane < D) {
-        int r = 0;
-        int c = lane;
-        while (c >= K - r) {
-          c -= K - r;
-          ++r;
-        }
-        if (r < n) at[0][c][r] -= win[(mat * nmap + j0 - 1) * D + lane];
-      }
-      __syncthreads();
-    }
-    for (int t = 0; t < n; ++t) {
-      const int i = u0 + t;
-      T ac[K + 1];
-#pragma unroll
-      for (int r = 0; r <= K; ++r) ac[r] = at[buf][r][t];
-      T g[K];  // L[i, i-p], before the step shifts the window
-#pragma unroll
-      for (int p = 1; p <= K; ++p) g[p - 1] = w[p - 1][p];
-      T col[K + 1];
-      const T rv = chol_fwd_step<K, T>(w, ac, i, m, col);
-      if (kMaps) {
-        T vn[K];
-        schur_v_row<K, T>(g, rv, i - s, vw, pa, vn);
-      } else if (lane == 0) {
-        T* __restrict__ l = l_all + off;
-#pragma unroll
-        for (int r = 0; r <= K; ++r) l[r * ms + i] = col[r];
-      }
-    }
-    __syncthreads();
-  }
-
-  if (kMaps && lane == 0) {
-    schur_triple<K, T>(w, vw, pa, tri + (mat * nmap + j0) * (K * K + 2 * D));
-  }
+  const size_t off = mat * (K + 1) * static_cast<size_t>(m);
+  const size_t slot = mat * nmap + j0;
+  chol_fwd_chunk<K, T, kMaps, false>(
+      m, lc, j0, a_all + off, nullptr, kMaps ? nullptr : l_all + off, nullptr, nullptr,
+      (!kMaps && j0 > 0) ? win + (slot - 1) * D : nullptr,
+      kMaps ? tri + slot * (K * K + 2 * D) : nullptr);
 }
 
-// Pass 2 for matrix blockIdx.y: its nmap triples staged in shared memory,
-// then one thread walks W from 0 and writes the W of chunk c + 1 at
-// win + c D.  Up to K = 3 the next chunk's triple is read into registers
-// while the current one's step runs; beyond, it would not fit beside the
-// step's.
 template <int K, typename T>
 __global__ void __launch_bounds__(32)
 schur_walk_kernel(int nmap, const T* __restrict__ tri, T* __restrict__ win) {
   constexpr int D = K * (K + 1) / 2;
   constexpr int kTri = K * K + 2 * D;
   extern __shared__ __align__(16) unsigned char walk_smem[];
-  T* ts = reinterpret_cast<T*>(walk_smem);
   const size_t mat = blockIdx.y;
-  tri += mat * nmap * kTri;
-  win += mat * nmap * D;
-  for (int idx = threadIdx.x; idx < nmap * kTri; idx += 32) cp_async(&ts[idx], tri + idx);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-
-  T W[K][K];
-#pragma unroll
-  for (int x = 0; x < K; ++x) {
-#pragma unroll
-    for (int y = 0; y < K; ++y) W[x][y] = T(0);
-  }
-  if constexpr (K <= 3) {
-    T nx[kTri];
-#pragma unroll
-    for (int i = 0; i < kTri; ++i) nx[i] = ts[i];
-    for (int c = 0; c < nmap; ++c) {
-      T cur[kTri];
-#pragma unroll
-      for (int i = 0; i < kTri; ++i) cur[i] = nx[i];
-      if (c + 1 < nmap) {
-#pragma unroll
-        for (int i = 0; i < kTri; ++i) nx[i] = ts[(c + 1) * kTri + i];
-      }
-      schur_step<K, T>(W, cur, win + c * D);
-    }
-  } else {
-    for (int c = 0; c < nmap; ++c) schur_step<K, T>(W, ts + c * kTri, win + c * D);
-  }
+  schur_walk<K, T, false>(nmap, tri + mat * nmap * kTri, kTri, win + mat * nmap * D, D,
+                          reinterpret_cast<T*>(walk_smem));
 }
 
 // ---------------------------------------------------------------------------
@@ -505,134 +295,23 @@ chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
 }
 
 // ---------------------------------------------------------------------------
-// K11 / K19: tak_fwd<K, T>
-//
-// Columns j = m-1..0, with d = 1 / L[j, j] and the window cs[p-1][r] =
-// S[j+p+r, j+p] of the columns already done:
-//   s_q = -d sum_p S[j+max(p,q), j+min(p,q)] L[j+p, j],   q = 1..K,
-//   S[j, j] = d^2 - d sum_q L[j+q, j] s_q,  rows j + q >= m zeroed.
-// K2's reverse sweep without the solve, dividing for d itself.  The step
-// reads the D slots cs[c][r], r < K - c, of the window; given L the new
-// column is affine in them, d^2 the particular part.
+// K11 / K19: tak_fwd<K, T>, the kernel of forward_sweeps.cuh's tak_fwd_chunk
+// over a batch of matrices (blockIdx.y)
 // ---------------------------------------------------------------------------
-template <int K, typename T, bool kMaps>
-__device__ __forceinline__ void tak_fwd_step(T (&cs)[K][K + 1], const T (&lc)[K + 1], T part,
-                                             int j, int m, T (&col)[K + 1]) {
-  const T d = T(1) / lc[0];
-  T sq[K + 1];
-  sq[0] = T(0);
-#pragma unroll
-  for (int q = 1; q <= K; ++q) {
-    T acc = T(0);
-#pragma unroll
-    for (int p = 1; p <= K; ++p) {
-      const int lo = (p < q) ? p : q;
-      const int df = (p < q) ? (q - p) : (p - q);
-      acc = fma_t(cs[lo - 1][df], lc[p], acc);
-    }
-    sq[q] = -d * acc;
-  }
-  T ws = T(0);
-#pragma unroll
-  for (int q = 1; q <= K; ++q) ws = fma_t(lc[q], sq[q], ws);
-
-  // pass 1's homogeneous lanes (part = 0) leave the d^2 term out
-  col[0] = kMaps ? part * (d * d) - d * ws : d * d - d * ws;
-#pragma unroll
-  for (int q = 1; q <= K; ++q) col[q] = sq[q] * ((j + q < m) ? T(1) : T(0));
-
-#pragma unroll
-  for (int q = K - 1; q > 0; --q) {
-#pragma unroll
-    for (int rr = 0; rr <= K; ++rr) cs[q][rr] = cs[q - 1][rr];
-  }
-#pragma unroll
-  for (int rr = 0; rr <= K; ++rr) cs[0][rr] = col[rr];
-}
-
-// Passes 1 (kMaps) and 3 over chunk blockIdx.x of matrix blockIdx.y: walk
-// positions s..e-1, columns j = m-1-u.  A tile stages L's columns.
 template <int K, typename T, bool kMaps>
 __global__ void __launch_bounds__(32)
 tak_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
                      T* __restrict__ s_all, const T* __restrict__ win,
                      T* __restrict__ hmap, T* __restrict__ ymap) {
   constexpr int D = K * (K + 1) / 2;
-  __shared__ T lt[2][K + 1][kTile];  // L columns of the positions
   const int j0 = blockIdx.x;
   const size_t mat = blockIdx.y;
-  const int lane = threadIdx.x;
-  const size_t ms = static_cast<size_t>(m);
-  const size_t off = mat * (K + 1) * ms;
-  const T* __restrict__ l = l_all + off;
-  const int s = j0 * lc;
-  const int e = (s + lc < m) ? s + lc : m;
-
-  T cs[K][K + 1];
-  {
-    int d = 0;
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) cs[c][r] = T(0);
-#pragma unroll
-      for (int r = 0; r < K - c; ++r, ++d) {
-        if (kMaps) {
-          cs[c][r] = (lane == d) ? T(1) : T(0);
-        } else if (j0 > 0) {
-          cs[c][r] = win[(mat * nmap + j0 - 1) * D + d];
-        }
-      }
-    }
-  }
-  const T part = (!kMaps || lane == D) ? T(1) : T(0);
-
-  const int ntiles = (e - s + kTile - 1) / kTile;
-  stage_cols<K + 1, T, true>(lt[0], l, m, s, min(kTile, e - s), 0);
-  cp_async_commit();
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    const int u0 = s + tile * kTile;
-    const int n = min(kTile, e - u0);
-    if (tile + 1 < ntiles) {
-      const int u1 = u0 + kTile;
-      stage_cols<K + 1, T, true>(lt[buf ^ 1], l, m, u1, min(kTile, e - u1), 0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      const int j = m - 1 - (u0 + t);
-      T lcur[K + 1];
-#pragma unroll
-      for (int r = 0; r <= K; ++r) lcur[r] = lt[buf][r][t];
-      T col[K + 1];
-      tak_fwd_step<K, T, kMaps>(cs, lcur, part, j, m, col);
-      if (!kMaps && lane == 0) {
-        T* __restrict__ s_out = s_all + off;
-#pragma unroll
-        for (int r = 0; r <= K; ++r) s_out[r * ms + j] = col[r];
-      }
-    }
-    __syncthreads();
-  }
-
-  if (kMaps) {
-    int d = 0;
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-#pragma unroll
-      for (int r = 0; r < K - c; ++r, ++d) {
-        if (lane < D) {
-          hmap[((mat * nmap + j0) * D + d) * D + lane] = cs[c][r];
-        } else if (lane == D) {
-          ymap[(mat * nmap + j0) * D + d] = cs[c][r];
-        }
-      }
-    }
-  }
+  const size_t off = mat * (K + 1) * static_cast<size_t>(m);
+  const size_t slot = mat * nmap + j0;
+  tak_fwd_chunk<K, T, kMaps, false, false, D>(
+      m, lc, j0, l_all + off, nullptr, nullptr, kMaps ? nullptr : s_all + off, nullptr,
+      (!kMaps && j0 > 0) ? win + (slot - 1) * D : nullptr,
+      kMaps ? hmap + slot * D * D : nullptr, kMaps ? ymap + slot * D : nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -846,12 +525,7 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
 // at k = 5, 192 at k = 6.
 int carry_chunk_cols(int k, int m) {
   const long d = static_cast<long>(k) * (k + 1) / 2;
-  long cap = static_cast<long>(kSmemLimit / ((d * d + d) * sizeof(double))) + 1;
-  if (cap > kMaxChunks) cap = kMaxChunks;
-  long lc = (m + cap - 1) / cap;
-  if (lc < kMinChunk) lc = kMinChunk;
-  lc = (lc + kTile - 1) / kTile * kTile;
-  return static_cast<int>(lc < m ? lc : m);
+  return partition_cols(d * d + d, kMinChunk, m);
 }
 
 // Elements of T of the workspace of a linear sweep over nb matrices: H
@@ -872,13 +546,8 @@ size_t carry_workspace(int k, int m, int nb) {
 // took the least device time of 64, 128 and 192 for k = 3 in float64 on
 // an H100 (tools/forward_ab.py --schur-chunk).
 int schur_chunk_cols(int k, int m) {
-  const long per = static_cast<long>(k) * k + static_cast<long>(k) * (k + 1);
-  long cap = static_cast<long>(kSmemLimit / (per * sizeof(double))) + 1;
-  if (cap > kMaxChunks) cap = kMaxChunks;
-  long lc = (m + cap - 1) / cap;
-  if (lc < ASVGP_SCHUR_CHUNK) lc = ASVGP_SCHUR_CHUNK;
-  lc = (lc + kTile - 1) / kTile * kTile;
-  return static_cast<int>(lc < m ? lc : m);
+  return partition_cols(static_cast<long>(k) * k + static_cast<long>(k) * (k + 1),
+                        ASVGP_SCHUR_CHUNK, m);
 }
 
 // Elements of T of the Cholesky sweep's workspace over nb matrices: the

@@ -464,7 +464,7 @@ constexpr int kQuadTriStride = 2 * (K * K + K * (K + 1));
 // 0.32 us a column.
 //
 // What the design does about it: chol_fwd's Schur partition
-// (banded_adjoint.cu, the helpers in schur_walk.cuh), with what crosses a
+// (forward_sweeps.cuh, the helpers in schur_walk.cuh), with what crosses a
 // chunk boundary widened.  A Kuu matrix carries W as a dual number: its
 // tangent is exact because the tangent of chol(A_c - E W E^T) is the
 // Cholesky tangent in the direction T_c - E Wdot E^T, and Wdot walks beside
@@ -646,21 +646,7 @@ __device__ __forceinline__ void chol_quad_chunk(
     }
     double* o = tri + (static_cast<size_t>(t) * nmap + j0) * kQuadTriStride<K>;
     schur_triple<K, V>(wv, vw, pa, reinterpret_cast<V*>(o));
-    if constexpr (!kKuu) {
-      // p0, then r0[a] = sum_b X[a][b] y0[e-K+b], y0[e-K+b] = st.x[K-1-b]
-      double* op = o + K * K + 2 * D;
-#pragma unroll
-      for (int f = 0; f < K; ++f) op[f] = p0[f];
-#pragma unroll
-      for (int x0 = 0; x0 < K; ++x0) {
-        double acc = 0.0;
-#pragma unroll
-        for (int bb = x0; bb < K; ++bb) {
-          acc = fma(st.w[K - 1 - bb][K + x0 - bb], st.x[K - 1 - bb], acc);
-        }
-        op[K + x0] = acc;
-      }
-    }
+    if constexpr (!kKuu) schur_solve_tail<K, double>(st.w, st.x, p0, o + K * K + 2 * D);
   }
   if (!kMaps && e == n) {
     // the R stream is one column shorter when m - K is odd: zero the rest
@@ -697,10 +683,10 @@ chol_quad_chunk_kernel(int m, int h, int lc, int nmap, const double* __restrict_
   }
 }
 
-// Pass 2 for matrix blockIdx.y: its triples staged in shared memory, then
-// one thread walks from 0 and writes the carry of chunk c + 1 at
-// win + c K(K+1): Kuu walks W in dual numbers (schur_step<K, Dual>), P
-// walks W and beta (schur_step<K, double, true>).
+// Pass 2 for matrix blockIdx.y: schur_walk over its stream's triples from
+// 0, writing the carry of chunk c + 1 at win + c K(K+1): Kuu walks W in
+// dual numbers (schur_step<K, Dual>), P walks W and beta
+// (schur_step<K, double, true>).
 template <int K>
 __global__ void __launch_bounds__(32)
 chol_quad_walk_kernel(int m, int h, int lc, int nmap, const double* __restrict__ tri,
@@ -708,40 +694,18 @@ chol_quad_walk_kernel(int m, int h, int lc, int nmap, const double* __restrict__
   constexpr int D = K * (K + 1) / 2;
   constexpr int kStride = kQuadTriStride<K>;
   extern __shared__ __align__(16) unsigned char quad_walk_smem[];
-  double* ts = reinterpret_cast<double*>(quad_walk_smem);
   const int t = blockIdx.y;
   const int n = (t >> 1) ? m - h - K : h;
   const int nm = (n + lc - 1) / lc - 1;  // this stream's triples
   tri += static_cast<size_t>(t) * nmap * kStride;
   win += static_cast<size_t>(t) * nmap * 2 * D;
-  for (int idx = threadIdx.x; idx < nm * kStride; idx += 32) cp_async(&ts[idx], tri + idx);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  if (threadIdx.x != 0) return;
   if ((t & 1) == 0) {
-    Dual W[K][K];
-#pragma unroll
-    for (int x = 0; x < K; ++x) {
-#pragma unroll
-      for (int z = 0; z < K; ++z) W[x][z] = Dual(0.0);
-    }
-    for (int c = 0; c < nm; ++c) {
-      schur_step<K, Dual>(W, reinterpret_cast<const Dual*>(ts + c * kStride),
-                          reinterpret_cast<Dual*>(win + c * 2 * D));
-    }
+    schur_walk<K, Dual, false>(nm, reinterpret_cast<const Dual*>(tri), kStride / 2,
+                               reinterpret_cast<Dual*>(win), D,
+                               reinterpret_cast<Dual*>(quad_walk_smem));
   } else {
-    double W[K][K];
-    double beta[K];
-#pragma unroll
-    for (int x = 0; x < K; ++x) {
-      beta[x] = 0.0;
-#pragma unroll
-      for (int z = 0; z < K; ++z) W[x][z] = 0.0;
-    }
-    for (int c = 0; c < nm; ++c) {
-      schur_step<K, double, true>(W, ts + c * kStride, win + c * 2 * D, beta);
-    }
+    schur_walk<K, double, true>(nm, tri, kStride, win, 2 * D,
+                                reinterpret_cast<double*>(quad_walk_smem));
   }
 }
 
@@ -1056,13 +1020,8 @@ cudaError_t launch_tak_tan(int m, const double* l_kuu, const double* l_p,
 // 0.093 / 0.115 / 0.142 ms of device time at 64 / 128 / 192 / 256 columns
 // (tools/twist_ab.py --schur-chunk): 128 is K9's length, within 6 %.
 int chol_quad_chunk_cols(int k, int h) {
-  const long per = 2 * (static_cast<long>(k) * k + static_cast<long>(k) * (k + 1));
-  long cap = static_cast<long>(kSmemLimit / (per * sizeof(double))) + 1;
-  if (cap > kMaxChunks) cap = kMaxChunks;
-  long lc = (h + cap - 1) / cap;
-  if (lc < ASVGP_SCHUR_CHUNK) lc = ASVGP_SCHUR_CHUNK;
-  lc = (lc + kTile - 1) / kTile * kTile;
-  return static_cast<int>(lc < h ? lc : h);
+  return partition_cols(2 * (static_cast<long>(k) * k + static_cast<long>(k) * (k + 1)),
+                        ASVGP_SCHUR_CHUNK, h);
 }
 
 // Columns per chunk of K6: at least ASVGP_TAK_QUAD_CHUNK, at most kMaxChunks chunks
@@ -1073,12 +1032,7 @@ int chol_quad_chunk_cols(int k, int h) {
 // 64 / 128 / 192 / 256 columns (tools/twist_ab.py --tak-chunk).
 int tak_quad_chunk_cols(int k, int h) {
   const long dd = static_cast<long>(k) * (k + 1);
-  long cap = static_cast<long>(kSmemLimit / ((dd * dd + dd) * sizeof(double))) + 1;
-  if (cap > kMaxChunks) cap = kMaxChunks;
-  long lc = (h + cap - 1) / cap;
-  if (lc < ASVGP_TAK_QUAD_CHUNK) lc = ASVGP_TAK_QUAD_CHUNK;
-  lc = (lc + kTile - 1) / kTile * kTile;
-  return static_cast<int>(lc < h ? lc : h);
+  return partition_cols(dd * dd + dd, ASVGP_TAK_QUAD_CHUNK, h);
 }
 
 // Doubles of workspace K5 or K6 needs (the larger): K5's triples (4, P-1,

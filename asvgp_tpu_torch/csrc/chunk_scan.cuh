@@ -15,7 +15,9 @@
 // Takahashi adjoints, D = K(K+1)/2, one map sequence per matrix of a
 // batch) and banded_tan.cu (the twisted Takahashi sweep K6, D = K(K+1):
 // the window of S with that of its tangent or of the upper solve, one
-// sequence per matrix and stream).  The Cholesky sweeps' chunks are joined
+// sequence per matrix and stream) and banded_core.cu (the serving
+// Takahashi sweep K2, D = K(K+1)/2 + K: the window of S and on P that of
+// the upper solve, block-diagonal maps).  The Cholesky sweeps' chunks are joined
 // by a map that is not affine; their pass 2 (schur_walk.cuh) stages its
 // chunks' data the same way.
 
@@ -62,6 +64,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// the column of walk position u: m-1-u walking down, u walking up
+template <bool kDown>
+__device__ __forceinline__ int walk_col(int m, int u) {
+  return kDown ? m - 1 - u : u;
+}
+
+// Stage dst[r][t] = band[r][col] for t < n, col = the column of walk
+// position u0 + shift + t (shift positions further along the walk than
+// u0 + t), or 0 where col lies outside 0..m-1; ROWS = K+1 for a band, 1
+// for a vector.  The caller commits the group.
+template <int ROWS, typename T, bool kDown>
+__device__ __forceinline__ void stage_cols(T (*dst)[kTile], const T* __restrict__ band, int m,
+                                           int u0, int n, int shift) {
+  const size_t ms = static_cast<size_t>(m);
+  for (int idx = threadIdx.x; idx < ROWS * kTile; idx += 32) {
+    const int r = idx / kTile;
+    const int t = idx % kTile;
+    if (t < n) {
+      const int col = walk_col<kDown>(m, u0 + shift + t);
+      if (col >= 0 && col < m) {
+        cp_async(&dst[r][t], band + r * ms + col);
+      } else {
+        dst[r][t] = T(0);
+      }
+    }
+  }
+}
+
+// Positions per chunk of a walk of n positions whose pass 2 stages ``per``
+// doubles a chunk in shared memory (whatever T): at least ``least``, at
+// most kMaxChunks chunks and as many as fit, a multiple of the tile; n
+// when that is n or more (one chunk).
+inline int partition_cols(long per, long least, int n) {
+  long cap = static_cast<long>(kSmemLimit / (per * sizeof(double))) + 1;
+  if (cap > kMaxChunks) cap = kMaxChunks;
+  long lc = (n + cap - 1) / cap;
+  if (lc < least) lc = least;
+  lc = (lc + kTile - 1) / kTile * kTile;
+  return static_cast<int>(lc < n ? lc : n);
+}
+
 __device__ __forceinline__ double scan_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
 __device__ __forceinline__ float scan_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
@@ -71,8 +114,10 @@ __device__ __forceinline__ float scan_fma(float a, float b, float c) { return __
 // c walks w_{j+1} = y_j + H_j w_j from w_0 = 0 and writes w_{j+1}, the
 // incoming carry of chunk j + 1, to win (laid out as ymap).  The maps of
 // its columns are staged in shared memory first; any order of rounding
-// serves here.
-template <int D, typename T>
+// serves here.  DB < D declares every H block-diagonal with blocks
+// 0..DB-1 and DB..D-1: the walk then skips the products of the two
+// off-diagonal blocks, which are 0.
+template <int D, typename T, int DB = D>
 __global__ void __launch_bounds__(32)
 chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
                   const T* __restrict__ ymap, size_t y_stride, T* __restrict__ win) {
@@ -110,7 +155,9 @@ chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
     for (int p = 0; p < D; ++p) {
       T a = y[p];
 #pragma unroll
-      for (int qq = 0; qq < D; ++qq) a = scan_fma(h[p * D + qq], w[qq], a);
+      for (int qq = 0; qq < D; ++qq) {
+        if ((p < DB) == (qq < DB)) a = scan_fma(h[p * D + qq], w[qq], a);
+      }
       nw[p] = a;
     }
 #pragma unroll
@@ -143,17 +190,19 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
   return e;
 }
 
-// Launches pass 2 over nbatch map sequences of r columns each.
-template <int D, typename T>
+// Launches pass 2 over nbatch map sequences of r columns each (DB as for
+// chunk_scan_kernel).
+template <int D, typename T, int DB = D>
 cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t h_stride,
                               const T* ymap, size_t y_stride, T* win, cudaStream_t st) {
   const size_t smem = scan_smem_bytes<D, T>(nmap, r);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> done{0};
-  cudaError_t e = allow_smem(chunk_scan_kernel<D, T>, done);
+  cudaError_t e = allow_smem(chunk_scan_kernel<D, T, DB>, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((r + kScanCols - 1) / kScanCols, nbatch);
-  chunk_scan_kernel<D, T><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap, y_stride, win);
+  chunk_scan_kernel<D, T, DB><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap, y_stride,
+                                                      win);
   return cudaGetLastError();
 }
 

@@ -1,16 +1,17 @@
 // The Schur-complement partition of a banded Cholesky sweep, shared by the
-// single-matrix sweep chol_fwd<K, T> (banded_adjoint.cu: K9, K15, K17) and
-// the twisted tangent sweep chol_quad_solve_tan<K> (banded_tan.cu: K5).
+// single-matrix sweep chol_fwd<K, T> (forward_sweeps.cuh: K9, K15, K17 and
+// the serving sweep K1) and the twisted tangent sweep
+// chol_quad_solve_tan<K> (banded_tan.cu: K5).
 //
 // A chunk of columns c0..c1-1 receives from the columns before it only the
 // K x K update W = L[c0:c0+K, :c0] L[c0:c0+K, :c0]^T of its first K rows;
 // over the chunk, W maps to the next chunk's by a Riccati map fixed by a
 // triple of K x K matrices of the chunk's diagonal block A_c alone (see
-// chol_fwd in banded_adjoint.cu):
+// chol_fwd in forward_sweeps.cuh):
 //   W' = R + Q^T (I - W P)^-1 W Q,   P = (A_c^-1)[:K, :K] = U U^T.
 // Pass 1 computes the triple along the chunk's plain recursion from W = 0
 // (schur_v_row, schur_triple), pass 2 walks W over the chunks
-// (schur_step), pass 3 reruns each chunk with W subtracted.  Every helper
+// (schur_step, schur_walk), pass 3 reruns each chunk with W subtracted.  Every helper
 // is generic in the number type T: float and double for chol_fwd, and K5's
 // forward-mode dual number for its Kuu tangent, so that the tangent of
 // every step is the same code run on (value, tangent) pairs.
@@ -18,6 +19,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "chunk_scan.cuh"
 
 // The Cholesky sweeps' chunks are at least this many columns (a multiple
 // of the 64-column tile); a build may set it to measure another length
@@ -133,6 +136,25 @@ __device__ __forceinline__ void schur_triple(const T (&w)[K][K + 1], const T (&v
       for (int b = y; b < K; ++b) acc = fma_t(w[K - 1 - b][K + x - b], w[K - 1 - b][K + y - b], acc);
       o[d++] = acc;  // R[x][y]
     }
+  }
+}
+
+// Pass 1 with a lower solve, after the chunk's last column e-1: the solve's
+// part of the triple, at o (after R): p0 = V^T y0 as accumulated along the
+// chunk, then r0 = X y0_last, r0[a] = sum_b X[a][b] y0[e-K+b], from the
+// factor's window w (X as in schur_triple) and the solve's window x
+// (x[q-1] = y0[e-q]).
+template <int K, typename T>
+__device__ __forceinline__ void schur_solve_tail(const T (&w)[K][K + 1], const T (&x)[K],
+                                                 const T (&p0)[K], T* __restrict__ o) {
+#pragma unroll
+  for (int f = 0; f < K; ++f) o[f] = p0[f];
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    T acc = T(0);
+#pragma unroll
+    for (int b = a; b < K; ++b) acc = fma_t(w[K - 1 - b][K + a - b], x[K - 1 - b], acc);
+    o[K + a] = acc;
   }
 }
 
@@ -280,6 +302,52 @@ __device__ __forceinline__ void schur_step(T (&W)[K][K], const T* cur, T* __rest
       W[y][x] = acc;
       wout[d] = acc;
       ++d;
+    }
+  }
+}
+
+// Pass 2 for one matrix: its nmap triples (tstride values apart, from tri)
+// staged in ts, shared memory, then one thread walks W (and, kSolve, beta)
+// from 0 and writes the carry of chunk c + 1 (W packed as R, then beta) at
+// win + c wstride.  Up to K = 3 the next chunk's triple of scalars is read
+// into registers while the current one's step runs; beyond, and for dual
+// numbers, it would not fit beside the step's.
+template <int K, typename T, bool kSolve>
+__device__ __forceinline__ void schur_walk(int nmap, const T* __restrict__ tri, int tstride,
+                                           T* __restrict__ win, int wstride, T* ts) {
+  constexpr int D = K * (K + 1) / 2;
+  constexpr int kTri = K * K + 2 * D + (kSolve ? 2 * K : 0);
+  for (int idx = threadIdx.x; idx < nmap * tstride; idx += 32) cp_async(&ts[idx], tri + idx);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  T W[K][K];
+  T beta[K];
+#pragma unroll
+  for (int x = 0; x < K; ++x) {
+    beta[x] = T(0);
+#pragma unroll
+    for (int y = 0; y < K; ++y) W[x][y] = T(0);
+  }
+  if constexpr (K <= 3 && sizeof(T) <= sizeof(double)) {
+    T nx[kTri];
+#pragma unroll
+    for (int i = 0; i < kTri; ++i) nx[i] = ts[i];
+    for (int c = 0; c < nmap; ++c) {
+      T cur[kTri];
+#pragma unroll
+      for (int i = 0; i < kTri; ++i) cur[i] = nx[i];
+      if (c + 1 < nmap) {
+#pragma unroll
+        for (int i = 0; i < kTri; ++i) nx[i] = ts[(c + 1) * tstride + i];
+      }
+      schur_step<K, T, kSolve>(W, cur, win + c * wstride, beta);
+    }
+  } else {
+    for (int c = 0; c < nmap; ++c) {
+      schur_step<K, T, kSolve>(W, ts + c * tstride, win + c * wstride, beta);
     }
   }
 }

@@ -23,7 +23,11 @@ points, on the card:
      and K6 at the edges of their partitions (both parities of m − k, the
      reversed stream a chunk shorter, one chunk, a chunk edge at the middle
      block, k = 6 at m = 10⁴), each stream's first chunk equal bit for bit
-     to the kernel on a problem made of that chunk alone
+     to the kernel on a problem made of that chunk alone; the serving
+     sweeps K1 and K2 at the edges of their partitions (one column, one
+     chunk of each and one more column, ragged last chunks, k = 6 at
+     m = 10⁴), each walk's first chunk equal bit for bit to the kernel on
+     that chunk alone
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -99,13 +103,17 @@ points, on the card:
      Cholesky walk's largest entry of W and smallest singular value of
      I − W P; for K5 and K6 on the north star's bands, each stream's
      largest W, Ẇ (Kuu) and β (P), the smallest eigenvalue of I − UᵀWU
-     and K6's maps' largest entry
+     and K6's maps' largest entry; for K1 and K2 on the same bands, Kuu's
+     and P's largest W, P's β, the smallest eigenvalue of I − UᵀWU and
+     K2's maps' largest entry
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
-     REPS times on the host clock), the device time of K13, K14, K21, K22,
+     REPS times on the host clock), the device time of K1, K2, K13, K14,
+     K21, K22,
      the adjoints K7, K8, K10, K12, K18, K20, K23, the forward sweeps K9,
      K11, K15, K17, K19, the twisted sweeps K5, K6, and K16 alone
-     (torch.profiler), of the mid step, of K5 + mid + K6 and of the twisted
+     (torch.profiler), of K1 + K2, the float64 posterior and the value-only
+     ELBO, of the mid step, of K5 + mid + K6 and of the twisted
      value-and-grad step, and the partitioned kernels' and those steps'
      event time less their device time, each kernel's bound,
      cholesky_solve_band, the
@@ -372,6 +380,19 @@ TWIST_EDGES = ((1, 1001), (2, 1000), (2, 2 * 129 + 1), (3, 2 * 129 + 2), (3, 2 *
                (4, 2 * 256 + 4), (5, 2 * 256 + 5), (6, 2 * 256 + 6), (6, 10_000))
 TWISTED = ("chol_quad_solve_tan", "tak_quad_solve_tan")
 SMEM_LIMIT, MAX_CHUNKS, TILE = 232448, 256, 64  # csrc/chunk_scan.cuh
+# the serving sweeps K1 (chol_pair_solve; 128-column chunks, its walk stages
+# k² + k(k+1) + 2k doubles a chunk) and K2 (tak_pair_solve; 64 at k <= 3,
+# as many as the scan can stage maps of DD² + DD doubles, DD = k(k+1)/2 + k)
+# at the edges of their partitions (phase 2), (k, m), for k = 1..6: one
+# column (k = 1); one chunk of K2 exactly and one more column; one chunk of
+# K1 exactly and one more column; ragged last chunks of both (165: K2's
+# third and K1's second chunk of 37 columns; 293: K1's third, K2's fifth);
+# k = 6 at m = 10⁴ (K2's 320-column chunks).  Each walk's first chunk (K1's
+# first CORE_FIRST[0] columns, K2's last CORE_FIRST[1]) is the kernel on
+# those columns alone
+CORE_EDGES = ((1, 1),) + tuple((k, m) for k in range(1, 7)
+                               for m in (64, 65, 128, 129, 165, 293)) + ((6, 10_000),)
+CORE_FIRST = (128, 64)
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -1398,24 +1419,31 @@ def adjoint_maps_of(calls: dict) -> dict:
     return out
 
 
-def first_chunk_equal(fn, bands, down: bool) -> bool:
-    """Whether the first FIRST_CHUNK columns of the walk of ``fn`` (a
-    forward sweep's wrapper) over ``bands`` on the card (columns 0.. of the
-    Cholesky walking up, ..m-1 of the Takahashi walking down) equal bit
-    for bit the same wrapper on those columns alone, where the kernel runs
-    one pass, the one-chain recursion; the Cholesky's entries in rows past
-    them are left out."""
+def first_chunk_equal(fn, bands, down: bool, first: int = FIRST_CHUNK,
+                      nband: int | None = None) -> bool:
+    """Whether the first ``first`` columns of the walk of ``fn`` (a forward
+    sweep's wrapper) over ``bands`` (its band and vector arguments) on the
+    card (columns 0.. of the Cholesky walking up, ..m-1 of the Takahashi
+    walking down) equal bit for bit the same wrapper on those columns
+    alone, where the kernel runs one pass, the one-chain recursion.  Of the
+    Cholesky's first ``nband`` outputs (all by default), its factors'
+    bands, the entries in rows past those columns are left out; every
+    other output is compared whole."""
     m = bands[0].shape[-1]
-    c = min(FIRST_CHUNK, m)
-    cut = (lambda x: x[:, m - c:]) if down else (lambda x: x[:, :c])
+    c = min(first, m)
+    cut = (lambda x: x[..., m - c:]) if down else (lambda x: x[..., :c])
     full = fn(*bands)
     one = fn(*(cut(x).contiguous() for x in bands))
     full, one = ((t,) if isinstance(t, torch.Tensor) else t for t in (full, one))
-    inside = torch.ones_like(one[0], dtype=torch.bool)
-    if not down:
-        kp1 = inside.shape[0]
-        inside = (torch.arange(kp1)[:, None] + torch.arange(c)[None] < c).to(inside.device)
-    return all(torch.equal(cut(f)[inside], o[inside]) for f, o in zip(full, one))
+    nband = len(one) if nband is None else nband
+
+    def equal(j, f, o):
+        if down or j >= nband:
+            return torch.equal(cut(f), o)
+        inside = (torch.arange(o.shape[0])[:, None] + torch.arange(c)[None] < c).to(o.device)
+        return torch.equal(cut(f)[inside], o[inside])
+
+    return all(equal(j, f, o) for j, (f, o) in enumerate(zip(full, one)))
 
 
 def forward_edge_parity(device, rng) -> dict:
@@ -1662,6 +1690,106 @@ def twist_maps(bands) -> dict:
     if n6 > 1:
         hmap = ws[: 4 * n6 * dd * dd].view(4, n6, dd, dd)
         res["k6_h_max"] = float(hmap[:, 1:].abs().max())
+    return res
+
+
+def core_chunk_cols(k: int, m: int) -> tuple[int, int]:
+    """(K1's, K2's) columns per chunk at (k, m), as csrc/banded_core.cu's
+    core_chol_cols and core_tak_cols give them: at least 128 (K1) or 64
+    (K2), at most MAX_CHUNKS chunks and as many as K1's walk (k² + k(k+1) +
+    2k doubles a chunk) or K2's scan (DD² + DD, DD = k(k+1)/2 + k) can
+    stage, a multiple of the tile."""
+    dd = k * (k + 1) // 2 + k
+    out = []
+    for per, least in ((k * k + k * (k + 1) + 2 * k, 128), (dd * dd + dd, 64)):
+        cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
+        lc = max(least, -(-m // cap))
+        out.append(min(-(-lc // TILE) * TILE, m))
+    return out[0], out[1]
+
+
+def core_edge_parity(device, rng) -> dict:
+    """Phase 2: K1 and K2 on random SPD Kuu and P and a random b at
+    CORE_EDGES against their plain versions on CPU copies (K2 on the plain
+    K1's outputs), at the random-band bar; and each walk's first chunk
+    against the kernel on that chunk alone: K1 on the first CORE_FIRST[0]
+    columns of Kuu, P and b, K2 on the last CORE_FIRST[1] columns of K1's
+    outputs."""
+    from asvgp_tpu_torch.banded import core
+
+    rows = []
+    for k, m in CORE_EDGES:
+        host = [torch.as_tensor(a) for a in (spd_band(k, m, rng), spd_band(k, m, rng),
+                                              rng.randn(m))]
+        bands = [t.to(device) for t in host]
+        want1 = core.chol_pair_solve_plain(*host)
+        in2 = [t.to(device) for t in want1]
+        row = {"k": k, "m": m, "chunks": core_chunk_cols(k, m),
+               **_errs("chol_pair_solve", core.chol_pair_solve(*bands), want1),
+               **_errs("tak_pair_solve", core.tak_pair_solve(*in2),
+                       core.tak_pair_solve_plain(*want1))}
+        row["first_chunk_equal"] = (
+            first_chunk_equal(core.chol_pair_solve, bands, False, CORE_FIRST[0], nband=2)
+            and first_chunk_equal(core.tak_pair_solve, in2, True, CORE_FIRST[1]))
+        rows.append(row)
+    return {"rows": rows, "first_chunk_equal": all(r["first_chunk_equal"] for r in rows),
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows) for n in SERVING_KERNELS}}
+
+
+def core_maps(bands) -> dict:
+    """K1's and K2's chunks on the arguments ``bands`` = (Kuu, T, P, b) (T
+    unused): one direct launch of each C entry point (not counted), with a
+    workspace kept here, filled with NaN first (csrc/banded_core.cu's
+    layout).  For Kuu and P: the largest entry of the walked W (and of β on
+    P) and the smallest eigenvalue of I − UᵀWU over the chunks c whose W is
+    not 0 (U from the chunk's triple); and the largest entry of K2's maps
+    of the chunks that take a carry (chunk 0's meets 0), by matrix."""
+    from asvgp_tpu_torch.banded import _build
+
+    lib = _build.load()
+    kuu, _, p, b = bands
+    k, m = kuu.shape[0] - 1, kuu.shape[1]
+    d = k * (k + 1) // 2
+    dd = d + k
+    lc1, lc2 = core_chunk_cols(k, m)
+    n1, n2 = -(-m // lc1) - 1, -(-m // lc2) - 1
+    stride = k * k + 2 * d + 2 * k
+    n = lib.asvgp_core_workspace(k, m)
+    if n != max(2 * n1 * (stride + dd), 2 * n2 * (dd * dd + 2 * dd)):
+        raise AssertionError(f"core_chunk_cols {lc1, lc2} disagrees with the kernels' "
+                             f"workspace of {n} at k={k}, m={m}")
+    ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
+    k1 = [torch.empty_like(kuu), torch.empty_like(p), kuu.new_empty((2, m)), kuu.new_empty(m)]
+    k2 = [torch.empty_like(kuu), torch.empty_like(p), kuu.new_empty(m)]
+    res = {"chunks": [n1 + 1, n2 + 1]}
+    with torch.cuda.device(kuu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.asvgp_chol_pair_solve(k, m, *(t.data_ptr() for t in (kuu, p, b, *k1, ws)),
+                                       stream)
+        _build.check(lib, rc, "asvgp_chol_pair_solve")
+        tri = ws[: 2 * n1 * stride].view(2, n1, stride)
+        win = ws[2 * n1 * stride: 2 * n1 * (stride + dd)].view(2, n1, dd)
+        lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
+        eye = torch.eye(k, dtype=torch.float64, device=kuu.device)
+        for t, name in ((0, "kuu"), (1, "p")) if n1 > 0 else ():
+            u = tri.new_zeros(n1, k, k)
+            u[:, lo[0], lo[1]] = tri[t, :, :d]
+            w = tri.new_zeros(n1, k, k)
+            w[:, up[0], up[1]] = win[t, :, :d]
+            w = w + torch.triu(w, 1).mT
+            row = {"w_max": float(w.abs().max())}
+            if t == 1:
+                row["beta_max"] = float(win[t, :, d:].abs().max())
+            if n1 > 1:
+                nmat = eye - u[1:].mT @ w[:-1] @ u[1:]
+                row["sigma_min"] = float(torch.linalg.eigvalsh(nmat).min())
+            res[name] = row
+        ws.fill_(float("nan"))
+        rc = lib.asvgp_tak_pair_solve(k, m, *(t.data_ptr() for t in (*k1, *k2, ws)), stream)
+        _build.check(lib, rc, "asvgp_tak_pair_solve")
+    if n2 > 1:
+        hmap = ws[: 2 * n2 * dd * dd].view(2, n2, dd, dd)[:, 1:]
+        res["k2_h_max"] = {"kuu": float(hmap[0].abs().max()), "p": float(hmap[1].abs().max())}
     return res
 
 
@@ -1955,6 +2083,12 @@ def main() -> None:
     if not fwd_edges["first_chunk_equal"]:
         raise AssertionError(f"a forward sweep's first chunk is not the one-pass recursion: "
                              f"{fwd_edges['rows']}")
+    core_edges = core_edge_parity(device, rng)
+    emit("2_parity_core_edges", **core_edges, tol=TOL_PARITY_ADJOINT)
+    check_parity(core_edges, TOL_PARITY_ADJOINT, "of K1/K2 at the edges of their partitions")
+    if not core_edges["first_chunk_equal"]:
+        raise AssertionError(f"a serving sweep's first chunk is not the one-pass recursion: "
+                             f"{core_edges['rows']}")
     tw_edges = twist_edge_parity(device, rng)
     emit("2_parity_twist_edges", **tw_edges, tol=TOL_PARITY_ADJOINT)
     check_parity(tw_edges, TOL_PARITY_ADJOINT, "of K5/K6 at the edges of their partitions")
@@ -2264,6 +2398,9 @@ def main() -> None:
     # the twisted sweeps' partitions on the north star's Kuu, T, P and Kuf·y
     # (the bands every twisted step of the fit meets first)
     emit("6l_twist_maps", card=smi, north_star=twist_maps(main_bands))
+    # the serving sweeps' partitions on the same bands (the posterior's and
+    # the ELBO value's Kuu, P and Kuf·y)
+    emit("6l_core_maps", card=smi, north_star=core_maps(main_bands))
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
@@ -2401,19 +2538,24 @@ def main() -> None:
     # adjoints take less time on the card than their call takes on the
     # host; the gap is the event time less the device time, the wrapper's
     # and launches'
-    partitioned = SOLVES + ADJOINTS + FORWARDS + TWISTED
-    # the mid step and the twisted route's sweeps and step around K5 and K6
-    twisted_steps = {
+    partitioned = SERVING_KERNELS + SOLVES + ADJOINTS + FORWARDS + TWISTED
+    # the stages around K1 and K2 (the float64 posterior, the value-only
+    # ELBO), and the mid step and the twisted route's sweeps and step
+    # around K5 and K6
+    stages = {
+        "factor_takahashi_solve": lambda: core.factor_takahashi_solve(kuu, p_band, b),
+        "posterior": model.posterior,
+        "elbo_value": elbo_value,
         "mid_step": lambda: twist.mid_step(*main_bands, k5[0], k5[1], k5[4]),
         "twisted_sweeps_k5_mid_k6": lambda: twist.factor_takahashi_solve_tan_twist(*main_bands),
         "value_and_grad_twisted": lambda: value_and_grad(tmodel),
     }
-    alone = [(n, calls[n][0]) for n in partitioned] + list(twisted_steps.items()) + [
+    alone = [(n, calls[n][0]) for n in partitioned] + list(stages.items()) + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),
         ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
-        if ((name in partitioned or name in twisted_steps)
+        if ((name in partitioned or name in stages)
                 and dev_ms["device_ms"] != "not measured"):
             event_ms = times[name]["median_ms"]
             dev_ms |= {"event_ms": event_ms, "gap_ms": event_ms - dev_ms["device_ms"]}
