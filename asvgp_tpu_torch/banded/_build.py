@@ -42,8 +42,8 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "asvgp_chol_pair_solve": (_I, _I) + (_VP,) * 9,
     "asvgp_tak_pair_solve": (_I, _I) + (_VP,) * 9,
-    "asvgp_chol_pair_solve_tan": (_I, _I) + (_VP,) * 11,
-    "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 11,
+    "asvgp_chol_pair_solve_tan": (_I, _I) + (_VP,) * 12,
+    "asvgp_tak_pair_solve_tan": (_I, _I) + (_VP,) * 12,
     "asvgp_chol_quad_solve_tan": (_I, _I, _I) + (_VP,) * 11,
     "asvgp_tak_quad_solve_tan": (_I, _I, _I) + (_VP,) * 13,
     "asvgp_chol_fwd": (_I, _I, _I) + (_VP,) * 4,
@@ -62,14 +62,15 @@ ENTRY_POINTS = {
     # not launches: the doubles of global workspace per block of K16, the
     # elements of workspace of K13 / K14 / K21 / K22, of the linear sweeps
     # K11 / K19 and the adjoints K7 / K8 / K10 / K12 / K18 / K20 / K23, and
-    # of the Cholesky sweep K9 / K15 / K17, of the twisted sweeps K5 / K6 and
-    # of the serving sweeps K1 / K2
+    # of the Cholesky sweep K9 / K15 / K17, of the twisted sweeps K5 / K6, of
+    # the serving sweeps K1 / K2 and of the single-ended tangent sweeps K3 / K4
     "asvgp_chol_inv_dense_workspace": (_I,),
     "asvgp_solve_workspace": (_I, _I, _I),
     "asvgp_carry_workspace": (_I, _I, _I),
     "asvgp_schur_workspace": (_I, _I, _I),
     "asvgp_twist_workspace": (_I, _I),
     "asvgp_core_workspace": (_I, _I),
+    "asvgp_tan_workspace": (_I, _I),
 }
 
 

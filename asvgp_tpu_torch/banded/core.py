@@ -169,6 +169,15 @@ def core_workspace(k: int, m: int) -> int:
     return _build.load().asvgp_core_workspace(k, m)
 
 
+@functools.lru_cache(maxsize=64)
+def tan_workspace(k: int, m: int) -> int:
+    """Elements of float64 scratch the single-ended tangent sweeps (K3's
+    chunk triples and walked Schur-complement updates, K4's chunk maps)
+    need at (k, m), for both matrices (0 when the columns form one chunk),
+    asked of the kernels' library once per shape."""
+    return _build.load().asvgp_tan_workspace(k, m)
+
+
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream
     of ``device``, raise on its error code, and count the launch."""

@@ -29,14 +29,20 @@ The tangent recursions are written out in ``ops.cholesky_band_plain`` and
 tangent of a reciprocal pivot is i̇v = −iv²·L̇₀.  K3 and K4 are hand-written
 CUDA kernels (csrc/banded_tan.cu) on CUDA tensors; on CPU tensors their
 plain versions (``*_plain``, composed from those recursions) run.  A CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  On the card each kernel cuts its
+walk over the m columns into chunks run in parallel, Kuu and P one to a
+block: K3 is the twisted K5's partition on one stream (the Schur-complement
+update of each chunk's first rows walked between chunks, as a dual number
+on Kuu, with the lower solve's coupling on P), K4 the twisted K6's (a scan
+over the chunks' affine maps) from a zero carry; three launches each,
+scratch from ``core.tan_workspace``, a call counts one launch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from asvgp_tpu_torch.banded import _build, core, ops
+from asvgp_tpu_torch.banded import core, ops
 
 LAUNCHES = core.LAUNCHES
 
@@ -65,22 +71,16 @@ def chol_pair_solve_tan(kuu_band, tan_band, p_band, b):
     if kuu_band.device.type == "cpu":
         return chol_pair_solve_tan_plain(kuu_band, tan_band, p_band, b)
     core._check_cuda(k, (kuu_band, tan_band, p_band, b))
-    lib = _build.load()
     l_kuu = torch.empty_like(kuu_band)
     l_p = torch.empty_like(p_band)
     iv = kuu_band.new_empty((2, m))
     c0 = kuu_band.new_empty((m,))
     ldot = torch.empty_like(kuu_band)
     ivdot = kuu_band.new_empty((m,))
-    with torch.cuda.device(kuu_band.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.asvgp_chol_pair_solve_tan(
-            k, m, kuu_band.data_ptr(), tan_band.data_ptr(), p_band.data_ptr(), b.data_ptr(),
-            l_kuu.data_ptr(), l_p.data_ptr(), iv.data_ptr(), c0.data_ptr(),
-            ldot.data_ptr(), ivdot.data_ptr(), stream,
-        )
-    _build.check(lib, rc, "chol_pair_solve_tan")
-    LAUNCHES["chol_pair_solve_tan"] += 1
+    ws = kuu_band.new_empty(core.tan_workspace(k, m))
+    core._launch("chol_pair_solve_tan", "asvgp_chol_pair_solve_tan", kuu_band.device, k, m,
+                 *(t.data_ptr() for t in (kuu_band, tan_band, p_band, b, l_kuu, l_p, iv, c0,
+                                          ldot, ivdot, ws)))
     return l_kuu, l_p, iv, c0, ldot, ivdot
 
 
@@ -110,20 +110,14 @@ def tak_pair_solve_tan(l_kuu, l_p, iv, c0, ldot, ivdot):
     if l_kuu.device.type == "cpu":
         return tak_pair_solve_tan_plain(l_kuu, l_p, iv, c0, ldot, ivdot)
     core._check_cuda(k, (l_kuu, l_p, iv, c0, ldot, ivdot))
-    lib = _build.load()
     s_kuu = torch.empty_like(l_kuu)
     s_p = torch.empty_like(l_p)
     u = c0.new_empty((m,))
     sdot = torch.empty_like(l_kuu)
-    with torch.cuda.device(l_kuu.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.asvgp_tak_pair_solve_tan(
-            k, m, l_kuu.data_ptr(), l_p.data_ptr(), iv.data_ptr(), c0.data_ptr(),
-            ldot.data_ptr(), ivdot.data_ptr(),
-            s_kuu.data_ptr(), s_p.data_ptr(), u.data_ptr(), sdot.data_ptr(), stream,
-        )
-    _build.check(lib, rc, "tak_pair_solve_tan")
-    LAUNCHES["tak_pair_solve_tan"] += 1
+    ws = l_kuu.new_empty(core.tan_workspace(k, m))
+    core._launch("tak_pair_solve_tan", "asvgp_tak_pair_solve_tan", l_kuu.device, k, m,
+                 *(t.data_ptr() for t in (l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u, sdot,
+                                          ws)))
     return s_kuu, s_p, u, sdot
 
 

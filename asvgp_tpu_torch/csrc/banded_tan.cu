@@ -27,22 +27,21 @@
 // the Cholesky a sqrt and a reciprocal).  They read and write O(K m)
 // doubles, about 2 MB at m = 10^4, K = 3: bandwidth is not the limit.
 //
-// What the design does about it: K3 and K4, as K1 and K2, run one thread
-// per matrix in one warp, the K-column windows of the factor, its tangent
-// and the solve in registers, fully unrolled for the compile-time K, the
-// next column's inputs loaded one step ahead; the P thread runs the
-// tangent too, on the same T, and drops it (the "dead lane" of the TPU
-// kernels), the Kuu thread the solve.  The twisted kernels K5 and K6 run
-// two streams of about m/2 columns each, and cut each stream into chunks
-// run in parallel, three launches each: K5 joined across chunks by the
-// K x K Schur-complement update of chol_fwd (schur_walk.cuh), widened by
-// the tangent or the solve; K6 by the affine partition of tak_fwd on the
-// scan of chunk_scan.cuh (see each below).  Their blocks take one matrix
-// each, so no lane computes what its matrix drops.  The TPU kernels'
-// float32 hi/lo pairs, lane interleave, 128-column tiles, one-hot row
-// masks and seed columns are TPU layout work with no counterpart here: the
-// seeds of K6 are loaded into the register windows before the first
-// column.
+// What the design does about it: each chain is cut into chunks run in
+// parallel, one matrix a block, three launches a kernel (one pass when a
+// walk fits in one chunk).  The Cholesky sweeps K3 and K5 are joined
+// across chunks by the K x K Schur-complement update of chol_fwd
+// (schur_walk.cuh), widened by the tangent (Kuu, as a dual number) or the
+// solve (P); the Takahashi sweeps K4 and K6 by the affine partition of
+// tak_fwd on the scan of chunk_scan.cuh.  K5 and K6 run four matrices
+// (F/R stream x Kuu/P); K3 and K4 run the same chunk passes on two (Kuu,
+// P) over one stream of all m columns, tapered (rows past the end masked),
+// K4 from a zero carry where K6 starts from the middle block's seed (see
+// each below).  Each block takes one matrix, so no lane computes what its
+// matrix drops.  The TPU kernels' float32 hi/lo pairs, lane interleave,
+// 128-column tiles, one-hot row masks and seed columns are TPU layout work
+// with no counterpart here: the seeds of K6 are loaded into the register
+// windows before the first column.
 
 #include <cuda_runtime.h>
 
@@ -51,11 +50,13 @@
 #include <type_traits>
 
 #include "chunk_scan.cuh"
+#include "forward_sweeps.cuh"
 #include "schur_walk.cuh"
 
-// K6's chunks are at least this many columns (a multiple of the 64-column
-// tile); a build may set it to measure another length (tools/twist_ab.py
-// --tak-chunk).  K5's are ASVGP_SCHUR_CHUNK's (schur_walk.cuh).
+// K4's and K6's chunks are at least this many columns (a multiple of the
+// 64-column tile); a build may set it to measure another length
+// (tools/twist_ab.py and tools/tan_ab.py --tak-chunk).  K3's and K5's are
+// ASVGP_SCHUR_CHUNK's (schur_walk.cuh).
 #ifndef ASVGP_TAK_QUAD_CHUNK
 #define ASVGP_TAK_QUAD_CHUNK 64
 #endif
@@ -92,7 +93,7 @@ __device__ __forceinline__ void chol_window_zero(CholWindow<K>& st) {
 // pivot r and its tangent tiv, the solve entry xi; pushes the window.
 // kTan = false leaves out the tangent (tc, tcol, tiv unused), kSolve =
 // false the solve (bc, xi unused); what remains is computed as with both.
-template <int K, bool kTan = true, bool kSolve = true>
+template <int K, bool kTan, bool kSolve>
 __device__ __forceinline__ void chol_tan_step(
     CholWindow<K>& st, const double (&ac)[K + 1], const double (&tc)[K + 1],
     double bc, const double (&keep)[K + 1], double (&col)[K + 1],
@@ -164,11 +165,11 @@ struct TakWindow {
 // (tlc, td, tcol unused), kSolve = false the solve (bc, uj unused).  kMaps
 // scales the terms that are not linear in the window (d^2, 2 d td, bc d)
 // by part: 0 runs the window's homogeneous response, 1 the particular.
-template <int K, bool kTan = true, bool kSolve = true, bool kMaps = false>
+template <int K, bool kTan, bool kSolve, bool kMaps>
 __device__ __forceinline__ void tak_tan_step(
     TakWindow<K>& st, const double (&lc)[K + 1], const double (&tlc)[K + 1],
     double d, double td, double bc, const double (&keep)[K + 1],
-    double (&col)[K + 1], double (&tcol)[K + 1], double& uj, double part = 1.0) {
+    double (&col)[K + 1], double (&tcol)[K + 1], double& uj, double part) {
   if constexpr (kSolve) {
     double sb = 0.0;
 #pragma unroll
@@ -224,147 +225,6 @@ __device__ __forceinline__ void tak_tan_step(
   for (int rr = 0; rr <= K; ++rr) {
     st.cs[0][rr] = col[rr];
     if constexpr (kTan) st.tcs[0][rr] = tcol[rr];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3: chol_pair_solve_tan<K>
-//
-// Replaces asvgp_tpu/banded/pallas_ds_tan.py, _chol_pair_solve_tan_kernel
-// (kernel A' of factor_takahashi_solve_tan_ds): K1 (banded Cholesky of Kuu
-// and P, lower solve L_P c0 = b, reciprocal pivots) plus the tangent of the
-// Kuu factor and of its reciprocal pivots in the direction T.  Thread 0
-// walks Kuu, thread 1 walks P; rows i + j >= m are zeroed.
-// ---------------------------------------------------------------------------
-template <int K>
-__global__ void __launch_bounds__(32)
-chol_pair_solve_tan_kernel(int m, const double* __restrict__ kuu,
-                           const double* __restrict__ tan,
-                           const double* __restrict__ p,
-                           const double* __restrict__ b,
-                           double* __restrict__ l_kuu, double* __restrict__ l_p,
-                           double* __restrict__ iv, double* __restrict__ c0,
-                           double* __restrict__ ldot,
-                           double* __restrict__ ivdot) {
-  const int t = threadIdx.x;
-  if (t >= 2) return;
-  const double* __restrict__ a = (t == 0) ? kuu : p;
-  double* __restrict__ l = (t == 0) ? l_kuu : l_p;
-  double* __restrict__ ivt = iv + static_cast<size_t>(t) * m;
-  const size_t ms = static_cast<size_t>(m);
-
-  CholWindow<K> st;
-  chol_window_zero(st);
-  double an[K + 1], tn[K + 1];
-#pragma unroll
-  for (int r = 0; r <= K; ++r) {
-    an[r] = a[r * ms];
-    tn[r] = tan[r * ms];
-  }
-  double bn = b[0];
-
-  for (int i = 0; i < m; ++i) {
-    double ac[K + 1], tc[K + 1], keep[K + 1];
-#pragma unroll
-    for (int r = 0; r <= K; ++r) {
-      ac[r] = an[r];
-      tc[r] = tn[r];
-      keep[r] = (i + r < m) ? 1.0 : 0.0;
-    }
-    const double bc = bn;
-    if (i + 1 < m) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) {
-        an[r] = a[r * ms + i + 1];
-        tn[r] = tan[r * ms + i + 1];
-      }
-      bn = b[i + 1];
-    }
-    double col[K + 1], tcol[K + 1], rp, tiv, xi;
-    chol_tan_step<K>(st, ac, tc, bc, keep, col, tcol, rp, tiv, xi);
-#pragma unroll
-    for (int j = 0; j <= K; ++j) l[j * ms + i] = col[j];
-    ivt[i] = rp;
-    if (t == 0) {
-#pragma unroll
-      for (int j = 0; j <= K; ++j) ldot[j * ms + i] = tcol[j];
-      ivdot[i] = tiv;
-    } else {
-      c0[i] = xi;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: tak_pair_solve_tan<K>
-//
-// Replaces asvgp_tpu/banded/pallas_ds_tan.py, _tak_pair_solve_tan_kernel
-// (kernel B'): K2 (Takahashi bands of Kuu^-1 and P^-1, upper solve
-// u = P^-1 b) plus the Takahashi tangent of the Kuu band, from K3's outputs.
-// Divide-free: every reciprocal pivot and its tangent comes from K3.
-// ---------------------------------------------------------------------------
-template <int K>
-__global__ void __launch_bounds__(32)
-tak_pair_solve_tan_kernel(int m, const double* __restrict__ l_kuu,
-                          const double* __restrict__ l_p,
-                          const double* __restrict__ iv,
-                          const double* __restrict__ c0,
-                          const double* __restrict__ ldot,
-                          const double* __restrict__ ivdot,
-                          double* __restrict__ s_kuu, double* __restrict__ s_p,
-                          double* __restrict__ u, double* __restrict__ sdot) {
-  const int t = threadIdx.x;
-  if (t >= 2) return;
-  const double* __restrict__ l = (t == 0) ? l_kuu : l_p;
-  double* __restrict__ s_out = (t == 0) ? s_kuu : s_p;
-  const double* __restrict__ ivt = iv + static_cast<size_t>(t) * m;
-  const size_t ms = static_cast<size_t>(m);
-
-  TakWindow<K> st;
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    st.x[q] = 0.0;
-#pragma unroll
-    for (int r = 0; r <= K; ++r) st.cs[q][r] = st.tcs[q][r] = 0.0;
-  }
-
-  double ln[K + 1], tln[K + 1];
-#pragma unroll
-  for (int r = 0; r <= K; ++r) {
-    ln[r] = l[r * ms + (m - 1)];
-    tln[r] = ldot[r * ms + (m - 1)];
-  }
-  double dn = ivt[m - 1], tdn = ivdot[m - 1], bn = c0[m - 1];
-
-  for (int j = m - 1; j >= 0; --j) {
-    double lc[K + 1], tlc[K + 1], keep[K + 1];
-#pragma unroll
-    for (int r = 0; r <= K; ++r) {
-      lc[r] = ln[r];
-      tlc[r] = tln[r];
-      keep[r] = (j + r < m) ? 1.0 : 0.0;
-    }
-    const double d = dn, td = tdn, bc = bn;
-    if (j > 0) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) {
-        ln[r] = l[r * ms + (j - 1)];
-        tln[r] = ldot[r * ms + (j - 1)];
-      }
-      dn = ivt[j - 1];
-      tdn = ivdot[j - 1];
-      bn = c0[j - 1];
-    }
-    double col[K + 1], tcol[K + 1], uj;
-    tak_tan_step<K>(st, lc, tlc, d, td, bc, keep, col, tcol, uj);
-#pragma unroll
-    for (int r = 0; r <= K; ++r) s_out[r * ms + j] = col[r];
-    if (t == 0) {
-#pragma unroll
-      for (int r = 0; r <= K; ++r) sdot[r * ms + j] = tcol[r];
-    } else {
-      u[j] = uj;
-    }
   }
 }
 
@@ -460,8 +320,8 @@ constexpr int kQuadTriStride = 2 * (K * K + K * (K + 1));
 // What bounds it: each stream is a serial chain of Cholesky columns (fma
 // chains of depth K, a sqrt and a reciprocal each) with the tangent or the
 // solve hanging off it; it moves about 2 MB at m = 10^4, K = 3.  One
-// thread walking a stream (a <<<1, 4>>> launch, 131 SMs idle) took about
-// 0.32 us a column.
+// thread walking a stream (one block of four threads, 131 SMs idle) took
+// about 0.32 us a column.
 //
 // What the design does about it: chol_fwd's Schur partition
 // (forward_sweeps.cuh, the helpers in schur_walk.cuh), with what crosses a
@@ -493,7 +353,9 @@ constexpr int kQuadTriStride = 2 * (K * K + K * (K + 1));
 // ---------------------------------------------------------------------------
 
 // Passes 1 (kMaps) and 3 over chunk j0 of matrix t, in the role kKuu.
-template <int K, bool kKuu, bool kMaps>
+// kTaper zeroes rows i + j >= m, as K3 does on its one stream (t = 0,
+// h = m); K5's streams keep them.
+template <int K, bool kKuu, bool kMaps, bool kTaper = false>
 __device__ __forceinline__ void chol_quad_chunk(
     int m, int h, int lc, int nmap, int j0, int t, const double* __restrict__ kuu,
     const double* __restrict__ tan, const double* __restrict__ p,
@@ -583,6 +445,7 @@ __device__ __forceinline__ void chol_quad_chunk(
       double ac[K + 1], tc[K + 1], bc = 0.0;
 #pragma unroll
       for (int r = 0; r <= K; ++r) {
+        if constexpr (kTaper) keep[r] = (i + r < m) ? 1.0 : 0.0;
         ac[r] = at[buf][r][tt];
         if constexpr (kKuu) {
           tc[r] = xt[buf][r][tt];
@@ -755,8 +618,11 @@ chol_quad_walk_kernel(int m, int h, int lc, int nmap, const double* __restrict__
 // ---------------------------------------------------------------------------
 
 // Passes 1 (kMaps) and 3 over chunk j0 of matrix t, in the role kKuu:
-// walk positions s..e-1, stream-local columns j = n-1-u.
-template <int K, bool kKuu, bool kMaps>
+// walk positions s..e-1, stream-local columns j = n-1-u; l is the
+// matrix's own (K+1, h) factor.  kTaper is K4's form on its one stream
+// (t = 0 Kuu, 1 P; h = m): rows j + q >= m zeroed, chunk 0 from the zero
+// carry, no middle block.
+template <int K, bool kKuu, bool kMaps, bool kTaper = false>
 __device__ __forceinline__ void tak_quad_chunk(
     int m, int h, int lc, int nmap, int j0, int t, const double* __restrict__ l,
     const double* __restrict__ ldot, const double* __restrict__ iv,
@@ -786,12 +652,9 @@ __device__ __forceinline__ void tak_quad_chunk(
     return;
   }
   if (s >= n) return;
-  const double* __restrict__ lsrc = l + static_cast<size_t>(t) * (K + 1) * hs;
   const double* __restrict__ tsrc = ldot + static_cast<size_t>(stream) * (K + 1) * hs;
   const double* __restrict__ ivs = iv + static_cast<size_t>(t) * hs;
   const double* __restrict__ vsrc = kKuu ? ivdot + stream * hs : y + stream * hs;
-  const double* __restrict__ zs = z + (kKuu ? 0 : K * K);
-  const double* __restrict__ zd = z + 2 * K * K;
   double* __restrict__ s_out = kKuu ? s_kuu : s_p;
 
   TakWindow<K> st;
@@ -802,16 +665,20 @@ __device__ __forceinline__ void tak_quad_chunk(
     for (int r = 0; r <= K; ++r) st.cs[q][r] = st.tcs[q][r] = 0.0;
   }
   if (j0 == 0 && (!kMaps || lane == D)) {
-    // the seed windows, from the middle inverse
+    // the seed windows, from the middle inverse (K4: the zero carry)
+    if constexpr (!kTaper) {
+      const double* __restrict__ zs = z + (kKuu ? 0 : K * K);
+      const double* __restrict__ zd = z + 2 * K * K;
 #pragma unroll
-    for (int q = 1; q <= K; ++q) {
-      if constexpr (!kKuu) st.x[q - 1] = rev ? x2[K - q] : x2[q - 1];
+      for (int q = 1; q <= K; ++q) {
+        if constexpr (!kKuu) st.x[q - 1] = rev ? x2[K - q] : x2[q - 1];
 #pragma unroll
-      for (int r = 0; r <= K; ++r) {
-        const bool inside = q - 1 + r <= K - 1;
-        const int zi = rev ? (K - q - r) * K + (K - q) : (q - 1 + r) * K + (q - 1);
-        st.cs[q - 1][r] = inside ? zs[zi] : 0.0;
-        if constexpr (kKuu) st.tcs[q - 1][r] = inside ? zd[zi] : 0.0;
+        for (int r = 0; r <= K; ++r) {
+          const bool inside = q - 1 + r <= K - 1;
+          const int zi = rev ? (K - q - r) * K + (K - q) : (q - 1 + r) * K + (q - 1);
+          st.cs[q - 1][r] = inside ? zs[zi] : 0.0;
+          if constexpr (kKuu) st.tcs[q - 1][r] = inside ? zd[zi] : 0.0;
+        }
       }
     }
   } else if (kMaps) {
@@ -842,7 +709,7 @@ __device__ __forceinline__ void tak_quad_chunk(
       for (int q = 0; q < K; ++q) st.x[q] = wc[D + q];
     }
   }
-  if (!kMaps && j0 == 0 && lane == 0) {
+  if (!kTaper && !kMaps && j0 == 0 && lane == 0) {
     if (!rev) {
       // the dense middle block, from the seed windows
 #pragma unroll
@@ -877,7 +744,7 @@ __device__ __forceinline__ void tak_quad_chunk(
       const int nb1 = (tile + 1) & 1;
       const int u1 = s + (tile + 1) * kTile;
       const int n1 = min(kTile, e - u1);
-      stage_down<K + 1>(lt[nb1], lsrc, h, n, u1, n1);
+      stage_down<K + 1>(lt[nb1], l, h, n, u1, n1);
       if constexpr (kKuu) stage_down<K + 1>(tlt[nb1], tsrc, h, n, u1, n1);
       stage_down<1>(vt[nb1], ivs, h, n, u1, n1);
       stage_down<1>(vt[nb1] + 1, vsrc, h, n, u1, n1);
@@ -898,6 +765,7 @@ __device__ __forceinline__ void tak_quad_chunk(
       double lc[K + 1], tlc[K + 1];
 #pragma unroll
       for (int r = 0; r <= K; ++r) {
+        if constexpr (kTaper) keep[r] = (j + r < m) ? 1.0 : 0.0;
         lc[r] = lt[buf][r][tt];
         if constexpr (kKuu) {
           tlc[r] = tlt[buf][r][tt];
@@ -978,12 +846,110 @@ tak_quad_chunk_kernel(int m, int h, int lc, int nmap, const double* __restrict__
                       const double* __restrict__ win, double* __restrict__ hmap,
                       double* __restrict__ ymap) {
   const int t = blockIdx.y;
+  const double* lt = l + static_cast<size_t>(t) * (K + 1) * h;
   if ((t & 1) == 0) {
-    tak_quad_chunk<K, true, kMaps>(m, h, lc, nmap, blockIdx.x, t, l, ldot, iv, ivdot, y, z, x2,
-                                   s_kuu, s_p, u, sdot, win, hmap, ymap);
+    tak_quad_chunk<K, true, kMaps>(m, h, lc, nmap, blockIdx.x, t, lt, ldot, iv, ivdot, y, z,
+                                   x2, s_kuu, s_p, u, sdot, win, hmap, ymap);
   } else {
-    tak_quad_chunk<K, false, kMaps>(m, h, lc, nmap, blockIdx.x, t, l, ldot, iv, ivdot, y, z,
+    tak_quad_chunk<K, false, kMaps>(m, h, lc, nmap, blockIdx.x, t, lt, ldot, iv, ivdot, y, z,
                                     x2, s_kuu, s_p, u, sdot, win, hmap, ymap);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: chol_pair_solve_tan<K>
+//
+// Replaces asvgp_tpu/banded/pallas_ds_tan.py, _chol_pair_solve_tan_kernel
+// (kernel A' of factor_takahashi_solve_tan_ds): K1 (banded Cholesky of Kuu
+// and P, lower solve L_P c0 = b, reciprocal pivots) plus the tangent of the
+// Kuu factor and of its reciprocal pivots in the direction T, over all m
+// columns, rows i + j >= m zeroed.
+//
+// What bounds it: as K5, the serial chain of Cholesky columns, here m long
+// on each matrix; one thread a matrix (131 SMs idle) took about 2.5 ms at
+// m = 10^4, K = 3 on an H100, 0.25 us a column.
+//
+// What the design does about it: grid (chunks, 2), one role a block
+// (blockIdx.y: 0 Kuu, 1 P), chunks of chol_quad_chunk_cols(K, m) columns:
+//   Kuu is K5's Kuu role (chol_quad_chunk<K, true, .., true>) on one
+//      stream of all m columns, tapered: W walks as a dual number
+//      (W, Wdot);
+//   P is K1's P role unchanged (chol_fwd_chunk<K, double, .., true>,
+//      forward_sweeps.cuh): W walks with the lower solve's coupling beta.
+// Both write their triples at K5's stride and their carries at K5's (2D
+// doubles), so K5's walk kernel walks both (one stream, h = m).  Three
+// launches when m spans more than one chunk: triples (grid (chunks but
+// the last, 2)), walk (one thread per matrix), factor (grid (chunks, 2)).
+// The Kuu role runs chol_tan_step and the P role chol_fwd_step, which is
+// chol_tan_step without the tangent: each matrix's first chunk (W = Wdot =
+// 0, beta = 0) is the one-chain recursion bit for bit.
+// ---------------------------------------------------------------------------
+template <int K, bool kMaps>
+__global__ void __launch_bounds__(32)
+chol_pair_tan_chunk_kernel(int m, int lc, int nmap, const double* __restrict__ kuu,
+                           const double* __restrict__ tan, const double* __restrict__ p,
+                           const double* __restrict__ b, double* __restrict__ l_kuu,
+                           double* __restrict__ l_p, double* __restrict__ iv,
+                           double* __restrict__ c0, double* __restrict__ ldot,
+                           double* __restrict__ ivdot, const double* __restrict__ win,
+                           double* __restrict__ tri) {
+  constexpr int D = K * (K + 1) / 2;
+  const int j0 = blockIdx.x;
+  if (blockIdx.y == 0) {
+    chol_quad_chunk<K, true, kMaps, true>(m, m, lc, nmap, j0, 0, kuu, tan, nullptr, nullptr,
+                                          l_kuu, ldot, iv, ivdot, nullptr, win, tri);
+  } else {
+    const size_t slot = static_cast<size_t>(nmap) + j0;
+    const double* wc = (!kMaps && j0 > 0) ? win + (slot - 1) * 2 * D : nullptr;
+    double* tc = kMaps ? tri + slot * kQuadTriStride<K> : nullptr;
+    chol_fwd_chunk<K, double, kMaps, true>(m, lc, j0, p, b, l_p, iv + m, c0, wc, tc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: tak_pair_solve_tan<K>
+//
+// Replaces asvgp_tpu/banded/pallas_ds_tan.py, _tak_pair_solve_tan_kernel
+// (kernel B'): K2 (Takahashi bands of Kuu^-1 and P^-1, upper solve
+// u = P^-1 b) plus the Takahashi tangent of the Kuu band, from K3's
+// outputs, over the columns m-1..0.  Divide-free: every reciprocal pivot
+// and its tangent comes from K3.
+//
+// What bounds it: as K6, a serial chain of column steps, here m long; one
+// thread a matrix took about 2.3 ms at m = 10^4, K = 3 on an H100.
+//
+// What the design does about it: K6's partition (tak_quad_chunk<.., true>)
+// on one stream of all m columns, tapered, both roles from the zero carry
+// at column m-1 where K6 starts from the middle block's seed.  Kuu carries
+// the windows of S and Sdot (2D values, map [[H, 0], [H', H]]), P those of
+// S and of the upper solve (D + K, map diag(H_S, H_u), padded to 2D).  K2's
+// P role (tak_fwd_chunk) runs a lane per carried value, and the one scan's
+// 2D-value carry is 42 values at K = 6, more than a warp; K6's P role runs
+// the unit windows of S and of u on the same D lanes, by the same column
+// step.  The scan (chunk_scan_kernel<2D, double, D, true>) takes both roles
+// and skips the upper-right block, zero in both maps.  Three launches when
+// m spans more than one chunk (tak_quad_chunk_cols(K, m)): maps (grid
+// (chunks but the last, 2)), scan, outputs (grid (chunks, 2)).  Each
+// matrix's first chunk (the last columns) starts from the zero carry: the
+// one-chain recursion bit for bit.
+// ---------------------------------------------------------------------------
+template <int K, bool kMaps>
+__global__ void __launch_bounds__(32)
+tak_pair_tan_chunk_kernel(int m, int lc, int nmap, const double* __restrict__ l_kuu,
+                          const double* __restrict__ l_p, const double* __restrict__ iv,
+                          const double* __restrict__ c0, const double* __restrict__ ldot,
+                          const double* __restrict__ ivdot, double* __restrict__ s_kuu,
+                          double* __restrict__ s_p, double* __restrict__ u,
+                          double* __restrict__ sdot, const double* __restrict__ win,
+                          double* __restrict__ hmap, double* __restrict__ ymap) {
+  if (blockIdx.y == 0) {
+    tak_quad_chunk<K, true, kMaps, true>(m, m, lc, nmap, blockIdx.x, 0, l_kuu, ldot, iv, ivdot,
+                                         nullptr, nullptr, nullptr, s_kuu, nullptr, nullptr,
+                                         sdot, win, hmap, ymap);
+  } else {
+    tak_quad_chunk<K, false, kMaps, true>(m, m, lc, nmap, blockIdx.x, 1, l_p, nullptr, iv,
+                                          nullptr, c0, nullptr, nullptr, nullptr, s_p, u,
+                                          nullptr, win, hmap, ymap);
   }
 }
 
@@ -991,28 +957,8 @@ tak_quad_chunk_kernel(int m, int h, int lc, int nmap, const double* __restrict__
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int K>
-cudaError_t launch_chol_tan(int m, const double* kuu, const double* tan,
-                            const double* p, const double* b, double* l_kuu,
-                            double* l_p, double* iv, double* c0, double* ldot,
-                            double* ivdot, cudaStream_t stream) {
-  chol_pair_solve_tan_kernel<K><<<1, 2, 0, stream>>>(m, kuu, tan, p, b, l_kuu,
-                                                     l_p, iv, c0, ldot, ivdot);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_tak_tan(int m, const double* l_kuu, const double* l_p,
-                           const double* iv, const double* c0,
-                           const double* ldot, const double* ivdot,
-                           double* s_kuu, double* s_p, double* u, double* sdot,
-                           cudaStream_t stream) {
-  tak_pair_solve_tan_kernel<K><<<1, 2, 0, stream>>>(m, l_kuu, l_p, iv, c0, ldot,
-                                                    ivdot, s_kuu, s_p, u, sdot);
-  return cudaGetLastError();
-}
-
-// Columns per chunk of K5, for streams of at most h columns: at least
+// Columns per chunk of K5, for streams of at most h columns, and of K3
+// (h = m, its P role's triple is shorter than Kuu's): at least
 // ASVGP_SCHUR_CHUNK, at most kMaxChunks chunks and at most as many as the
 // walk can stage the triples of (kQuadTriStride doubles each), a multiple
 // of the tile; lc >= h is one chunk.  At m = 10^4 (h = 4999): 128 columns
@@ -1024,7 +970,7 @@ int chol_quad_chunk_cols(int k, int h) {
                         ASVGP_SCHUR_CHUNK, h);
 }
 
-// Columns per chunk of K6: at least ASVGP_TAK_QUAD_CHUNK, at most kMaxChunks chunks
+// Columns per chunk of K6 and of K4 (h = m): at least ASVGP_TAK_QUAD_CHUNK, at most kMaxChunks chunks
 // and at most as many as the scan can stage the maps of ((2D)^2 + 2D
 // doubles each, D = k(k+1)/2), a multiple of the tile.  At m = 10^4: 64
 // columns for k <= 3, 128 at k = 4, 192 at k = 5, 320 at k = 6.  At k = 3
@@ -1035,20 +981,87 @@ int tak_quad_chunk_cols(int k, int h) {
   return partition_cols(dd * dd + dd, ASVGP_TAK_QUAD_CHUNK, h);
 }
 
-// Doubles of workspace K5 or K6 needs (the larger): K5's triples (4, P-1,
-// kQuadTriStride) and walked carries (4, P-1, k(k+1)); K6's maps H (4,
-// P-1, (2D)^2), y and incoming windows (4, P-1, 2D) each; 0 when every
-// stream is one chunk.
-size_t twist_workspace(int k, int m) {
-  const int h = (m - k + 1) / 2;
+// Doubles of workspace a Cholesky and a Takahashi sweep of nmat matrices
+// on walks of at most h columns need (the larger): the Cholesky's triples
+// (nmat, P-1, kQuadTriStride) and walked carries (nmat, P-1, k(k+1)); the
+// Takahashi's maps H (nmat, P-1, (2D)^2), y and incoming windows (nmat,
+// P-1, 2D) each; 0 when every walk is one chunk.  K5 and K6: four
+// matrices on streams of h = (m - k + 1) / 2 columns; K3 and K4: two on m.
+size_t tan_workspace(int k, int h, int nmat) {
   const size_t dd = static_cast<size_t>(k) * (k + 1);
-  const size_t n5 = static_cast<size_t>((h + chol_quad_chunk_cols(k, h) - 1) /
+  const size_t nc = static_cast<size_t>((h + chol_quad_chunk_cols(k, h) - 1) /
                                         chol_quad_chunk_cols(k, h) - 1);
-  const size_t n6 = static_cast<size_t>((h + tak_quad_chunk_cols(k, h) - 1) /
+  const size_t nt = static_cast<size_t>((h + tak_quad_chunk_cols(k, h) - 1) /
                                         tak_quad_chunk_cols(k, h) - 1);
-  const size_t w5 = 4 * n5 * (2 * (static_cast<size_t>(k) * k + dd) + dd);
-  const size_t w6 = 4 * n6 * (dd * dd + 2 * dd);
-  return w5 > w6 ? w5 : w6;
+  const size_t wc = nmat * nc * (2 * (static_cast<size_t>(k) * k + dd) + dd);
+  const size_t wt = nmat * nt * (dd * dd + 2 * dd);
+  return wc > wt ? wc : wt;
+}
+
+template <int K>
+cudaError_t launch_chol_tan(int m, const double* kuu, const double* tan, const double* p,
+                            const double* b, double* l_kuu, double* l_p, double* iv,
+                            double* c0, double* ldot, double* ivdot, double* ws,
+                            cudaStream_t st) {
+  constexpr int kStride = kQuadTriStride<K>;
+  const int lc = chol_quad_chunk_cols(K, m);
+  const int nchunks = (m + lc - 1) / lc;
+  const int nmap = nchunks - 1;
+  const double* win = nullptr;
+  if (nmap > 0) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    double* tri = ws;
+    double* w = tri + static_cast<size_t>(2) * nmap * kStride;
+    chol_pair_tan_chunk_kernel<K, true><<<dim3(nmap, 2), 32, 0, st>>>(
+        m, lc, nmap, kuu, tan, p, b, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, tri);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t smem = static_cast<size_t>(nmap) * kStride * sizeof(double);
+    if (smem > kSmemLimit) return cudaErrorInvalidValue;
+    static std::atomic<unsigned long long> done{0};
+    e = allow_smem(chol_quad_walk_kernel<K>, done);
+    if (e != cudaSuccess) return e;
+    chol_quad_walk_kernel<K><<<dim3(1, 2), 32, smem, st>>>(m, m, lc, nmap, tri, w);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    win = w;
+  }
+  chol_pair_tan_chunk_kernel<K, false><<<dim3(nchunks, 2), 32, 0, st>>>(
+      m, lc, nmap, kuu, tan, p, b, l_kuu, l_p, iv, c0, ldot, ivdot, win, nullptr);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_tak_tan(int m, const double* l_kuu, const double* l_p, const double* iv,
+                           const double* c0, const double* ldot, const double* ivdot,
+                           double* s_kuu, double* s_p, double* u, double* sdot, double* ws,
+                           cudaStream_t st) {
+  constexpr int D = K * (K + 1) / 2;
+  constexpr int DD = 2 * D;
+  const int lc = tak_quad_chunk_cols(K, m);
+  const int nchunks = (m + lc - 1) / lc;
+  const int nmap = nchunks - 1;
+  const double* win = nullptr;
+  if (nmap > 0) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const size_t hsz = static_cast<size_t>(nmap) * DD * DD;
+    const size_t ysz = static_cast<size_t>(nmap) * DD;
+    double* hmap = ws;
+    double* ymap = hmap + 2 * hsz;
+    double* w = ymap + 2 * ysz;
+    tak_pair_tan_chunk_kernel<K, true><<<dim3(nmap, 2), 32, 0, st>>>(
+        m, lc, nmap, l_kuu, l_p, iv, c0, ldot, ivdot, nullptr, nullptr, nullptr, nullptr,
+        nullptr, hmap, ymap);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = launch_chunk_scan<DD, double, D, true>(1, 2, nmap, hmap, hsz, ymap, ysz, w, st);
+    if (e != cudaSuccess) return e;
+    win = w;
+  }
+  tak_pair_tan_chunk_kernel<K, false><<<dim3(nchunks, 2), 32, 0, st>>>(
+      m, lc, nmap, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u, sdot, win, nullptr, nullptr);
+  return cudaGetLastError();
 }
 
 template <int K>
@@ -1130,36 +1143,43 @@ bool twist_split_ok(int k, int m, int h) {
 
 extern "C" {
 
-// K3.  kuu, tan, p: (k+1, m) lower bands; b: (m,).  Writes l_kuu, l_p, ldot
-// (k+1, m), iv (2, m), c0 (m,), ivdot (m,).
-int asvgp_chol_pair_solve_tan(int k, int m, const double* kuu,
-                              const double* tan, const double* p,
-                              const double* b, double* l_kuu, double* l_p,
-                              double* iv, double* c0, double* ldot,
-                              double* ivdot, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  ASVGP_DISPATCH_K(k, (launch_chol_tan<K>(m, kuu, tan, p, b, l_kuu, l_p, iv, c0, ldot,
-                                              ivdot, s)))
+// Doubles of workspace K3 and K4 need at (k, m): 0 when the columns form
+// one chunk of each.
+int asvgp_tan_workspace(int k, int m) {
+  if (k < 1 || k > 6 || m < 1) return -1;
+  return static_cast<int>(tan_workspace(k, m, 2));
 }
 
-// K4.  K3's outputs in; writes s_kuu, s_p, sdot (k+1, m) and u (m,).
-int asvgp_tak_pair_solve_tan(int k, int m, const double* l_kuu,
-                             const double* l_p, const double* iv,
-                             const double* c0, const double* ldot,
-                             const double* ivdot, double* s_kuu, double* s_p,
-                             double* u, double* sdot, void* stream) {
+// K3.  kuu, tan, p: (k+1, m) lower bands; b: (m,); ws: asvgp_tan_workspace(k,
+// m) doubles, or NULL when that is 0.  Writes l_kuu, l_p, ldot (k+1, m), iv
+// (2, m), c0 (m,), ivdot (m,).
+int asvgp_chol_pair_solve_tan(int k, int m, const double* kuu, const double* tan,
+                              const double* p, const double* b, double* l_kuu, double* l_p,
+                              double* iv, double* c0, double* ldot, double* ivdot, double* ws,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  ASVGP_DISPATCH_K(k, (launch_tak_tan<K>(m, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p,
-                                             u, sdot, s)))
+  ASVGP_DISPATCH_K(k, (launch_chol_tan<K>(m, kuu, tan, p, b, l_kuu, l_p, iv, c0, ldot, ivdot,
+                                              ws, s)))
+}
+
+// K4.  K3's outputs in; ws as for K3.  Writes s_kuu, s_p, sdot (k+1, m) and
+// u (m,).
+int asvgp_tak_pair_solve_tan(int k, int m, const double* l_kuu, const double* l_p,
+                             const double* iv, const double* c0, const double* ldot,
+                             const double* ivdot, double* s_kuu, double* s_p, double* u,
+                             double* sdot, double* ws, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ASVGP_DISPATCH_K(k, (launch_tak_tan<K>(m, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u,
+                                             sdot, ws, s)))
 }
 
 // Doubles of workspace K5 and K6 need at (k, m): 0 when every stream is one
 // chunk, -1 when (k, m) has no twisted split.
 int asvgp_twist_workspace(int k, int m) {
   if (k < 1 || k > 6 || !twist_split_ok(k, m, (m - k + 1) / 2)) return -1;
-  return static_cast<int>(twist_workspace(k, m));
+  return static_cast<int>(tan_workspace(k, (m - k + 1) / 2, 4));
 }
 
 // K5.  kuu, tan, p: (k+1, m); b: (m,); h = split point; ws:

@@ -17,7 +17,9 @@
 // the window of S with that of its tangent or of the upper solve, one
 // sequence per matrix and stream) and banded_core.cu (the serving
 // Takahashi sweep K2, D = K(K+1)/2 + K: the window of S and on P that of
-// the upper solve, block-diagonal maps).  The Cholesky sweeps' chunks are joined
+// the upper solve, block-diagonal maps) and banded_tan.cu again (the
+// single-ended Takahashi sweep K4, D = K(K+1) as K6's, from a zero carry:
+// block lower-triangular maps).  The Cholesky sweeps' chunks are joined
 // by a map that is not affine; their pass 2 (schur_walk.cuh) stages its
 // chunks' data the same way.
 
@@ -116,8 +118,9 @@ __device__ __forceinline__ float scan_fma(float a, float b, float c) { return __
 // its columns are staged in shared memory first; any order of rounding
 // serves here.  DB < D declares every H block-diagonal with blocks
 // 0..DB-1 and DB..D-1: the walk then skips the products of the two
-// off-diagonal blocks, which are 0.
-template <int D, typename T, int DB = D>
+// off-diagonal blocks, which are 0; with kLower, block lower-triangular:
+// it skips the upper-right block alone.
+template <int D, typename T, int DB = D, bool kLower = false>
 __global__ void __launch_bounds__(32)
 chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
                   const T* __restrict__ ymap, size_t y_stride, T* __restrict__ win) {
@@ -156,7 +159,9 @@ chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
       T a = y[p];
 #pragma unroll
       for (int qq = 0; qq < D; ++qq) {
-        if ((p < DB) == (qq < DB)) a = scan_fma(h[p * D + qq], w[qq], a);
+        if (kLower ? (p >= DB || qq < DB) : ((p < DB) == (qq < DB))) {
+          a = scan_fma(h[p * D + qq], w[qq], a);
+        }
       }
       nw[p] = a;
     }
@@ -190,19 +195,19 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
   return e;
 }
 
-// Launches pass 2 over nbatch map sequences of r columns each (DB as for
-// chunk_scan_kernel).
-template <int D, typename T, int DB = D>
+// Launches pass 2 over nbatch map sequences of r columns each (DB and
+// kLower as for chunk_scan_kernel).
+template <int D, typename T, int DB = D, bool kLower = false>
 cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t h_stride,
                               const T* ymap, size_t y_stride, T* win, cudaStream_t st) {
   const size_t smem = scan_smem_bytes<D, T>(nmap, r);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> done{0};
-  cudaError_t e = allow_smem(chunk_scan_kernel<D, T, DB>, done);
+  cudaError_t e = allow_smem(chunk_scan_kernel<D, T, DB, kLower>, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((r + kScanCols - 1) / kScanCols, nbatch);
-  chunk_scan_kernel<D, T, DB><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap, y_stride,
-                                                      win);
+  chunk_scan_kernel<D, T, DB, kLower><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap,
+                                                              y_stride, win);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 // K9, K11, K15, K17, K19) and the serving pair chol_pair_solve<K> and
 // tak_pair_solve<K> (banded_core.cu: K1, K2), which run the same passes on
 // Kuu and on P, the P role with a solve carried beside (kSolve): K1 the
-// lower solve L_P c0 = b, K2 the upper solve L_P^T u = c0.
+// lower solve L_P c0 = b, K2 the upper solve L_P^T u = c0.  K3
+// (banded_tan.cu) runs K1's P role.
 //
 // Each pass is a device function over one chunk of one matrix, given that
 // matrix's pointers and the slots of its chunk in the workspace; the

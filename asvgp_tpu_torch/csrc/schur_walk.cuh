@@ -1,7 +1,7 @@
 // The Schur-complement partition of a banded Cholesky sweep, shared by the
 // single-matrix sweep chol_fwd<K, T> (forward_sweeps.cuh: K9, K15, K17 and
-// the serving sweep K1) and the twisted tangent sweep
-// chol_quad_solve_tan<K> (banded_tan.cu: K5).
+// the serving sweep K1) and the tangent sweeps chol_quad_solve_tan<K> and
+// chol_pair_solve_tan<K> (banded_tan.cu: K5, twisted, and K3).
 //
 // A chunk of columns c0..c1-1 receives from the columns before it only the
 // K x K update W = L[c0:c0+K, :c0] L[c0:c0+K, :c0]^T of its first K rows;

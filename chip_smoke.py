@@ -27,7 +27,9 @@ points, on the card:
      sweeps K1 and K2 at the edges of their partitions (one column, one
      chunk of each and one more column, ragged last chunks, k = 6 at
      m = 10⁴), each walk's first chunk equal bit for bit to the kernel on
-     that chunk alone
+     that chunk alone; the single-ended tangent sweeps K3 and K4 at the
+     same edges (and k = 3 at m = 10⁴), each walk's first chunk the kernel
+     on that chunk alone, with the registers and spills of their kernels
   3. serving path: GPR1D on the card → training_loss (held to the
      CPU-float64 value of the JAX package) → posterior → predict_f on 10⁵
      held-out points in batches → NLPD; predictions held against a
@@ -105,16 +107,19 @@ points, on the card:
      largest W, Ẇ (Kuu) and β (P), the smallest eigenvalue of I − UᵀWU
      and K6's maps' largest entry; for K1 and K2 on the same bands, Kuu's
      and P's largest W, P's β, the smallest eigenvalue of I − UᵀWU and
-     K2's maps' largest entry
+     K2's maps' largest entry; for K3 and K4 on the same bands, Kuu's W
+     and Ẇ, P's W and β, each one's smallest eigenvalue of I − UᵀWU and
+     K4's maps' largest entry by matrix
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K1, K2, K13, K14,
      K21, K22,
      the adjoints K7, K8, K10, K12, K18, K20, K23, the forward sweeps K9,
-     K11, K15, K17, K19, the twisted sweeps K5, K6, and K16 alone
+     K11, K15, K17, K19, the twisted sweeps K5, K6, the single-ended
+     sweeps K3, K4, and K16 alone
      (torch.profiler), of K1 + K2, the float64 posterior and the value-only
-     ELBO, of the mid step, of K5 + mid + K6 and of the twisted
-     value-and-grad step, and the partitioned kernels' and those steps'
+     ELBO, of the mid step, of K5 + mid + K6, of K3 + K4 and of the twisted
+     and single-ended value-and-grad steps, and the partitioned kernels' and those steps'
      event time less their device time, each kernel's bound,
      cholesky_solve_band, the
      float32 step, posterior and predict beside the float64 ones, and the
@@ -393,6 +398,17 @@ SMEM_LIMIT, MAX_CHUNKS, TILE = 232448, 256, 64  # csrc/chunk_scan.cuh
 CORE_EDGES = ((1, 1),) + tuple((k, m) for k in range(1, 7)
                                for m in (64, 65, 128, 129, 165, 293)) + ((6, 10_000),)
 CORE_FIRST = (128, 64)
+# the single-ended tangent sweeps K3 (chol_pair_solve_tan; 128-column chunks,
+# its walk stages K5's triple, 2(k² + k(k+1)) doubles a chunk) and K4
+# (tak_pair_solve_tan; 64 at k <= 3, as many as the scan can stage maps of
+# (2D)² + 2D doubles, 2D = k(k+1)) at the edges of their partitions (phase
+# 2): CORE_EDGES's shapes, which are the same edges of chunks of the same
+# lengths, and k = 3 at m = 10⁴ (the north star's); each walk's first chunk
+# (K3's first TAN_FIRST[0] columns, K4's last TAN_FIRST[1]) is the kernel
+# on those columns alone
+TAN_EDGES = CORE_EDGES + ((3, 10_000),)
+TAN_FIRST = (128, 64)
+TAN = TRAINING_KERNELS[:2]
 # K17-K22 on the arguments the float32 path gave them at the north star:
 # 10x the random bands' bar, as κ(Kuu) amplifies the rounding there
 TOL_F32_MAIN = 1e-4
@@ -1420,25 +1436,25 @@ def adjoint_maps_of(calls: dict) -> dict:
 
 
 def first_chunk_equal(fn, bands, down: bool, first: int = FIRST_CHUNK,
-                      nband: int | None = None) -> bool:
+                      band_outputs=None) -> bool:
     """Whether the first ``first`` columns of the walk of ``fn`` (a forward
     sweep's wrapper) over ``bands`` (its band and vector arguments) on the
     card (columns 0.. of the Cholesky walking up, ..m-1 of the Takahashi
     walking down) equal bit for bit the same wrapper on those columns
     alone, where the kernel runs one pass, the one-chain recursion.  Of the
-    Cholesky's first ``nband`` outputs (all by default), its factors'
-    bands, the entries in rows past those columns are left out; every
-    other output is compared whole."""
+    Cholesky's outputs at the indices ``band_outputs`` (all by default),
+    its factors' bands, the entries in rows past those columns are left
+    out; every other output is compared whole."""
     m = bands[0].shape[-1]
     c = min(first, m)
     cut = (lambda x: x[..., m - c:]) if down else (lambda x: x[..., :c])
     full = fn(*bands)
     one = fn(*(cut(x).contiguous() for x in bands))
     full, one = ((t,) if isinstance(t, torch.Tensor) else t for t in (full, one))
-    nband = len(one) if nband is None else nband
+    band_outputs = range(len(one)) if band_outputs is None else band_outputs
 
     def equal(j, f, o):
-        if down or j >= nband:
+        if down or j not in band_outputs:
             return torch.equal(cut(f), o)
         inside = (torch.arange(o.shape[0])[:, None] + torch.arange(c)[None] < c).to(o.device)
         return torch.equal(cut(f)[inside], o[inside])
@@ -1546,22 +1562,30 @@ def forward_maps_of(calls: dict) -> dict:
     return out
 
 
+def partition_cols(walk: tuple[int, int], scan: tuple[int, int], n: int) -> tuple[int, int]:
+    """Columns per chunk of a partitioned Cholesky (``walk``) and Takahashi
+    (``scan``) sweep on walks of n columns, as csrc/chunk_scan.cuh's
+    partition_cols gives them for each (doubles its pass 2 stages a chunk,
+    least columns): at least the least, at most MAX_CHUNKS chunks and as
+    many as fit in shared memory, a multiple of the tile; n for one
+    chunk."""
+    out = []
+    for per, least in (walk, scan):
+        cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
+        lc = max(least, -(-n // cap))
+        out.append(min(-(-lc // TILE) * TILE, n))
+    return out[0], out[1]
+
+
 def twist_chunk_cols(k: int, m: int) -> tuple[int, int]:
     """(K5's, K6's) columns per chunk at (k, m), as csrc/banded_tan.cu's
     chol_quad_chunk_cols and tak_quad_chunk_cols give them for streams of
-    at most h columns: at least 128 (K5) or 64 (K6), at most MAX_CHUNKS
-    chunks and as many as K5's walk (2(k² + k(k+1)) doubles a chunk) or K6's
-    scan ((2D)² + 2D, 2D = k(k+1)) can stage, a multiple of the tile."""
+    at most h columns: K5's walk stages 2(k² + k(k+1)) doubles a chunk, at
+    least 128 columns; K6's scan (2D)² + 2D, 2D = k(k+1), at least 64."""
     from asvgp_tpu_torch.banded.twisted import split_point
 
-    h = split_point(m, k)
     dd = k * (k + 1)
-    out = []
-    for per, least in ((2 * (k * k + dd), 128), (dd * dd + dd, 64)):
-        cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
-        lc = max(least, -(-h // cap))
-        out.append(min(-(-lc // TILE) * TILE, h))
-    return out[0], out[1]
+    return partition_cols((2 * (k * k + dd), 128), (dd * dd + dd, 64), split_point(m, k))
 
 
 def twist_short(bands, c: int):
@@ -1623,6 +1647,35 @@ def twist_edge_parity(device, rng) -> dict:
             **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows) for n in TWISTED}}
 
 
+def tan_walk_record(tri, win, kuu_role: bool, k: int) -> dict:
+    """One matrix's Schur walk in K5's or K3's workspace (csrc/banded_tan.cu:
+    its triples ``tri`` (chunks, kQuadTriStride), Kuu's in dual numbers,
+    value and tangent interleaved, and its walked carries ``win`` (chunks,
+    k(k+1))): the largest entries of W and of Ẇ (Kuu) or β (P), and the
+    smallest eigenvalue of I − UᵀWU over the chunks whose incoming W is not
+    0 (U from the chunk's triple; its singular values are its
+    eigenvalues)."""
+    nm, stride = tri.shape
+    d = k * (k + 1) // 2
+    lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
+    tv = tri.view(nm, stride // 2, 2)[..., 0] if kuu_role else tri
+    wv = win.view(nm, d, 2) if kuu_role else win
+    u = tv.new_zeros(nm, k, k)
+    u[:, lo[0], lo[1]] = tv[:, :d]
+    w = tv.new_zeros(nm, k, k)
+    w[:, up[0], up[1]] = wv[..., 0] if kuu_role else wv[:, :d]
+    w = w + torch.triu(w, 1).mT
+    row = {"w_max": float(w.abs().max())}
+    if kuu_role:
+        row["wdot_max"] = float(wv[..., 1].abs().max())
+    else:
+        row["beta_max"] = float(wv[:, d: d + k].abs().max())
+    if nm > 1:
+        eye = torch.eye(k, dtype=tri.dtype, device=tri.device)
+        row["sigma_min"] = float(torch.linalg.eigvalsh(eye - u[1:].mT @ w[:-1] @ u[1:]).min())
+    return row
+
+
 def twist_maps(bands) -> dict:
     """K5's and K6's chunks on the arguments ``bands`` = (Kuu, T, P, b):
     one direct launch of each C entry point (not counted), with a
@@ -1640,7 +1693,7 @@ def twist_maps(bands) -> dict:
     k, m = kuu.shape[0] - 1, kuu.shape[1]
     h = split_point(m, k)
     g = m - h - k
-    d, dd = k * (k + 1) // 2, k * (k + 1)
+    dd = k * (k + 1)
     lc5, lc6 = twist_chunk_cols(k, m)
     n5, n6 = -(-h // lc5) - 1, -(-h // lc6) - 1
     stride = 2 * (k * k + dd)
@@ -1658,29 +1711,10 @@ def twist_maps(bands) -> dict:
         res = {"chunks": [n5 + 1, n6 + 1]}
         tri = ws[: 4 * n5 * stride].view(4, n5, stride)
         win = ws[4 * n5 * stride: 4 * n5 * (stride + dd)].view(4, n5, dd)
-        lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
-        eye = torch.eye(k, dtype=torch.float64, device=kuu.device)
         for t, name in enumerate(("F_kuu", "F_p", "R_kuu", "R_p")):
             nm = -(-(h if t < 2 else g) // lc5) - 1
-            if nm < 1:  # one chunk: no walk
-                continue
-            kuu_role = t % 2 == 0
-            tv = tri[t, :nm].view(nm, stride // 2, 2)[..., 0] if kuu_role else tri[t, :nm]
-            wv = win[t, :nm].view(nm, d, 2) if kuu_role else win[t, :nm]
-            u = tv.new_zeros(nm, k, k)
-            u[:, lo[0], lo[1]] = tv[:, :d]
-            w = tv.new_zeros(nm, k, k)
-            w[:, up[0], up[1]] = wv[..., 0] if kuu_role else wv[:, :d]
-            w = w + torch.triu(w, 1).mT
-            row = {"w_max": float(w.abs().max())}
-            if kuu_role:
-                row["wdot_max"] = float(wv[..., 1].abs().max())
-            else:
-                row["beta_max"] = float(wv[:, d: d + k].abs().max())
-            if nm > 1:
-                nmat = eye - u[1:].mT @ w[:-1] @ u[1:]
-                row["sigma_min"] = float(torch.linalg.eigvalsh(nmat).min())
-            res[name] = row
+            if nm >= 1:  # more than one chunk: a walk
+                res[name] = tan_walk_record(tri[t, :nm], win[t, :nm], t % 2 == 0, k)
         _, z, x2, _ = twist.mid_step(*bands, k5[0], k5[1], k5[4])
         ws.fill_(float("nan"))
         out6 = [kuu.new_empty(shape) for shape in ((k + 1, m), (k + 1, m), (m,), (k + 1, m))]
@@ -1695,17 +1729,11 @@ def twist_maps(bands) -> dict:
 
 def core_chunk_cols(k: int, m: int) -> tuple[int, int]:
     """(K1's, K2's) columns per chunk at (k, m), as csrc/banded_core.cu's
-    core_chol_cols and core_tak_cols give them: at least 128 (K1) or 64
-    (K2), at most MAX_CHUNKS chunks and as many as K1's walk (k² + k(k+1) +
-    2k doubles a chunk) or K2's scan (DD² + DD, DD = k(k+1)/2 + k) can
-    stage, a multiple of the tile."""
+    core_chol_cols and core_tak_cols give them: K1's walk stages k² +
+    k(k+1) + 2k doubles a chunk, at least 128 columns; K2's scan DD² + DD,
+    DD = k(k+1)/2 + k, at least 64."""
     dd = k * (k + 1) // 2 + k
-    out = []
-    for per, least in ((k * k + k * (k + 1) + 2 * k, 128), (dd * dd + dd, 64)):
-        cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
-        lc = max(least, -(-m // cap))
-        out.append(min(-(-lc // TILE) * TILE, m))
-    return out[0], out[1]
+    return partition_cols((k * k + k * (k + 1) + 2 * k, 128), (dd * dd + dd, 64), m)
 
 
 def core_edge_parity(device, rng) -> dict:
@@ -1729,7 +1757,7 @@ def core_edge_parity(device, rng) -> dict:
                **_errs("tak_pair_solve", core.tak_pair_solve(*in2),
                        core.tak_pair_solve_plain(*want1))}
         row["first_chunk_equal"] = (
-            first_chunk_equal(core.chol_pair_solve, bands, False, CORE_FIRST[0], nband=2)
+            first_chunk_equal(core.chol_pair_solve, bands, False, CORE_FIRST[0], (0, 1))
             and first_chunk_equal(core.tak_pair_solve, in2, True, CORE_FIRST[1]))
         rows.append(row)
     return {"rows": rows, "first_chunk_equal": all(r["first_chunk_equal"] for r in rows),
@@ -1790,6 +1818,85 @@ def core_maps(bands) -> dict:
     if n2 > 1:
         hmap = ws[: 2 * n2 * dd * dd].view(2, n2, dd, dd)[:, 1:]
         res["k2_h_max"] = {"kuu": float(hmap[0].abs().max()), "p": float(hmap[1].abs().max())}
+    return res
+
+
+def tan_chunk_cols(k: int, m: int) -> tuple[int, int]:
+    """(K3's, K4's) columns per chunk at (k, m): K5's and K6's rule
+    (``twist_chunk_cols``) on one stream of m columns."""
+    dd = k * (k + 1)
+    return partition_cols((2 * (k * k + dd), 128), (dd * dd + dd, 64), m)
+
+
+def tan_edge_parity(device, rng) -> dict:
+    """Phase 2: K3 and K4 on random SPD Kuu and P, a random symmetric
+    tangent band and a random b at TAN_EDGES against their plain versions
+    on CPU copies (K4 on the plain K3's outputs), at the random-band bar;
+    and each walk's first chunk against the kernel on that chunk alone: K3
+    on the first TAN_FIRST[0] columns of the bands and b (its factors' and
+    tangent's rows past them left out), K4 on the last TAN_FIRST[1]
+    columns of K3's outputs."""
+    from asvgp_tpu_torch.banded import tan
+
+    rows = []
+    for k, m in TAN_EDGES:
+        host = [torch.as_tensor(a) for a in (spd_band(k, m, rng), sym_band(k, m, rng),
+                                              spd_band(k, m, rng), rng.randn(m))]
+        bands = [t.to(device) for t in host]
+        want3 = tan.chol_pair_solve_tan_plain(*host)
+        in4 = [t.to(device) for t in want3]
+        row = {"k": k, "m": m, "chunks": tan_chunk_cols(k, m),
+               **_errs("chol_pair_solve_tan", tan.chol_pair_solve_tan(*bands), want3),
+               **_errs("tak_pair_solve_tan", tan.tak_pair_solve_tan(*in4),
+                       tan.tak_pair_solve_tan_plain(*want3))}
+        row["first_chunk_equal"] = (
+            first_chunk_equal(tan.chol_pair_solve_tan, bands, False, TAN_FIRST[0], (0, 1, 4))
+            and first_chunk_equal(tan.tak_pair_solve_tan, in4, True, TAN_FIRST[1]))
+        rows.append(row)
+    return {"rows": rows, "first_chunk_equal": all(r["first_chunk_equal"] for r in rows),
+            **{f"{n}_rel": max(r[f"{n}_rel"] for r in rows) for n in TAN}}
+
+
+def tan_maps(bands) -> dict:
+    """K3's and K4's chunks on the arguments ``bands`` = (Kuu, T, P, b): one
+    direct launch of each C entry point (not counted), with a workspace
+    kept here, filled with NaN first (csrc/banded_tan.cu's layout).  For
+    Kuu and P, K3's walk record (``tan_walk_record``); and the largest
+    entry of K4's maps of the chunks that take a carry (chunk 0's meets
+    0), by matrix."""
+    from asvgp_tpu_torch.banded import _build
+
+    lib = _build.load()
+    kuu = bands[0]
+    k, m = kuu.shape[0] - 1, kuu.shape[1]
+    dd = k * (k + 1)
+    lc3, lc4 = tan_chunk_cols(k, m)
+    n3, n4 = -(-m // lc3) - 1, -(-m // lc4) - 1
+    stride = 2 * (k * k + dd)
+    n = lib.asvgp_tan_workspace(k, m)
+    if n != max(2 * n3 * (stride + dd), 2 * n4 * (dd * dd + 2 * dd)):
+        raise AssertionError(f"tan_chunk_cols {lc3, lc4} disagrees with the kernels' "
+                             f"workspace of {n} at k={k}, m={m}")
+    ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
+    k3 = [torch.empty_like(kuu), torch.empty_like(kuu), kuu.new_empty((2, m)), kuu.new_empty(m),
+          torch.empty_like(kuu), kuu.new_empty(m)]
+    k4 = [torch.empty_like(kuu), torch.empty_like(kuu), kuu.new_empty(m), torch.empty_like(kuu)]
+    res = {"chunks": [n3 + 1, n4 + 1]}
+    with torch.cuda.device(kuu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.asvgp_chol_pair_solve_tan(k, m, *(t.data_ptr() for t in (*bands, *k3, ws)),
+                                           stream)
+        _build.check(lib, rc, "asvgp_chol_pair_solve_tan")
+        tri = ws[: 2 * n3 * stride].view(2, n3, stride)
+        win = ws[2 * n3 * stride: 2 * n3 * (stride + dd)].view(2, n3, dd)
+        for t, name in ((0, "kuu"), (1, "p")) if n3 > 0 else ():
+            res[name] = tan_walk_record(tri[t], win[t], t == 0, k)
+        ws.fill_(float("nan"))
+        rc = lib.asvgp_tak_pair_solve_tan(k, m, *(t.data_ptr() for t in (*k3, *k4, ws)), stream)
+        _build.check(lib, rc, "asvgp_tak_pair_solve_tan")
+    if n4 > 1:
+        hmap = ws[: 2 * n4 * dd * dd].view(2, n4, dd, dd)[:, 1:]
+        res["k4_h_max"] = {"kuu": float(hmap[0].abs().max()), "p": float(hmap[1].abs().max())}
     return res
 
 
@@ -2095,6 +2202,15 @@ def main() -> None:
     if not tw_edges["first_chunk_equal"]:
         raise AssertionError(f"a twisted sweep's first chunk is not the one-pass recursion: "
                              f"{tw_edges['rows']}")
+    tan_edges = tan_edge_parity(device, rng)
+    emit("2_parity_tan_edges", **tan_edges, tol=TOL_PARITY_ADJOINT,
+         ptxas=[line for line in ptxas_summary(info["log"])
+                if line.startswith(("chol_pair_tan", "tak_pair_tan", "chol_quad_walk",
+                                    "chunk_scan"))])
+    check_parity(tan_edges, TOL_PARITY_ADJOINT, "of K3/K4 at the edges of their partitions")
+    if not tan_edges["first_chunk_equal"]:
+        raise AssertionError(f"a single-ended tangent sweep's first chunk is not the one-pass "
+                             f"recursion: {tan_edges['rows']}")
 
     x, y = bench_data(N, SEED)
     x_test, y_test = bench_data(N_TEST, TEST_SEED)
@@ -2401,6 +2517,9 @@ def main() -> None:
     # the serving sweeps' partitions on the same bands (the posterior's and
     # the ELBO value's Kuu, P and Kuf·y)
     emit("6l_core_maps", card=smi, north_star=core_maps(main_bands))
+    # the single-ended tangent sweeps' partitions on the same bands (every
+    # single-ended step meets them first)
+    emit("6l_tan_maps", card=smi, north_star=tan_maps(main_bands))
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
@@ -2538,10 +2657,10 @@ def main() -> None:
     # adjoints take less time on the card than their call takes on the
     # host; the gap is the event time less the device time, the wrapper's
     # and launches'
-    partitioned = SERVING_KERNELS + SOLVES + ADJOINTS + FORWARDS + TWISTED
+    partitioned = SERVING_KERNELS + SOLVES + ADJOINTS + FORWARDS + TWISTED + TAN
     # the stages around K1 and K2 (the float64 posterior, the value-only
-    # ELBO), and the mid step and the twisted route's sweeps and step
-    # around K5 and K6
+    # ELBO), the mid step and the twisted route's sweeps and step around K5
+    # and K6, and the single-ended route's around K3 and K4
     stages = {
         "factor_takahashi_solve": lambda: core.factor_takahashi_solve(kuu, p_band, b),
         "posterior": model.posterior,
@@ -2549,6 +2668,8 @@ def main() -> None:
         "mid_step": lambda: twist.mid_step(*main_bands, k5[0], k5[1], k5[4]),
         "twisted_sweeps_k5_mid_k6": lambda: twist.factor_takahashi_solve_tan_twist(*main_bands),
         "value_and_grad_twisted": lambda: value_and_grad(tmodel),
+        "tan_sweeps_k3_k4": lambda: tan.factor_takahashi_solve_tan(*main_bands),
+        "value_and_grad_single_ended": step_single,
     }
     alone = [(n, calls[n][0]) for n in partitioned] + list(stages.items()) + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),

@@ -27,7 +27,7 @@ the mid step and K6: CUDA events
                      flags) equal DIR's whole;
   --schur-chunk N    build with the Cholesky sweeps' chunks at least N
                      columns (``ASVGP_SCHUR_CHUNK``: K5, and K9, K15, K17);
-  --tak-chunk N      build with K6's chunks at least N columns
+  --tak-chunk N      build with K6's (and K4's) chunks at least N columns
                      (``ASVGP_TAK_QUAD_CHUNK``).
 
 Needs an NVIDIA GPU and nvcc; run from the repository root, the versions
@@ -159,11 +159,12 @@ def first_chunk_vs(root: str, dev, kuu, tanb, p, b, mine5, z, x2, mine6) -> dict
     # the kernels whose code moved or gained role flags, whole
     k3 = tan.chol_pair_solve_tan(kuu, tanb, p, b)
     theirs3 = [torch.empty_like(t) for t in k3]
-    call(other, lib, "asvgp_chol_pair_solve_tan", k, m, kuu, tanb, p, b, *theirs3)
+    ws3 = ("asvgp_tan_workspace", (k, m))
+    call(other, lib, "asvgp_chol_pair_solve_tan", k, m, kuu, tanb, p, b, *theirs3, ws_of=ws3)
     out["k3_whole"] = all(torch.equal(a, t) for a, t in zip(k3, theirs3))
     k4 = tan.tak_pair_solve_tan(*k3)
     theirs4 = [torch.empty_like(t) for t in k4]
-    call(other, lib, "asvgp_tak_pair_solve_tan", k, m, *k3, *theirs4)
+    call(other, lib, "asvgp_tak_pair_solve_tan", k, m, *k3, *theirs4, ws_of=ws3)
     out["k4_whole"] = all(torch.equal(a, t) for a, t in zip(k4, theirs4))
     l = ops.cholesky_band_plain(kuu.cpu()).to(dev)
     for name, fn, entry, band, nb, wsfn in (
