@@ -9,8 +9,8 @@ the JAX package's layout:
   basis/     B-spline basis engine (orders 1-6) on a uniform mesh
   features/  RKHS Gram (Kuu) assembly + sparse design (Kuf) features
   stats/     sufficient-statistic assembly on the data's device
-  models/    GPR1D, GPRKron (2-D), SVGP1D, the exact GP, Matérn kernels,
-             Gaussian likelihood
+  models/    GPR1D, GPRKron (2-D), GPRAdditive, SVGP1D, the exact GP,
+             Matérn kernels, Gaussian likelihood
   train/     L-BFGS, minibatch Adam, metrics (NLPD, MSE)
 
 Everything is float64, except GPR1D with ``dtype=torch.float32`` (the JAX

@@ -15,11 +15,15 @@ autograd Functions, ``tan`` the tangent-fused
 sweeps (K3, K4) and ``twist`` their two-ended form (K5, K6), as CUDA
 kernels on the GPU; ``twisted`` the float64 oracle of the two-ended
 factorization.  ``block`` holds the block-banded algebra of the Kronecker
-model, whose diagonal-block step is K16 (``dense_block``).
+model and of the additive model's dense coupling (a block-banded matrix of
+full block bandwidth), whose diagonal-block step is K16 (``dense_block``).
 """
 
 from asvgp_tpu_torch.banded.layout import (
     band_to_dense,
+    dense_to_band,
+    dense_to_lower_band,
+    lower_band_of_symmetric,
     lower_band_to_dense,
     mask_band,
     mask_lower_band,
@@ -60,6 +64,9 @@ from asvgp_tpu_torch.banded.twist import factor_takahashi_solve_tan_twist, twist
 
 __all__ = [
     "band_to_dense",
+    "dense_to_band",
+    "dense_to_lower_band",
+    "lower_band_of_symmetric",
     "lower_band_to_dense",
     "mask_band",
     "mask_lower_band",

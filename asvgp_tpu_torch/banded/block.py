@@ -364,10 +364,13 @@ def block_band_to_dense(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def dense_to_block_band(dense: torch.Tensor, W: int, B: int) -> torch.Tensor:
-    """Block-lower storage (W+1, nb, B, B) of a dense symmetric matrix."""
+    """Block-lower storage (W+1, nb, B, B) of a dense symmetric matrix: one
+    block diagonal at a time, out of place, so that it differentiates into
+    the blocks it reads (the lower ones)."""
     nb = dense.shape[0] // B
-    out = dense.new_zeros((W + 1, nb, B, B))
+    grid = dense.reshape(nb, B, nb, B).transpose(1, 2)  # grid[I, J] = block (I, J)
+    rows = []
     for p in range(W + 1):
-        for j in range(nb - p):
-            out[p, j] = dense[(j + p) * B:(j + p + 1) * B, j * B:(j + 1) * B]
-    return out
+        diag = torch.diagonal(grid, offset=-p, dim1=0, dim2=1).permute(2, 0, 1)  # [J] = (J+p, J)
+        rows.append(torch.cat([diag, dense.new_zeros((nb - diag.shape[0], B, B))]))
+    return torch.stack(rows)

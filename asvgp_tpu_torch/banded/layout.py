@@ -65,3 +65,26 @@ def symmetrise_lower_band(band: torch.Tensor) -> torch.Tensor:
     """Lower band (k+1, m) of symmetric M -> full general band (2k+1, m) of M."""
     upper = transpose_lower_band(band)  # (k+1, m), row k = main diag
     return torch.cat([upper[:-1], band], dim=0)
+
+
+def dense_to_band(dense: torch.Tensor, l: int, u: int) -> torch.Tensor:
+    """Extract a general (l, u) band, shape (l+u+1, m), from dense (m, m):
+    ``band[r, i] = M[i + r - u, i]``, out-of-range slots zero."""
+    m = dense.shape[0]
+    rows = []
+    for r in range(l + u + 1):
+        off = r - u
+        diag = torch.diagonal(dense, offset=-off)  # M[i + off, i]
+        pad = dense.new_zeros((m - diag.shape[0],))
+        rows.append(torch.cat([pad, diag]) if off < 0 else torch.cat([diag, pad]))
+    return torch.stack(rows)
+
+
+def dense_to_lower_band(dense: torch.Tensor, k: int) -> torch.Tensor:
+    """Extract the lower band (k+1, m) of a dense (m, m) matrix."""
+    return dense_to_band(dense, k, 0)
+
+
+def lower_band_of_symmetric(band_full: torch.Tensor, l: int, u: int) -> torch.Tensor:
+    """Extract the lower band (rows u..u+l) from a general band of a symmetric M."""
+    return band_full[u:u + l + 1]

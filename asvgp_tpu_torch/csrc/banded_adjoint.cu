@@ -518,14 +518,30 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
   }
 }
 
+// Up to kTwoChunkCols columns a linear sweep takes at most two chunks.
+// The second chunk's incoming carry is then the first's particular part,
+// the one-pass recursion's own window, and no map meets a carry: the
+// sweep keeps the one-pass recursion's accuracy.  From three chunks on the
+// scan applies the maps, whose entries grow with κ(A), and the carries
+// lose about two digits: at the additive model's Kuu (B3, m = 250,
+// Matérn-3/2 at ℓ/δ = 49, κ = 2.9e6) K11's band of A⁻¹ lay 5.8e-12 from
+// an extended-precision one against the one-pass recursion's 8.5e-14, and
+// the model's lengthscale gradient moved 5e-7 on an H100.  Beyond
+// kTwoChunkCols the loss stays (ROADMAP.md, queue 3).
+constexpr int kTwoChunkCols = 512;
+
 // Columns per chunk of the linear sweeps: at least kMinChunk, at most
 // kMaxChunks chunks and at most as many as the scan can stage the maps of
 // in shared memory (D^2 + D doubles each, whatever T), a multiple of the
-// tile.  lc >= m is one chunk.  At m = 10^4: 64 columns for k <= 4, 128
-// at k = 5, 192 at k = 6.
+// tile, and half the walk up to kTwoChunkCols columns.  lc >= m is one
+// chunk.  At m = 10^4: 64 columns for k <= 4, 128 at k = 5, 192 at k = 6;
+// at m = 250: 128.
 int carry_chunk_cols(int k, int m) {
   const long d = static_cast<long>(k) * (k + 1) / 2;
-  return partition_cols(d * d + d, kMinChunk, m);
+  const int lc = partition_cols(d * d + d, kMinChunk, m);
+  if (m > kTwoChunkCols) return lc;
+  const int half = ((m + 1) / 2 + kTile - 1) / kTile * kTile;
+  return lc >= half ? lc : (half < m ? half : m);
 }
 
 // Elements of T of the workspace of a linear sweep over nb matrices: H

@@ -1,4 +1,5 @@
-"""Model classes: GPR1D, GPRKron, SVGP1D, the exact GP, Matérn kernels, Gaussian likelihood."""
+"""Model classes: GPR1D, GPRKron, GPRAdditive, SVGP1D, the exact GP, Matérn
+kernels, Gaussian likelihood."""
 
 from asvgp_tpu_torch.models.kernels import Matern, Matern12, Matern32, Matern52
 from asvgp_tpu_torch.models.likelihoods import Gaussian
@@ -6,6 +7,7 @@ from asvgp_tpu_torch.models.gpr1d import GPR1D, Posterior1D
 from asvgp_tpu_torch.models.exact_gp import ExactGPR
 from asvgp_tpu_torch.models.svgp import SVGP1D, fit_svgp
 from asvgp_tpu_torch.models.kron import GPRKron, PosteriorKron
+from asvgp_tpu_torch.models.additive import GPRAdditive, PosteriorAdditive
 
 __all__ = [
     "Matern",
@@ -20,4 +22,6 @@ __all__ = [
     "fit_svgp",
     "GPRKron",
     "PosteriorKron",
+    "GPRAdditive",
+    "PosteriorAdditive",
 ]

@@ -52,6 +52,9 @@ class ExactGPR(MaternGaussianModel):
             - 0.5 * self.y.shape[0] * _LOG2PI
         )
 
+    def maximum_log_likelihood_objective(self, params=None) -> torch.Tensor:
+        return self.log_marginal_likelihood(params)
+
     def training_loss(self, params=None) -> torch.Tensor:
         return -self.log_marginal_likelihood(params)
 

@@ -344,6 +344,9 @@ class GPR1D(MaternGaussianModel):
             kernel.variance, kernel.lengthscales, lik.variance, kdiag_sum,
         )
 
+    def maximum_log_likelihood_objective(self, params=None) -> torch.Tensor:
+        return self.elbo(params)
+
     def training_loss(self, params=None) -> torch.Tensor:
         return -self.elbo(params)
 

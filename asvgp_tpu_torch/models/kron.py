@@ -14,7 +14,9 @@ stays factorized or banded:
 
 The data enter through the sufficient statistics, computed once at
 construction on the model's device (the CUDA device unless told
-otherwise).  D ≥ 3 (the JAX package's stats/kron_nd.py) is not ported.
+otherwise); the hyperparameters and the batched predictions are
+models/per_dimension.py's, shared with GPRAdditive.  D ≥ 3 (the JAX
+package's stats/kron_nd.py) is not ported.
 """
 
 from __future__ import annotations
@@ -23,15 +25,18 @@ import math
 
 import numpy as np
 import torch
-from torch import nn
 
 from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded import block
 from asvgp_tpu_torch.features.spline_features import make_kuf, make_kuu, validate_kernel_basis
 from asvgp_tpu_torch.models.gpr1d import resolve_device, window_quadratic_form
-from asvgp_tpu_torch.models.kernels import Matern
-from asvgp_tpu_torch.models.likelihoods import Gaussian
-from asvgp_tpu_torch.models.parameters import positive, positive_inverse
+from asvgp_tpu_torch.models.parameters import positive
+from asvgp_tpu_torch.models.per_dimension import (
+    PerDimensionGP,
+    PerDimensionPosterior,
+    check_domain,
+    params_to_kernels,
+)
 from asvgp_tpu_torch.stats.kron import (
     KronStats,
     compute_kron_stats,
@@ -41,15 +46,6 @@ from asvgp_tpu_torch.stats.kron import (
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
-
-
-def kron_params_to_kernels(params, nu2s):
-    """The per-dimension Matérn kernels of a params pytree."""
-    return [
-        Matern(variance=positive(p["raw_variance"]), lengthscales=positive(p["raw_lengthscales"]),
-               nu2=nu2)
-        for p, nu2 in zip(params["kernels"], nu2s)
-    ]
 
 
 def _p_blocks(bases, kuu_bands, sigma2, t_band):
@@ -63,7 +59,7 @@ def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
     """The collapsed ELBO from the Kronecker sufficient statistics, term by
     term as the JAX package's (and the reference's) bound, with P
     block-banded."""
-    kernels = kron_params_to_kernels(params, nu2s)
+    kernels = params_to_kernels(params, nu2s)
     sigma2 = positive(params["likelihood"]["raw_variance"])
     ms = [b.m for b in bases]
 
@@ -90,15 +86,13 @@ def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
     return elbo
 
 
-class PosteriorKron:
+class PosteriorKron(PerDimensionPosterior):
     """Cached GPRKron posterior: the block factorization is done once at
     construction; each prediction is window gathers, O(Π_d (k_d+1)²) per
     point, on the device of the posterior arrays."""
 
     def __init__(self, kernels, lik, bases, w_flat, sp, s_bands):
-        self.kernels = kernels
-        self.likelihood = lik
-        self.bases = bases
+        super().__init__(kernels, lik, bases, w_flat.device)
         self.w_flat = w_flat  # (m1, m2)
         self.sp = sp          # (k1+1, m1, m2, m2) block band of P⁻¹
         self.s_bands = s_bands
@@ -127,54 +121,14 @@ class PosteriorKron:
                 quad_p = quad_p + mult * v1[:, s1 + d] * v1[:, s1] * val
         return mean, self.kdiag + quad_p - q_prod
 
-    def predict_f(self, Xnew, full_cov: bool = False, batch: int | None = None):
-        """Posterior mean and marginal variance at Xnew (n, 2), each (n, 1).
 
-        ``batch`` chunks the test points; the last chunk is padded to the
-        batch size with the domain's centre and cut, so no point is
-        dropped."""
-        if full_cov:
-            raise NotImplementedError("full_cov prediction is not implemented")
-        x = torch.as_tensor(Xnew, dtype=_F64, device=self.w_flat.device).reshape(-1, 2)
-        n = x.shape[0]
-        if not batch or n <= batch:
-            mean, var = self._predict_chunk(x)
-            return mean[:, None], var[:, None]
-        n_pad = (-n) % batch
-        centre = x.new_tensor([0.5 * (b.a + b.b) for b in self.bases])
-        xp = torch.cat([x, centre.expand(n_pad, 2)])
-        means, vars_ = [], []
-        for lo in range(0, n + n_pad, batch):
-            mc, vc = self._predict_chunk(xp[lo:lo + batch])
-            means.append(mc)
-            vars_.append(vc)
-        return torch.cat(means)[:n, None], torch.cat(vars_)[:n, None]
-
-    def predict_y(self, Xnew, batch: int | None = None):
-        mean, var = self.predict_f(Xnew, batch=batch)
-        return self.likelihood.predict_mean_and_var(mean, var)
-
-    def predict_log_density(self, data, batch: int | None = None):
-        Xnew, ynew = data
-        mean, var = self.predict_f(Xnew, batch=batch)
-        y = torch.as_tensor(ynew, dtype=_F64, device=mean.device).reshape(mean.shape)
-        return self.likelihood.predict_log_density(mean, var, y)
-
-
-class GPRKron(nn.Module):
+class GPRKron(PerDimensionGP):
     """2-D ASVGP regression with tensor-product B-spline inducing features.
 
-    One Matérn kernel and one basis per input dimension.  The unconstrained
-    hyperparameters are float64 ``nn.Parameter``s (``raw_variances``,
-    ``raw_lengthscales``: one per dimension; ``raw_noise_variance``) and the
-    sufficient statistics float64 buffers, all on ``device`` (default: the
-    CUDA device, raising without one; pass ``device="cpu"`` for the CPU).
-
-    A params pytree in the JAX package's layout, ``{"kernels":
-    [{"raw_lengthscales", "raw_variance"}, ...], "likelihood":
-    {"raw_variance"}}``, can stand in for them: ``params()`` returns one,
-    ``load_jax_params`` sets them from one, and the objectives and
-    predictions take one (``None``: the module's own parameters).
+    One Matérn kernel and one basis per input dimension; the hyperparameters
+    as ``PerDimensionGP`` holds them, and the sufficient statistics float64
+    buffers, all on ``device`` (default: the CUDA device, raising without
+    one; pass ``device="cpu"`` for the CPU).
     """
 
     def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None):
@@ -186,35 +140,17 @@ class GPRKron(nn.Module):
         D = xv.shape[1]
         if len(kernels) != D or len(bases) != D:
             raise ValueError("need one kernel and one basis per input dimension")
-        # domain check on the host when the caller passed host data
-        for d, basis in enumerate(bases):
-            lo, hi = float(xv[:, d].min()), float(xv[:, d].max())
-            if not (lo > basis.a and hi < basis.b):
-                raise ValueError(f"dim {d}: inputs must lie strictly inside "
-                                 f"[{basis.a}, {basis.b}], got [{lo}, {hi}]")
+        check_domain(xv, bases)
         for k, b in zip(kernels, bases):
             validate_kernel_basis(k, b)
         if D != 2:
             raise NotImplementedError(
                 f"GPRKron at D = {D}: only D = 2 is ported; the D >= 3 statistics "
-                "(stats/kron_nd.py) are open in ROADMAP.md, queue 1 item 12")
+                "(stats/kron_nd.py) are open in ROADMAP.md, queue 1, under \"GPRKron at D ≥ 3\"")
         device = resolve_device(device)
         self.bases = list(bases)
-        self.nu2s = [k.nu2 for k in kernels]
-        self.kernels_init = list(kernels)
-        self.noise_variance_init = noise_variance
         self.D = D
-
-        init = self.init_params()
-
-        def param(value):
-            return nn.Parameter(torch.as_tensor(value, dtype=_F64, device=device))
-
-        self.raw_variances = nn.ParameterList(
-            [param(p["raw_variance"]) for p in init["kernels"]])
-        self.raw_lengthscales = nn.ParameterList(
-            [param(p["raw_lengthscales"]) for p in init["kernels"]])
-        self.raw_noise_variance = param(init["likelihood"]["raw_variance"])
+        self._init_parameters(kernels, noise_variance, device)
 
         X = torch.as_tensor(X_in, dtype=_F64, device=device)
         yf = torch.as_tensor(y_in, dtype=_F64, device=device).reshape(-1)
@@ -230,70 +166,11 @@ class GPRKron(nn.Module):
     def stats(self) -> KronStats:
         return KronStats(kuf_y=self.kuf_y, t_band=self.t_band, yty=self.yty, n=self.n)
 
-    # ---- parameters ---------------------------------------------------------
-    def init_params(self) -> dict:
-        """The initial parameters in the JAX package's layout (numpy)."""
-
-        def inv(value):
-            return positive_inverse(torch.as_tensor(value, dtype=_F64).detach().cpu()).numpy()
-
-        return {
-            "kernels": [{"raw_variance": inv(k.variance), "raw_lengthscales": inv(k.lengthscales)}
-                        for k in self.kernels_init],
-            "likelihood": {"raw_variance": inv(self.noise_variance_init)},
-        }
-
-    def params(self) -> dict:
-        """The current parameters in the JAX package's layout: detached
-        float64 copies on the model's device (``fit_lbfgs`` starts there)."""
-        own = self._params(None)
-        return {
-            "kernels": [{name: v.detach().clone() for name, v in p.items()}
-                        for p in own["kernels"]],
-            "likelihood": {"raw_variance": own["likelihood"]["raw_variance"].detach().clone()},
-        }
-
-    def _params(self, params):
-        """``params``, or the module's own parameters for ``None``, in the
-        JAX package's layout (differentiable into the module)."""
-        if params is not None:
-            return params
-        return {
-            "kernels": [{"raw_lengthscales": ell, "raw_variance": var}
-                        for var, ell in zip(self.raw_variances, self.raw_lengthscales)],
-            "likelihood": {"raw_variance": self.raw_noise_variance},
-        }
-
-    def load_jax_params(self, params) -> None:
-        """Set the parameters from a params pytree in the JAX package's
-        layout, of tensors (any device) or numpy arrays."""
-        if len(params["kernels"]) != self.D:
-            raise ValueError(f"need {self.D} kernels' parameters, got {len(params['kernels'])}")
-        pairs = [(self.raw_noise_variance, params["likelihood"]["raw_variance"])]
-        for d, p in enumerate(params["kernels"]):
-            pairs += [(self.raw_variances[d], p["raw_variance"]),
-                      (self.raw_lengthscales[d], p["raw_lengthscales"])]
-        with torch.no_grad():
-            for target, value in pairs:
-                v = (value.detach() if isinstance(value, torch.Tensor)
-                     else torch.as_tensor(np.array(value, dtype=np.float64)))
-                if v.numel() != target.numel():
-                    raise ValueError(f"parameter of {target.numel()} values given {v.numel()}")
-                target.copy_(v.reshape(target.shape))
-
-    def _build(self, params=None):
-        p = self._params(params)
-        return (kron_params_to_kernels(p, self.nu2s),
-                Gaussian(positive(p["likelihood"]["raw_variance"])))
-
     # ---- training objective -----------------------------------------------
     def elbo(self, params=None) -> torch.Tensor:
         """The collapsed ELBO at ``params`` (default: the module's own
         parameters); differentiable on the CPU and on the GPU."""
         return kron_collapsed_elbo(self.bases, self.nu2s, self._params(params), self.stats)
-
-    def training_loss(self, params=None) -> torch.Tensor:
-        return -self.elbo(params)
 
     # ---- prediction -----------------------------------------------------------
     @torch.no_grad()
@@ -311,16 +188,3 @@ class GPRKron(nn.Module):
         sp = block.takahashi_inverse_block_banded(l_p, linv_p)
         return PosteriorKron(kernels, lik, self.bases, w.reshape(self.bases[0].m, -1), sp,
                              s_bands)
-
-    def predict_f(self, Xnew, full_cov: bool = False, batch: int | None = None, params=None):
-        """Posterior mean and marginal variance at Xnew; ``full_cov`` is not
-        implemented, matching the reference; ``batch`` chunks the points."""
-        if full_cov:
-            raise NotImplementedError("full_cov prediction is not implemented")
-        return self.posterior(params).predict_f(Xnew, batch=batch)
-
-    def predict_y(self, Xnew, batch: int | None = None, params=None):
-        return self.posterior(params).predict_y(Xnew, batch=batch)
-
-    def predict_log_density(self, data, batch: int | None = None, params=None):
-        return self.posterior(params).predict_log_density(data, batch=batch)

@@ -3,10 +3,12 @@
 Drives the GPR1D serving and training paths (in float64 and in float32),
 minibatch Adam and SVGP1D at the north-star shape — N = 10⁶ points from
 bench.py's generator, m = 10⁴ B3-spline features on [0, 1], Matérn-3/2 —
-and GPRKron at the eNATL60
+GPRKron at the eNATL60
 protocol's shape (experiments/spatial_2d/ocean_ssh.py: N = 2·10⁶ 2-D
-points, 100 × 100 B4-spline features), through the port's public entry
-points, on the card:
+points, 100 × 100 B4-spline features) and GPRAdditive at
+ADDITIVE_PROBE.json's shape (tools/additive_probe.py: N = 5·10⁵ points in
+4 dimensions, 250 B3-spline features each, M = 1000), through the port's
+public entry points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
   1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc, one process per
@@ -110,6 +112,19 @@ points, on the card:
      K2's maps' largest entry; for K3 and K4 on the same bands, Kuu's W
      and Ẇ, P's W and β, each one's smallest eigenvalue of I − UᵀWU and
      K4's maps' largest entry by matrix
+  6m. GPRAdditive: the statistics (built twice: the same bits; held to the
+     JAX package's CPU-float64 values), the loss and its gradient by
+     backward(), fit_lbfgs (10 iterations, curv_rtol 10, REPS + 1 times,
+     ms per iteration on the host clock), the posterior, predictions on 10⁵
+     held-out points, MSE and NLPD, all held to tools/additive_anchors.py's
+     values; predictions against a posterior built by the plain versions on
+     a CPU copy
+  6n. its proof: construction and prediction launch nothing, a step K9,
+     K10, K11, K12 four times each (once per dimension) and K16 once per
+     128-wide block column of the padded P (8), the fit that per
+     evaluation, the posterior K9 = K11 = 4 and K16 = 8; K16 equal bit for
+     bit to its plain version on the 8 diagonal blocks the step gave it,
+     K9–K12 against theirs on the step's arguments (m = 250)
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K1, K2, K13, K14,
@@ -127,7 +142,12 @@ points, on the card:
      counterparts: K16's (torch.linalg.cholesky, then solve_triangular
      against I), the dense torch.linalg.cholesky of A for K9, K15 and K17,
      torch.cholesky_inverse of the dense L for K11 and K19 and the dense
-     torch.linalg.solve_triangular for K13, K14, K21 and K22
+     torch.linalg.solve_triangular for K13, K14, K21 and K22; the additive
+     step, posterior and predict (events, device time, busy share), K16
+     alone at B = 128 with its bound, and the additive P's block route
+     (log|P| + L⁻¹b, P⁻¹b + P⁻¹) against the library's yardstick on the
+     same padded P (torch.linalg.cholesky + solve_triangular; + cholesky_solve
+     + torch.cholesky_inverse)
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -336,6 +356,59 @@ KRON_STEP = {"chol_fwd": 2, "chol_bwd": 2, "tak_fwd": 2, "tak_bwd": 2,
              "chol_inv_dense": KRON_M}
 KRON_POSTERIOR = {"chol_fwd": 2, "tak_fwd": 2, "chol_inv_dense": KRON_M}
 
+# GPRAdditive at ADDITIVE_PROBE.json's shape (tools/additive_probe.py):
+# N_ADD points in ADD_D dimensions from RandomState(ADD_SEED), y = Σ_d
+# sin((3 + 2d) x_d) + 0.2 ε; N_ADD_TEST held-out points drawn the same way
+# from RandomState(ADD_TEST_SEED); ADD_D × B3Spline(0, 1, ADD_M) (M = 1000),
+# ADD_D × Matern32(ℓ = 0.2), noise 0.1; only the iteration count is cut (10)
+N_ADD, N_ADD_TEST, ADD_SEED, ADD_TEST_SEED = 500_000, 100_000, 0, 1
+ADD_D, ADD_M, ADD_ELL, ADD_NOISE = 4, 250, 0.2, 0.1
+# the same model built by the JAX package on a CPU in float64
+# (tools/additive_anchors.py on the GPU machine's CPU; its loss at init
+# lies 1.35e-9 from ADDITIVE_PROBE.json's CPU loss0, as far as Kuu
+# perturbed at the float64 rounding level moves it): the statistics as
+# stat_summary gives them, the loss and its gradient at the initial
+# parameters (order: kernels[d] ℓ and σ² for d = 0..3, noise),
+# fit_lbfgs(max_iters=10, curv_rtol=10.0), and the MSE and NLPD of its
+# posterior on the held-out points
+ANCHOR_ADD_STATS = {
+    "kuf_y": {"sum": 2169574.795993968, "abs_sum": 2187626.9745228547,
+              "sumsq": 6576778637.303127, "proj": -25511.16841485128,
+              "proj_abs": 1691825.4251026236},
+    "kufkfu": {"sum": 8000000.0, "abs_sum": 8000000.0,
+               "sumsq": 1496748467.8923402, "proj": -73098.2926616824,
+               "proj_abs": 6371954.89076828},
+    "yty": 1381178.9333684472,
+    "n": 500000.0,
+}
+ANCHOR_ADD_LOSS = 493038.7789725177
+ANCHOR_ADD_GRAD = (116416.86840022025, 80399.73537979103, 116407.69842062812,
+                   80369.1098745171, 116427.46688392779, 80304.02522578467,
+                   116285.77008498665, 80371.96071087514, -341187.2788966579)
+ANCHOR_ADD_FIT_LOSS = -79702.19602276012
+ANCHOR_ADD_FIT_ITERS, ANCHOR_ADD_FIT_EVALS = 10, 12
+ANCHOR_ADD_MSE = 0.04018866119832291
+ANCHOR_ADD_NLPD = -0.18640098532841895
+# relative limits, GPRKron's (PERF.md §2), the gradient's per component.
+# The JAX package's own values move by up to 1.3e-9 (loss), 1.3e-8
+# (gradient), 2.3e-9 (fit), 1.1e-9 (NLPD) when Kuu, or KufKfu and Kuf·y,
+# are perturbed at the float64 rounding level (tools/additive_anchors.py
+# --spread), so the loss and gradient bars sit at the anchors' own
+# precision
+TOL_ADD_STATS = 1e-10
+TOL_ADD_LOSS = 1e-09
+TOL_ADD_GRAD = 1e-08
+TOL_ADD_FIT = 1e-08
+TOL_ADD_METRICS = 1e-08
+# P is M×M, M = ADD_D·ADD_M, factored in 128-wide blocks (padded to 1024):
+# one value-and-grad step factors each Kuu_d and takes its Takahashi band
+# forward (K9, K11) and backward (K10, K12), and runs K16 once per block
+# column of P; the posterior the same without the backward
+ADD_NB = -(-ADD_D * ADD_M // 128)
+ADD_STEP = {"chol_fwd": ADD_D, "chol_bwd": ADD_D, "tak_fwd": ADD_D, "tak_bwd": ADD_D,
+            "chol_inv_dense": ADD_NB}
+ADD_POSTERIOR = {"chol_fwd": ADD_D, "tak_fwd": ADD_D, "chol_inv_dense": ADD_NB}
+
 # the solves K13/K14 and the float32 kernels K17-K22 against their plain
 # versions on random bands at PARITY_M (phase 6j), relative to the largest
 # entry: the float64 solves at the float64 sweeps' bar (TOL_PARITY_ADJOINT);
@@ -355,23 +428,27 @@ SOLVE_EDGES = ((1, 1, 1), (3, 40, 1), (3, 40, SOLVE_RHS), (6, 64, 1), (2, 65, SO
                (4, 4097, 1), (3, 1000, 4096))
 # the adjoints K7/K8/K10/K12 and K18/K20 (one matrix), K8/K23 (two) at the
 # edges of their partitions into chunks (phase 2), (k, m, nb): one column;
-# one chunk (m < 64, m = 64); a ragged last chunk; k = 6 at m = 10⁴, whose
-# chunks are the longest (192 columns) so that the scan's maps fit in
-# shared memory
-ADJOINT_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (4, 4097, 1), (3, 1000, 2),
-                 (6, 10_000, 1), (6, 10_000, 2))
+# one chunk (m < 64, m = 64); a ragged last chunk; the two-chunk rule up to
+# 512 columns (GPRAdditive's m = 250, 192 + 65 columns at 257, 256 + 256 at
+# 512, 64-column chunks from 513); k = 6 at m = 10⁴, whose chunks are the
+# longest (192 columns) so that the scan's maps fit in shared memory
+ADJOINT_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (3, 250, 1), (3, 257, 1),
+                 (3, 512, 2), (3, 513, 1), (4, 4097, 1), (3, 1000, 2), (6, 10_000, 1),
+                 (6, 10_000, 2))
 ADJOINTS = ("tak_bwd_vec", "chol_bwd_pair", "chol_bwd", "tak_bwd", "tak_bwd_pair",
             "chol_bwd_f32", "tak_bwd_f32")
 # the forward sweeps K9/K17 and K15 (chol_fwd<K, T>, one and two matrices;
 # 128-column chunks) and K11/K19 (tak_fwd<K, T>; 64 at k <= 4) at the
 # edges of their partitions (phase 2), (k, m, nb): one column; one chunk;
 # a ragged last chunk of one column (the Takahashi's at 65, the
-# Cholesky's at 129); two matrices; 4097 columns; k = 6 at m = 10⁴.  Every
-# chunk spans at least FIRST_CHUNK columns, so the first FIRST_CHUNK
-# columns of a walk (the first of the Cholesky's, the last of the
-# Takahashi's) lie in the kernel's first chunk and, alone, form one chunk
-FORWARD_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (4, 4097, 1),
-                 (3, 1000, 2), (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2))
+# Cholesky's at 129); the Takahashi's two-chunk rule (m = 250, 257, 512,
+# 513); two matrices; 4097 columns; k = 6 at m = 10⁴.  Every chunk spans
+# at least FIRST_CHUNK columns, so the first FIRST_CHUNK columns of a walk
+# (the first of the Cholesky's, the last of the Takahashi's) lie in the
+# kernel's first chunk and, alone, form one chunk
+FORWARD_EDGES = ((1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (3, 250, 1),
+                 (3, 257, 1), (3, 512, 1), (3, 513, 1), (4, 4097, 1), (3, 1000, 2),
+                 (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2))
 FORWARDS = ("chol_fwd", "chol_fwd_f32", "chol_fwd_pair", "tak_fwd", "tak_fwd_f32")
 FIRST_CHUNK = 64
 # the twisted sweeps K5 (chol_quad_solve_tan; 128-column chunks, its walk
@@ -1112,22 +1189,25 @@ def stat_summary(a: torch.Tensor) -> dict:
             "proj_abs": float(np.abs(w * a).sum())}
 
 
-def stats_errors(got: dict) -> dict:
-    """Each summary against its anchor, relative to the scale of its terms."""
+def stats_errors(got: dict, anchors: dict) -> dict:
+    """Each summary against its anchor, relative to the scale of its terms;
+    the scalars relative to their anchors."""
     errs = {}
-    for name in ("kuf_y", "t_band"):
-        g, w = got[name], ANCHOR_KRON_STATS[name]
-        errs[name] = max(abs(g["sum"] - w["sum"]) / w["abs_sum"],
-                         abs(g["sumsq"] - w["sumsq"]) / w["sumsq"],
-                         abs(g["proj"] - w["proj"]) / w["proj_abs"])
-    for name in ("yty", "n"):
-        errs[name] = rel(got[name], ANCHOR_KRON_STATS[name])
+    for name, w in anchors.items():
+        g = got[name]
+        if isinstance(w, dict):
+            errs[name] = max(abs(g["sum"] - w["sum"]) / w["abs_sum"],
+                             abs(g["sumsq"] - w["sumsq"]) / w["sumsq"],
+                             abs(g["proj"] - w["proj"]) / w["proj_abs"])
+        else:
+            errs[name] = rel(g, w)
     return errs
 
 
-def kron_value_and_grad(model) -> tuple[float, list]:
-    """GPRKron's training_loss() and its gradient by backward(), in the JAX
-    package's flattening order."""
+def per_dim_value_and_grad(model) -> tuple[float, list]:
+    """training_loss() of a model with one kernel per dimension (GPRKron,
+    GPRAdditive) and its gradient by backward(), in the JAX package's
+    flattening order."""
     model.zero_grad(set_to_none=True)
     loss = model.training_loss()
     loss.backward()
@@ -1176,7 +1256,7 @@ def kron_path(device) -> dict:
     core.reset_counters()
     with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_fwd", "chol_bwd",
                                                         "tak_fwd", "tak_bwd"):
-        loss, grad = kron_value_and_grad(model)
+        loss, grad = per_dim_value_and_grad(model)
     step_launches = read_launches(device, "GPRKron value-and-grad step", KRON_STEP)
 
     fit = fit_runs(device, model, "GPRKron fit", KRON_STEP, max_iters=10, curv_rtol=10.0)
@@ -1205,7 +1285,98 @@ def kron_path(device) -> dict:
     return {
         "model": model, "post": post, "params": params, "x_test": torch.as_tensor(Xte, device=device),
         "xy_train": (xtr_d, ytr_d), "build_s": build_s, "stats_repeatable": repeatable,
-        "stats": summary, "stats_rel": stats_errors(summary),
+        "stats": summary, "stats_rel": stats_errors(summary, ANCHOR_KRON_STATS),
+        "loss": loss, "grad": grad, "args": args, "fit": fit,
+        "mse": score_mse, "nlpd": score_nlpd, "min_var": float(var.min()),
+        "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
+        "cpu_plain_posterior_s": cpu_posterior_s,
+        "launches": {"construction": build_launches, "step": step_launches,
+                     "fit": fit["launches"], "posterior": posterior_launches,
+                     "predict": predict_launches},
+    }
+
+
+def probe_data(n: int, seed: int):
+    """tools/additive_probe.py's data (lines 42-45): n points uniform on
+    (0.02, 0.98)^ADD_D, y = Σ_d sin((3 + 2d) x_d) + 0.2 ε."""
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(0.02, 0.98, (n, ADD_D))
+    y = sum(np.sin((3 + 2 * d) * X[:, d]) for d in range(ADD_D))
+    return X, (y + 0.2 * rng.randn(n)).reshape(-1, 1)
+
+
+def additive_path(device) -> dict:
+    """Phases 6m and 6n: GPRAdditive at ADDITIVE_PROBE.json's shape, each
+    stage on fresh counters: the statistics (built twice), one
+    value-and-grad step (the arguments K9-K12 and K16 got kept),
+    fit_lbfgs REPS + 1 times, the posterior at the fitted parameters,
+    predictions on the held-out points, MSE and NLPD, and the same
+    predictions from a posterior built by the plain versions on a CPU
+    copy."""
+    from asvgp_tpu_torch.banded import block, core, single
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import GPRAdditive, Matern32
+    from asvgp_tpu_torch.stats import compute_additive_stats
+    from asvgp_tpu_torch.train import mse, nlpd
+    from asvgp_tpu_torch.train.lbfgs import tree_map
+
+    Xtr, ytr = probe_data(N_ADD, ADD_SEED)
+    Xte, yte = probe_data(N_ADD_TEST, ADD_TEST_SEED)
+    bases = [B3Spline(0.0, 1.0, ADD_M)] * ADD_D
+    kernels = [Matern32(lengthscales=ADD_ELL) for _ in range(ADD_D)]
+
+    core.reset_counters()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    model = GPRAdditive((Xtr, ytr), kernels, bases, noise_variance=ADD_NOISE, device=device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches(device, "GPRAdditive construction", {})
+    xtr_d = torch.as_tensor(Xtr, device=device)
+    ytr_d = torch.as_tensor(ytr, device=device)
+    again = compute_additive_stats(bases, xtr_d, ytr_d)
+    repeatable = bool(torch.equal(again.kuf_y, model.kuf_y)
+                      and torch.equal(again.kufkfu, model.kufkfu))
+    del again
+    summary = {"kuf_y": stat_summary(model.kuf_y), "kufkfu": stat_summary(model.kufkfu),
+               "yty": float(model.yty), "n": float(model.n)}
+
+    args: dict = {}
+    core.reset_counters()
+    with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_fwd", "chol_bwd",
+                                                        "tak_fwd", "tak_bwd"):
+        loss, grad = per_dim_value_and_grad(model)
+    step_launches = read_launches(device, "GPRAdditive value-and-grad step", ADD_STEP)
+
+    fit = fit_runs(device, model, "GPRAdditive fit", ADD_STEP, max_iters=10, curv_rtol=10.0)
+    params = fit["params_out"]
+
+    core.reset_counters()
+    post = model.posterior(params)
+    posterior_launches = read_launches(device, "GPRAdditive posterior", ADD_POSTERIOR)
+    core.reset_counters()
+    mean, var = post.predict_f(Xte, batch=PREDICT_BATCH)
+    log_density = post.predict_log_density((Xte, yte), batch=PREDICT_BATCH)
+    yte_d = torch.as_tensor(yte, device=device)
+    score_mse, score_nlpd = float(mse(yte_d, mean)), float(nlpd(log_density))
+    predict_launches = read_launches(device, "GPRAdditive predict", {})
+    if not (mean.shape == var.shape == (N_ADD_TEST, 1)):
+        raise AssertionError(f"GPRAdditive predict_f shapes {tuple(mean.shape)}, "
+                             f"{tuple(var.shape)}")
+    if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
+            and bool((var > 0).all())):
+        raise AssertionError("non-finite or non-positive GPRAdditive predictions")
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    cpu_post = cpu_model.posterior(tree_map(lambda v: v.cpu(), params))
+    cpu_posterior_s = time.perf_counter() - t0
+    mean_c, var_c = cpu_post.predict_f(Xte, batch=PREDICT_BATCH)
+    return {
+        "model": model, "post": post, "params": params,
+        "x_test": torch.as_tensor(Xte, device=device), "xy_train": (xtr_d, ytr_d),
+        "build_s": build_s, "stats_repeatable": repeatable, "stats": summary,
+        "stats_rel": stats_errors(summary, ANCHOR_ADD_STATS),
         "loss": loss, "grad": grad, "args": args, "fit": fit,
         "mse": score_mse, "nlpd": score_nlpd, "min_var": float(var.min()),
         "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
@@ -2521,12 +2692,80 @@ def main() -> None:
     # single-ended step meets them first)
     emit("6l_tan_maps", card=smi, north_star=tan_maps(main_bands))
 
+    # ---- phase 6m: GPRAdditive at ADDITIVE_PROBE.json's shape ----------------
+    ag = additive_path(device)
+    afit = ag["fit"]
+    add_rel = {
+        "stats": max(ag["stats_rel"].values()),
+        "loss": rel(ag["loss"], ANCHOR_ADD_LOSS),
+        "grad": max(rel(g, a) for g, a in zip(ag["grad"], ANCHOR_ADD_GRAD, strict=True)),
+        "fit": max(rel(v, ANCHOR_ADD_FIT_LOSS) for v in afit["losses"]),
+        "mse": rel(ag["mse"], ANCHOR_ADD_MSE),
+        "nlpd": rel(ag["nlpd"], ANCHOR_ADD_NLPD),
+    }
+    emit("6m_additive_path", n=N_ADD, n_test=N_ADD_TEST, d=ADD_D, m=ADD_M,
+         build_s=ag["build_s"], stats_repeatable=ag["stats_repeatable"], stats=ag["stats"],
+         stats_rel_err=ag["stats_rel"], loss=ag["loss"], grad=ag["grad"],
+         fit_losses=afit["losses"], fit_iters=afit["iter_counts"], fit_evals=afit["eval_counts"],
+         fit_params=afit["params"], fit_ms_per_iter=afit["ms_per_iter"],
+         fit_ms_per_iter_all=afit["ms_per_iter_all"], mse=ag["mse"], nlpd=ag["nlpd"],
+         min_var=ag["min_var"], mean_rel_vs_cpu=ag["mean_rel_vs_cpu"],
+         var_rel_vs_cpu=ag["var_rel_vs_cpu"], cpu_plain_posterior_s=ag["cpu_plain_posterior_s"],
+         rel_err=add_rel, card=smi)
+    if not ag["stats_repeatable"]:
+        raise AssertionError("a second GPRAdditive stats build from the same data gave other bits")
+    if not add_rel["stats"] <= TOL_ADD_STATS:
+        raise AssertionError(f"GPRAdditive statistics vs the CPU-float64 anchors: "
+                             f"{ag['stats_rel']}")
+    if not (add_rel["loss"] <= TOL_ADD_LOSS and add_rel["grad"] <= TOL_ADD_GRAD):
+        raise AssertionError(f"GPRAdditive loss or gradient vs the anchors: {add_rel}")
+    if not (add_rel["fit"] <= TOL_ADD_FIT
+            and set(afit["iter_counts"]) == {ANCHOR_ADD_FIT_ITERS}
+            and set(afit["eval_counts"]) == {ANCHOR_ADD_FIT_EVALS}):
+        raise AssertionError(f"GPRAdditive fits {afit['losses']} in {afit['iter_counts']} "
+                             f"iterations, {afit['eval_counts']} evaluations")
+    if not max(add_rel["mse"], add_rel["nlpd"]) <= TOL_ADD_METRICS:
+        raise AssertionError(f"GPRAdditive MSE or NLPD vs the anchors: {add_rel}")
+    if not max(ag["mean_rel_vs_cpu"], ag["var_rel_vs_cpu"]) <= TOL_PREDICT:
+        raise AssertionError(f"GPRAdditive predictions differ from the plain CPU ones: "
+                             f"{ag['mean_rel_vs_cpu']}, {ag['var_rel_vs_cpu']}")
+
+    # ---- phase 6n: proof of the additive path; its kernels on its arguments --
+    # held exactly in additive_path: construction and predict nothing; a
+    # step K9 = K10 = K11 = K12 = ADD_D and K16 = ADD_NB; the fit that per
+    # evaluation; the posterior K9 = K11 = ADD_D and K16 = ADD_NB; K16 equal
+    # bit for bit to its plain version on the step's diagonal blocks, and
+    # K9-K12 against theirs on the step's arguments (m = ADD_M)
+    add_blocks = [a[0] for a in ag["args"]["chol_inv_dense"]]
+    add_host = torch.stack([blk.cpu() for blk in add_blocks])
+    add_eig = torch.linalg.eigvalsh(add_host)
+    add_k16 = {"chol_inv_dense_rel": 0.0, "chol_inv_dense_abs": 0.0}
+    add_k16_equal = True
+    for blk, host in zip(add_blocks, add_host):
+        got, want = dense_block.chol_inv_dense(blk), dense_block.chol_inv_dense_plain(host)
+        add_k16_equal &= all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        errs = _errs("chol_inv_dense", got, want)
+        add_k16 = {key: max(add_k16[key], errs[key]) for key in add_k16}
+    add_single = adjoint_parity({n: ag["args"][n] for n in ("chol_fwd", "chol_bwd", "tak_fwd",
+                                                            "tak_bwd")})
+    emit("6n_proof_of_additive_path", launches=ag["launches"], k16_blocks=len(add_blocks),
+         k16_block_size=add_blocks[0].shape[-1],
+         k16_max_kappa=float((add_eig[:, -1] / add_eig[:, 0]).max()),
+         k16_bit_equal=add_k16_equal, **add_k16, **add_single,
+         calls={n: len(a) for n, a in ag["args"].items()}, tol=TOL_PARITY_MAIN)
+    if not (add_k16_equal and len(add_blocks) == ADD_NB):
+        raise AssertionError(f"K16 on the additive step's {len(add_blocks)} diagonal blocks "
+                             f"is not its plain version bit for bit: {add_k16}")
+    check_parity(add_single, TOL_PARITY_MAIN, "of K9-K12 on the additive step's arguments")
+    add_launches = ag["launches"]["step"]
+
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
     from asvgp_tpu_torch.features.spline_features import make_kuu
+    from asvgp_tpu_torch.models import additive
     from asvgp_tpu_torch.models.kron import _p_blocks as kron_p_blocks
-    from asvgp_tpu_torch.stats import compute_kron_stats, compute_stats
+    from asvgp_tpu_torch.stats import compute_additive_stats, compute_kron_stats, compute_stats
 
     model, post, xt = run["model"], run["posterior"], run["x_test"]
     tmodel = tr["model"]
@@ -2606,6 +2845,61 @@ def main() -> None:
         block.cholesky_block_banded(p_blocks)
     read_launches(device, "one block Cholesky", {"chol_inv_dense": KRON_M})
 
+    # GPRAdditive: K16 on the step's first diagonal block (B = 128) and on
+    # all ADD_NB of them; P at the model's parameters through the block
+    # route (log|P| and L⁻¹b as the step, P⁻¹b and P⁻¹ as the posterior) and
+    # through the library's dense calls on the same padded P, the yardstick
+    amodel, apost, aparams = ag["model"], ag["post"], ag["params"]
+    ablk = add_blocks[0]
+    ablk_batch = torch.stack(add_blocks)
+    calls["chol_inv_dense_b128"] = (lambda: dense_block.chol_inv_dense(ablk),
+                                    lambda: dense_block.chol_inv_dense_plain(ablk))
+    # K9-K12 on the additive step's first arguments (k = 3, m = ADD_M)
+    add_k9_k12 = [f"{name}_m{ADD_M}" for name in ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd")]
+    for name in ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd"):
+        kernel_fn, plain_fn = adjoint_calls()[name]
+        args = ag["args"][name][0]
+        calls[f"{name}_m{ADD_M}"] = (lambda f=kernel_fn, a=args: f(*a),
+                                     lambda f=plain_fn, a=args: f(*a))
+    eye_b128 = torch.eye(ablk.shape[0], dtype=ablk.dtype, device=device)
+    with torch.no_grad():
+        kernels_a, lik_a = amodel._build()
+        kuu_a = [make_kuu(kk, bb) for kk, bb in zip(kernels_a, amodel.bases)]
+        p_add = additive._dense_p(amodel.bases, amodel.stats, kuu_a, lik_a.variance)
+        core.reset_counters()
+        additive._logdet_halfsolve_block(p_add, amodel.kuf_y)
+    read_launches(device, "one additive block Cholesky", {"chol_inv_dense": ADD_NB})
+    m_add = p_add.shape[0]
+    n_pad = ADD_NB * 128 - m_add
+    p_pad = torch.nn.functional.pad(p_add, (0, n_pad, 0, n_pad))
+    p_pad.diagonal()[m_add:] = 1.0
+    rhs_pad = torch.nn.functional.pad(amodel.kuf_y, (0, n_pad))[:, None]
+
+    def add_block_halfsolve():
+        with torch.no_grad():
+            additive._logdet_halfsolve_block(p_add, amodel.kuf_y)
+
+    def add_library_halfsolve():
+        l_lib = torch.linalg.cholesky(p_pad)
+        torch.linalg.solve_triangular(l_lib, rhs_pad, upper=False)
+
+    def add_library_inverse():
+        l_lib = torch.linalg.cholesky(p_pad)
+        torch.cholesky_solve(rhs_pad, l_lib)
+        torch.cholesky_inverse(l_lib)
+
+    l_lib = torch.linalg.cholesky(p_pad)
+    with torch.no_grad():
+        ld_block, c_block = additive._logdet_halfsolve_block(p_add, amodel.kuf_y)
+        w_block, pinv_block = additive._solve_and_inverse_block(p_add, amodel.kuf_y)
+    c_lib = torch.linalg.solve_triangular(l_lib, rhs_pad, upper=False)[:m_add, 0]
+    pinv_lib = torch.cholesky_inverse(l_lib)[:m_add, :m_add]
+    emit("7_additive_p_routes", card=smi, m=m_add, padded=m_add + n_pad, block=128,
+         logdet_rel=rel(float(ld_block), float(2.0 * torch.log(l_lib.diagonal()).sum())),
+         halfsolve_rel=rel_err(c_block, c_lib), inverse_rel=rel_err(pinv_block, pinv_lib),
+         p_kappa=float(torch.linalg.cond(p_add)))
+    del l_lib, pinv_lib, w_block, pinv_block
+
     def elbo_value():
         with torch.no_grad():
             model.training_loss()
@@ -2635,7 +2929,7 @@ def main() -> None:
             lambda: twist.factor_takahashi_solve_tan_twist(*main_bands)),
         "tan_sweeps_k3_k4": cuda_ms(lambda: tan.factor_takahashi_solve_tan(*main_bands)),
         "kron_stats_build": cuda_ms(lambda: compute_kron_stats(kmodel.bases, *kr["xy_train"])),
-        "kron_value_and_grad": cuda_ms(lambda: kron_value_and_grad(kmodel)),
+        "kron_value_and_grad": cuda_ms(lambda: per_dim_value_and_grad(kmodel)),
         "kron_backward": backward_ms(kmodel),
         "kron_block_cholesky": cuda_ms(lambda: block.cholesky_block_banded(p_blocks)),
         "kron_posterior": cuda_ms(lambda: kmodel.posterior(kparams)),
@@ -2648,6 +2942,24 @@ def main() -> None:
         "f32_posterior": cuda_ms(f32_model.posterior),
         "f32_predict_1e5": cuda_ms(lambda: f32_post.predict_f(f32_xt, batch=PREDICT_BATCH)),
         "cholesky_solve_band": cuda_ms(solve_band),
+        "additive_stats_build": cuda_ms(lambda: compute_additive_stats(amodel.bases,
+                                                                       *ag["xy_train"])),
+        "additive_value_and_grad": cuda_ms(lambda: per_dim_value_and_grad(amodel)),
+        "additive_backward": backward_ms(amodel),
+        "additive_posterior": cuda_ms(lambda: amodel.posterior(aparams)),
+        "additive_predict_1e5": cuda_ms(lambda: apost.predict_f(ag["x_test"],
+                                                                batch=PREDICT_BATCH)),
+        "additive_p_block_logdet_halfsolve": cuda_ms(add_block_halfsolve),
+        "additive_p_block_solve_inverse": cuda_ms(
+            lambda: additive._solve_and_inverse_block(p_add, amodel.kuf_y)),
+        "additive_p_library_cholesky_solve_triangular": cuda_ms(add_library_halfsolve),
+        "additive_p_library_cholesky_inverse": cuda_ms(add_library_inverse),
+        "additive_p_library_cholesky_inverse_alone": cuda_ms(
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky(p_pad))),
+        "chol_inv_dense_b128_batch8": cuda_ms(lambda: dense_block.chol_inv_dense(ablk_batch)),
+        "chol_inv_dense_b128_library": cuda_ms(
+            lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(ablk), eye_b128,
+                                                  upper=False)),
     }
     for name, (kernel_fn, _) in calls.items():
         times[name] = cuda_ms(kernel_fn)
@@ -2673,7 +2985,12 @@ def main() -> None:
     }
     alone = [(n, calls[n][0]) for n in partitioned] + list(stages.items()) + [
         ("chol_inv_dense", calls["chol_inv_dense"][0]),
-        ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch))]
+        ("chol_inv_dense_batch100", lambda: dense_block.chol_inv_dense(blk_batch)),
+        ("chol_inv_dense_b128", calls["chol_inv_dense_b128"][0]),
+        *((name, calls[name][0]) for name in add_k9_k12),
+        ("chol_inv_dense_b128_batch8", lambda: dense_block.chol_inv_dense(ablk_batch)),
+        ("additive_p_block_logdet_halfsolve", add_block_halfsolve),
+        ("additive_p_library_cholesky_solve_triangular", add_library_halfsolve)]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
         if ((name in partitioned or name in stages)
@@ -2701,7 +3018,11 @@ def main() -> None:
         "value_and_grad_twisted": device_profile(lambda: value_and_grad(tmodel)),
         "value_and_grad_single_ended": device_profile(step_single),
         "value_and_grad_snelson_m100": device_profile(lambda: value_and_grad(tr["snelson_model"])),
-        "kron_value_and_grad": device_profile(lambda: kron_value_and_grad(kmodel)),
+        "kron_value_and_grad": device_profile(lambda: per_dim_value_and_grad(kmodel)),
+        "additive_value_and_grad": device_profile(lambda: per_dim_value_and_grad(amodel)),
+        "additive_posterior": device_profile(lambda: amodel.posterior(aparams)),
+        "additive_predict_1e5": device_profile(
+            lambda: apost.predict_f(ag["x_test"], batch=PREDICT_BATCH)),
     }
     for name, prof in profiles.items():
         emit("7_profile", what=name, card=smi, **prof)
@@ -2709,7 +3030,8 @@ def main() -> None:
     for name, prof in profiles_f32.items():
         emit("7_profile", what=name, card=smi, **prof)
     for name, run_fit in (("fit_north_star", fit), ("fit_snelson", sn_fit),
-                          ("fit_exact_snelson", ex_fit), ("fit_kron", kfit)):
+                          ("fit_exact_snelson", ex_fit), ("fit_kron", kfit),
+                          ("fit_additive", afit)):
         emit("7_time", what=name, card=smi, median_ms_per_iter=run_fit["ms_per_iter"],
              ms_per_iter=run_fit["ms_per_iter_all"], evals=run_fit["info"]["ls_evals"],
              evals_per_iter=run_fit["info"].get("evals_per_iter"))
@@ -2753,6 +3075,11 @@ def main() -> None:
              dtype=str(dense.dtype), rhs=rhs2.shape[1], median_ms=t["median_ms"], ms=t["ms"])
         del dense, lhs
     torch.cuda.empty_cache()
+    # K16 at the additive path's B = 128: the lower triangle read and the
+    # two B×B outputs written, against its operations at the FP64 rate
+    b128 = ablk.shape[0]
+    emit("7_bound", what="chol_inv_dense", B=b128,
+         **bound(dense_block_ops(b128), dense_block_bytes(b128)))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "chol_inv_dense":
@@ -2777,6 +3104,7 @@ def main() -> None:
             "bound_ms": bnd["bound_ms"],
             "bound_by": bnd["bound_by"],
             "library_ms": library_ms.get(name),
+            "launches_additive_step": add_launches[name],
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

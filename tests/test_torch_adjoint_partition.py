@@ -46,16 +46,20 @@ TOL_MAIN = 1e-8  # the main paths' arguments (TOL_PARITY_MAIN)
 # csrc/chunk_scan.cuh and csrc/banded_adjoint.cu: the scan stages every map
 # of a matrix in shared memory, so the chunk count is bounded by what fits
 SMEM_LIMIT, MIN_CHUNK, MAX_CHUNKS, TILE = 232448, 64, 256, 64
+TWO_CHUNK_COLS = 512  # up to here at most two chunks (``kTwoChunkCols``)
 
 
 def chunk_cols(k, m):
     """Columns per chunk of ``chol_bwd<K, T>`` and ``tak_bwd<K, T>``
-    (``adjoint_chunk_cols``): at least 64, at most as many chunks as the
+    (``carry_chunk_cols``): at least 64, at most as many chunks as the
     scan can stage the maps of ((D² + D) doubles each, D = k(k+1)/2) and at
-    most 256, a multiple of the 64-column tile."""
+    most 256, a multiple of the 64-column tile, and at most two chunks up to
+    512 columns."""
     d = k * (k + 1) // 2
     cap = min(MAX_CHUNKS, SMEM_LIMIT // ((d * d + d) * 8) + 1)
     lc = max(MIN_CHUNK, -(-m // cap))
+    if m <= TWO_CHUNK_COLS:
+        lc = max(lc, -(-m // 2))
     return min(-(-lc // TILE) * TILE, m)
 
 
@@ -345,6 +349,63 @@ def check_on_factors(factors, tol, h_bound=None):
     return h_all
 
 
+def additive_kuu_factor():
+    """L = chol(Kuu) of the additive model at ADDITIVE_PROBE.json's width:
+    B3 × Matérn-3/2, m = 250 on [0, 1], ℓ = 0.2 (ℓ/δ = 49, κ ≈ 2.9e6)."""
+    kernel, basis = Matern32(1.0, 0.2), B3Spline(0.0, 1.0, 250)
+    with torch.no_grad():
+        return ops.cholesky_band_plain(make_kuu(kernel, basis))
+
+
+def test_two_chunks_keep_the_one_pass_at_additive_conditioning():
+    """Up to 512 columns the adjoints take at most two chunks (128 at
+    m = 250), so the scan applies no map to a nonzero carry: at the additive
+    model's Kuu the partition at the kernels' chunks equals the one-chunk
+    run, where 64-column chunks (four, maps above 10) lie more than ten
+    times farther from it."""
+    l = additive_kuu_factor()
+    s = ops.takahashi_inverse_band_plain(l)
+    cot = np.random.RandomState(12).randn(*l.shape)
+    lc = chunk_cols(3, 250)
+    assert lc == 128 and chunk_cols(3, 512) == 256 and chunk_cols(3, 513) == CHUNK
+    for kwargs in ({}, {"s": s.numpy(), "chol": False}):
+        one, _ = partitioned(l.numpy(), cot, 250, **kwargs)
+        got, h_max = partitioned(l.numpy(), cot, lc, **kwargs)
+        assert np.array_equal(got, one)
+        four, h_max = partitioned(l.numpy(), cot, CHUNK, **kwargs)
+        assert h_max > 10.0 and rel(four, one) > 10 * rel(got, one)
+
+
+def kuu_factor(m, ell_over_delta):
+    """L = chol(Kuu) for B3 × Matérn-3/2 at m features on [0, 1] and
+    ℓ = ell_over_delta·δ, δ = 1/(m − 3)."""
+    kernel, basis = Matern32(1.0, ell_over_delta / (m - 3)), B3Spline(0.0, 1.0, m)
+    with torch.no_grad():
+        return ops.cholesky_band_plain(make_kuu(kernel, basis))
+
+
+@pytest.mark.parametrize("m", [1000, 2000])
+def test_partition_past_two_chunks_at_additive_conditioning(m):
+    """Past 512 columns the two-chunk rule ends and the open fault of
+    ROADMAP.md queue 3 shows: at the additive model's ℓ/δ = 49.4 the
+    kernels' 64-column chunks (maps above 10) leave both adjoints more than
+    5e-13 from the one-chunk run, at m = 1000 as at 2000, where at the
+    north star's ℓ/δ = 10 (maps below 1e-5) they lie within 1e-14 of it
+    and 256-column chunks at ℓ/δ = 49.4 (maps below 1e-2) within 5e-13:
+    the loss follows the maps' size, not m."""
+    assert chunk_cols(3, m) == CHUNK
+    cot = np.random.RandomState(12).randn(4, m)
+    for ell_over_delta, lc, h_in, tol in ((49.4, CHUNK, (10.0, np.inf), (5e-13, 1.0)),
+                                          (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14)),
+                                          (49.4, 256, (0.0, 1e-2), (0.0, 5e-13))):
+        l = kuu_factor(m, ell_over_delta)
+        s = ops.takahashi_inverse_band_plain(l)
+        for kwargs in ({}, {"s": s.numpy(), "chol": False}):
+            one, _ = partitioned(l.numpy(), cot, m, **kwargs)
+            got, h_max = partitioned(l.numpy(), cot, lc, **kwargs)
+            assert h_in[0] < h_max < h_in[1] and tol[0] < rel(got, one) < tol[1]
+
+
 def test_partition_at_north_star_conditioning():
     """L = chol(Kuu) and the SVGP's R at the north star's ℓ/δ = 10 (m = 320,
     B3, Matérn-3/2): the maps decay below 1 within a chunk and the
@@ -388,10 +449,13 @@ def cuda_device():
 
 
 # (k, m, nb): one column; one chunk (m < 64, m = 64); a ragged last chunk;
-# two matrices; k = 6 at m = 10⁴, where the chunks are longest so that the
-# scan's maps fit in shared memory
-EDGES = [(1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (3, 1000, 2), (4, 4097, 1),
-         (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2)]
+# the two-chunk rule (the additive model's m = 250, half of 257 rounded up
+# to 192 columns, the last two-chunk walk at 512 and the first of 64-column
+# chunks at 513); two matrices; k = 6 at m = 10⁴, where the chunks are
+# longest so that the scan's maps fit in shared memory
+EDGES = [(1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (3, 250, 1), (3, 257, 1),
+         (3, 512, 2), (3, 513, 1), (3, 1000, 2), (4, 4097, 1), (3, 10_000, 1),
+         (6, 10_000, 1), (6, 10_000, 2)]
 
 
 @pytest.mark.cuda

@@ -52,6 +52,7 @@ BARS = {np.float64: 1e-13, np.float32: 1e-5}
 TOL_MAIN = 1e-8
 # csrc/chunk_scan.cuh and csrc/banded_adjoint.cu: the partition's constants
 SMEM_LIMIT, MAX_CHUNKS, TILE = 232448, 256, 64
+TWO_CHUNK_COLS = 512  # the Takahashi sweep's two-chunk limit (``kTwoChunkCols``)
 
 
 def chunk_cols(k, m, tak):
@@ -60,11 +61,14 @@ def chunk_cols(k, m, tak):
     ``schur_chunk_cols`` for the Cholesky sweep, whose walk stages
     k² + k(k+1) doubles a chunk): at least 64 (Takahashi) or 128
     (Cholesky), at most 256 chunks and as many as fit, a multiple of the
-    64-column tile."""
+    64-column tile; the Takahashi sweep's at most two chunks up to 512
+    columns."""
     d = k * (k + 1) // 2
     per = d * d + d if tak else k * k + k * (k + 1)
     cap = min(MAX_CHUNKS, SMEM_LIMIT // (per * 8) + 1)
     lc = max(CHUNK if tak else CHOL_CHUNK, -(-m // cap))
+    if tak and m <= TWO_CHUNK_COLS:
+        lc = max(lc, -(-m // 2))
     return min(-(-lc // TILE) * TILE, m)
 
 
@@ -464,6 +468,46 @@ def check_on_factors(ell_over_delta, tol, dtype=np.float64):
     return w_max, s_min, h_max
 
 
+def test_takahashi_two_chunks_at_additive_conditioning():
+    """Up to 512 columns the Takahashi sweep takes at most two chunks (128
+    at m = 250), so its scan applies no map to a nonzero carry: at the
+    additive model's Kuu (B3 × Matérn-3/2, m = 250, ℓ = 0.2, κ ≈ 2.9e6) the
+    partition at the kernel's chunks equals the one-chunk run, where
+    64-column chunks (four, maps above 10) lie more than ten times farther
+    from the plain version."""
+    kernel, basis = Matern32(1.0, 0.2), B3Spline(0.0, 1.0, 250)
+    with torch.no_grad():
+        l = ops.cholesky_band_plain(make_kuu(kernel, basis))
+    lc = chunk_cols(3, 250, True)
+    assert lc == 128 and chunk_cols(3, 513, True) == CHUNK
+    one, _ = partitioned_tak(l.numpy(), 250)
+    got, _ = partitioned_tak(l.numpy(), lc)
+    assert np.array_equal(got, one)
+    want = ops.takahashi_inverse_band_plain(l)
+    four, h_max = partitioned_tak(l.numpy(), CHUNK)
+    assert h_max > 10.0 and rel(four, want) > 10 * rel(got, want)
+
+
+@pytest.mark.parametrize("m", [1000, 2000])
+def test_takahashi_past_two_chunks_at_additive_conditioning(m):
+    """Past 512 columns the two-chunk rule ends and the open fault of
+    ROADMAP.md queue 3 shows: at the additive model's ℓ/δ = 49.4 the
+    Takahashi sweep's 64-column chunks (maps above 10) leave S more than
+    5e-12 from the one-chunk run, where at the north star's ℓ/δ = 10 (maps
+    below 1e-5) it lies within 1e-14 of it and 256-column chunks at
+    ℓ/δ = 49.4 (maps below 1e-2) within 5e-13."""
+    assert chunk_cols(3, m, True) == CHUNK
+    for ell_over_delta, lc, h_in, tol in ((49.4, CHUNK, (10.0, np.inf), (5e-12, 1.0)),
+                                          (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14)),
+                                          (49.4, 256, (0.0, 1e-2), (0.0, 5e-13))):
+        kernel, basis = Matern32(1.0, ell_over_delta / (m - 3)), B3Spline(0.0, 1.0, m)
+        with torch.no_grad():
+            l = ops.cholesky_band_plain(make_kuu(kernel, basis))
+        one, _ = partitioned_tak(l.numpy(), m)
+        got, h_max = partitioned_tak(l.numpy(), lc)
+        assert h_in[0] < h_max < h_in[1] and tol[0] < rel(got, one) < tol[1]
+
+
 def test_partition_at_north_star_conditioning():
     """Kuu and P at the north star's ℓ/δ = 10 (m = 320, B3, Matérn-3/2):
     both partitions hold the main paths' bar in float64 and TOL_F32_MAIN
@@ -526,10 +570,13 @@ def cuda_device():
 
 
 # (k, m, nb): one column; one chunk (m < 64, m = 64); a ragged last chunk
-# of one column (the Takahashi's at 65, the Cholesky's at 129); two
+# of one column (the Takahashi's at 65, the Cholesky's at 129); the
+# Takahashi sweep's two-chunk rule (the additive model's m = 250, 192 + 65
+# columns at 257, 256 + 256 at 512, 64-column chunks from 513); two
 # matrices (K15); 4097 columns; k = 6 at m = 10⁴
-EDGES = [(1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (3, 1000, 2),
-         (4, 4097, 1), (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2)]
+EDGES = [(1, 1, 1), (3, 40, 1), (6, 64, 1), (2, 65, 1), (2, 129, 1), (3, 250, 1),
+         (3, 257, 1), (3, 512, 1), (3, 513, 1), (3, 1000, 2), (4, 4097, 1),
+         (3, 10_000, 1), (6, 10_000, 1), (6, 10_000, 2)]
 
 
 @pytest.mark.cuda

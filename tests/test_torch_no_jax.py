@@ -32,7 +32,8 @@ def test_sources_found():
     for rel in ("banded/tan.py", "banded/twist.py", "banded/twisted.py", "models/exact_gp.py",
                 "train/lbfgs.py", "train/fused_lbfgs.py", "banded/single.py", "train/adam.py",
                 "models/svgp.py", "banded/block.py", "banded/dense_block.py", "stats/kron.py",
-                "models/kron.py", "banded/solve.py"):
+                "models/kron.py", "banded/solve.py", "stats/additive.py",
+                "models/additive.py", "models/per_dimension.py"):
         assert pkg / rel in SOURCES, rel
 
 
