@@ -59,6 +59,12 @@ ENTRY_POINTS = {
     "asvgp_solve_lower_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
+    # not launches either: the chunk length a linear sweep's rule chooses
+    # (the adjoints and K11 / K19; K2; K4; K6), read back for reporting
+    "asvgp_linear_chunk_cols": (_I, _I, _I, _VP, _I, _VP, _VP),
+    "asvgp_core_tak_chunk_cols": (_I, _I) + (_VP,) * 4,
+    "asvgp_tan_tak_chunk_cols": (_I, _I) + (_VP,) * 4,
+    "asvgp_twist_tak_chunk_cols": (_I, _I, _I) + (_VP,) * 3,
     # not launches: the doubles of global workspace per block of K16, the
     # elements of workspace of K13 / K14 / K21 / K22, of the linear sweeps
     # K11 / K19 and the adjoints K7 / K8 / K10 / K12 / K18 / K20 / K23, and

@@ -178,6 +178,43 @@ def tan_workspace(k: int, m: int) -> int:
     return _build.load().asvgp_tan_workspace(k, m)
 
 
+def chosen_chunk_cols(sweep: str, *factors, m: int | None = None) -> int:
+    """The chunk length the named sweep takes on the card for these factors,
+    as its rule chooses it there (``banded/chunk_rule.py``): ``"linear"``
+    (the Takahashi band and the adjoints; one (nb, k+1, m) or (k+1, m)
+    factor of either dtype), ``"core"`` (K2: l_kuu, l_p), ``"tan"`` (K4:
+    l_kuu, l_p) or ``"twist"`` (K6: K5's (4, k+1, h) stream factors, and
+    ``m``).  It reads the length back to the host: for reporting, never
+    inside a sweep."""
+    lib = _build.load()
+    f = factors[0]
+    k = f.shape[-2] - 1
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if sweep == "linear":
+            nb = 1 if f.ndim == 2 else f.shape[0]
+            n = f.shape[-1]
+            ws = f.new_empty(carry_workspace(k, n, nb))
+            rc = lib.asvgp_linear_chunk_cols(k, n, nb, f.data_ptr(),
+                                             int(f.dtype == torch.float32), ws.data_ptr(),
+                                             stream)
+        elif sweep in ("core", "tan"):
+            n = f.shape[-1]
+            size = core_workspace(k, n) if sweep == "core" else tan_workspace(k, n)
+            ws = f.new_empty(size)
+            entry = lib.asvgp_core_tak_chunk_cols if sweep == "core" else lib.asvgp_tan_tak_chunk_cols
+            rc = entry(k, n, f.data_ptr(), factors[1].data_ptr(), ws.data_ptr(), stream)
+        elif sweep == "twist":
+            ws = f.new_empty(twist_workspace(k, m))
+            rc = lib.asvgp_twist_tak_chunk_cols(k, m, f.shape[-1], f.data_ptr(), ws.data_ptr(),
+                                                stream)
+        else:
+            raise ValueError(f"unknown sweep {sweep!r}")
+    if rc < 1:
+        raise RuntimeError(f"the chunk-length rule of {sweep!r} failed ({rc})")
+    return rc
+
+
 def _launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream
     of ``device``, raise on its error code, and count the launch."""

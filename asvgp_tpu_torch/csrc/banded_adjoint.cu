@@ -188,9 +188,19 @@ template <int K, typename T, bool kMaps>
 __global__ void __launch_bounds__(32)
 chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
                       const T* __restrict__ cot_all, T* __restrict__ abar_all,
-                      const T* __restrict__ win, T* __restrict__ hmap,
-                      T* __restrict__ ymap) {
+                      const T* __restrict__ win, const T* __restrict__ wref,
+                      T* __restrict__ wout, T* __restrict__ hmap, T* __restrict__ ymap,
+                      const int* __restrict__ rule) {
   constexpr int D = K * (K + 1) / 2;
+  const int lc0 = lc;
+  lc = rule_cols(rule, lc);
+  // the refinement (wout) runs only where the rule chose longer chunks, and
+  // then pass 3 starts from its carries (wref)
+  const bool longer = lc != lc0;
+  if (wout != nullptr && !longer) return;
+  if (static_cast<int>(blockIdx.x) >=
+      (m + lc - 1) / lc - ((kMaps || wout != nullptr) ? 1 : 0)) return;
+  const T* __restrict__ carries = (longer && wref != nullptr) ? wref : win;
   __shared__ T ct[2][K + 1][kTile];  // cotangent columns of the positions
   __shared__ T lt[2][K + 1][kTile];  // L columns K+1 positions further on
   const int j = blockIdx.x;
@@ -216,7 +226,7 @@ chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
         if (kMaps) {
           P[q][r] = (lane == d) ? T(1) : T(0);
         } else if (j > 0) {
-          P[q][r] = win[(mat * nmap + j - 1) * D + d];
+          P[q][r] = carries[(mat * nmap + j - 1) * D + d];
         }
       }
     }
@@ -259,7 +269,7 @@ chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
       for (int r = 0; r <= K; ++r) cc[r] = takes_cot ? ct[buf][r][t] : T(0);
       T ab[K + 1];
       chol_bwd_step<K, T>(P, lcur, w, cc, i, m, ab);
-      if (!kMaps && lane == 0) {
+      if (!kMaps && wout == nullptr && lane == 0) {
         T* __restrict__ abar = abar_all + off;
 #pragma unroll
         for (int r = 0; r <= K; ++r) abar[r * ms + i] = ab[r];
@@ -278,6 +288,14 @@ chol_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
     __syncthreads();
   }
 
+  if (!kMaps && wout != nullptr && lane == 0) {
+    int d = 0;
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+#pragma unroll
+      for (int r = q + 1; r <= K; ++r, ++d) wout[(mat * nmap + j) * D + d] = P[q][r];
+    }
+  }
   if (kMaps) {
     int d = 0;
 #pragma unroll
@@ -302,16 +320,29 @@ template <int K, typename T, bool kMaps>
 __global__ void __launch_bounds__(32)
 tak_fwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
                      T* __restrict__ s_all, const T* __restrict__ win,
-                     T* __restrict__ hmap, T* __restrict__ ymap) {
+                     const T* __restrict__ wref, T* __restrict__ wout,
+                     T* __restrict__ hmap, T* __restrict__ ymap,
+                     const int* __restrict__ rule) {
   constexpr int D = K * (K + 1) / 2;
+  const int lc0 = lc;
+  lc = rule_cols(rule, lc);
+  // the refinement (wout) runs only where the rule chose longer chunks, and
+  // then pass 3 starts from its carries (wref)
+  const bool longer = lc != lc0;
+  if (wout != nullptr && !longer) return;
+  if (static_cast<int>(blockIdx.x) >=
+      (m + lc - 1) / lc - ((kMaps || wout != nullptr) ? 1 : 0)) return;
+  const T* __restrict__ carries = (longer && wref != nullptr) ? wref : win;
   const int j0 = blockIdx.x;
   const size_t mat = blockIdx.y;
   const size_t off = mat * (K + 1) * static_cast<size_t>(m);
   const size_t slot = mat * nmap + j0;
   tak_fwd_chunk<K, T, kMaps, false, false, D>(
-      m, lc, j0, l_all + off, nullptr, nullptr, kMaps ? nullptr : s_all + off, nullptr,
-      (!kMaps && j0 > 0) ? win + (slot - 1) * D : nullptr,
-      kMaps ? hmap + slot * D * D : nullptr, kMaps ? ymap + slot * D : nullptr);
+      m, lc, j0, l_all + off, nullptr, nullptr,
+      (kMaps || wout != nullptr) ? nullptr : s_all + off, nullptr,
+      (!kMaps && j0 > 0) ? carries + (slot - 1) * D : nullptr,
+      kMaps ? hmap + slot * D * D : nullptr, kMaps ? ymap + slot * D : nullptr,
+      (!kMaps && wout != nullptr) ? wout + slot * D : nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -397,9 +428,19 @@ __global__ void __launch_bounds__(32)
 tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
                      const T* __restrict__ s_all, const T* __restrict__ cot_all,
                      const T* __restrict__ iv_all, T* __restrict__ lbar_all,
-                     const T* __restrict__ win, T* __restrict__ hmap,
-                     T* __restrict__ ymap) {
+                     const T* __restrict__ win, const T* __restrict__ wref,
+                     T* __restrict__ wout, T* __restrict__ hmap, T* __restrict__ ymap,
+                     const int* __restrict__ rule) {
   constexpr int D = K * (K + 1) / 2;
+  const int lc0 = lc;
+  lc = rule_cols(rule, lc);
+  // the refinement (wout) runs only where the rule chose longer chunks, and
+  // then pass 3 starts from its carries (wref)
+  const bool longer = lc != lc0;
+  if (wout != nullptr && !longer) return;
+  if (static_cast<int>(blockIdx.x) >=
+      (m + lc - 1) / lc - ((kMaps || wout != nullptr) ? 1 : 0)) return;
+  const T* __restrict__ carries = (longer && wref != nullptr) ? wref : win;
   __shared__ T lt[2][K + 1][kTile];             // L columns of the positions
   __shared__ T ct[2][K + 1][kTile];             // cotangent columns
   __shared__ T vt[2][1][kTile];                 // reciprocal pivots (K7)
@@ -429,7 +470,7 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
         if (kMaps) {
           Q[c][r] = (lane == d) ? T(1) : T(0);
         } else if (j0 > 0) {
-          Q[c][r] = win[(mat * nmap + j0 - 1) * D + d];
+          Q[c][r] = carries[(mat * nmap + j0 - 1) * D + d];
         }
       }
     }
@@ -482,7 +523,7 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
       T lb[K + 1];
       tak_bwd_step<K, T, !kMaps>(Q, lcur, d, cc, j, m, sc, cs, lb);
       if (!kMaps) {
-        if (lane == 0) {
+        if (wout == nullptr && lane == 0) {
           T* __restrict__ lbar = lbar_all + off;
 #pragma unroll
           for (int r = 0; r <= K; ++r) lbar[r * ms + j] = lb[r];
@@ -502,6 +543,14 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
     __syncthreads();
   }
 
+  if (!kMaps && wout != nullptr && lane == 0) {
+    int d = 0;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int r = 0; r < K - c; ++r, ++d) wout[(mat * nmap + j0) * D + d] = Q[c][r];
+    }
+  }
   if (kMaps) {
     int d = 0;
 #pragma unroll
@@ -521,21 +570,22 @@ tak_bwd_chunk_kernel(int m, int lc, int nmap, const T* __restrict__ l_all,
 // Up to kTwoChunkCols columns a linear sweep takes at most two chunks.
 // The second chunk's incoming carry is then the first's particular part,
 // the one-pass recursion's own window, and no map meets a carry: the
-// sweep keeps the one-pass recursion's accuracy.  From three chunks on the
-// scan applies the maps, whose entries grow with κ(A), and the carries
-// lose about two digits: at the additive model's Kuu (B3, m = 250,
-// Matérn-3/2 at ℓ/δ = 49, κ = 2.9e6) K11's band of A⁻¹ lay 5.8e-12 from
-// an extended-precision one against the one-pass recursion's 8.5e-14, and
-// the model's lengthscale gradient moved 5e-7 on an H100.  Beyond
-// kTwoChunkCols the loss stays (ROADMAP.md, queue 3).
+// sweep keeps the one-pass recursion's accuracy.  Beyond, the chunk length
+// is the rule's (forward_sweeps.cuh), chosen on the device from the
+// factors: at least carry_chunk_cols, long enough for the maps to have
+// decayed.
 constexpr int kTwoChunkCols = 512;
+// refinements of the scanned carries where the rule chose longer chunks
+// (launch_linear)
+constexpr int kRefinements = 2;
 
-// Columns per chunk of the linear sweeps: at least kMinChunk, at most
-// kMaxChunks chunks and at most as many as the scan can stage the maps of
-// in shared memory (D^2 + D doubles each, whatever T), a multiple of the
-// tile, and half the walk up to kTwoChunkCols columns.  lc >= m is one
-// chunk.  At m = 10^4: 64 columns for k <= 4, 128 at k = 5, 192 at k = 6;
-// at m = 250: 128.
+// Columns per chunk of the linear sweeps' partition: at least kMinChunk,
+// at most kMaxChunks chunks and at most as many as the scan can stage the
+// maps of in shared memory (D^2 + D doubles each, whatever T), a multiple
+// of the tile, and half the walk up to kTwoChunkCols columns.  lc >= m is
+// one chunk.  At m = 10^4: 64 columns for k <= 4, 128 at k = 5, 192 at
+// k = 6; at m = 250: 128.  Past kTwoChunkCols this is the shortest length
+// the rule may choose: the grid and the workspace are sized for it.
 int carry_chunk_cols(int k, int m) {
   const long d = static_cast<long>(k) * (k + 1) / 2;
   const int lc = partition_cols(d * d + d, kMinChunk, m);
@@ -545,13 +595,27 @@ int carry_chunk_cols(int k, int m) {
 }
 
 // Elements of T of the workspace of a linear sweep over nb matrices: H
-// (nb, P-1, D, D), y (nb, P-1, D) and the incoming carries (nb, P-1, D);
-// 0 when P = 1.
+// (nb, P-1, D, D), y (nb, P-1, D), the incoming carries (nb, P-1, D) and
+// one for the rule's chunk length; 0 when P = 1.
 size_t carry_workspace(int k, int m, int nb) {
   const int lc = carry_chunk_cols(k, m);
   const size_t nmap = static_cast<size_t>((m + lc - 1) / lc - 1);
   const size_t d = static_cast<size_t>(k) * (k + 1) / 2;
-  return static_cast<size_t>(nb) * nmap * (d * d + 2 * d);
+  return nmap > 0 ? static_cast<size_t>(nb) * nmap * (d * d + 2 * d) + 1 : 0;
+}
+
+// Where a linear sweep over nb (K+1, m) factors l keeps its chunk length,
+// in its workspace ws: launches the rule there past kTwoChunkCols columns
+// and returns it; null (carry_chunk_cols's length) otherwise.
+template <int K, typename T>
+const int* linear_rule(int m, int nb, const T* l, T* ws, cudaStream_t st, cudaError_t* e) {
+  *e = cudaSuccess;
+  const int lc = carry_chunk_cols(K, m);
+  if (m <= kTwoChunkCols || lc >= m) return nullptr;
+  int* rule = reinterpret_cast<int*>(ws + carry_workspace(K, m, nb) - 1);
+  *e = launch_chunk_rule<K, T>(m, m, lc, kRuleTau, l, nullptr,
+                               static_cast<size_t>(K + 1) * m, nb, rule, st);
+  return rule;
 }
 
 // Columns per chunk of the Cholesky sweep: at least ASVGP_SCHUR_CHUNK, at
@@ -607,46 +671,90 @@ cudaError_t launch_chol_fwd(int m, int nb, const T* a, T* l, T* ws, cudaStream_t
   return cudaGetLastError();
 }
 
-// The three passes of a linear sweep over nb matrices, on the stream: when
-// the walk has more than one chunk, maps(grid, lc, nmap, hmap, ymap)
-// launches pass 1 and the scan follows; then outs(grid, lc, nmap, win)
-// launches pass 3.
+// The passes of a linear sweep over nb matrices with factors l, on the
+// stream: when the walk has more than one chunk, the rule (past
+// kTwoChunkCols), maps(grid, lc, nmap, hmap, ymap, rule) launches pass 1
+// and the scan follows; past kTwoChunkCols kRefinements refinements
+// outs(grid, lc, nmap, carries, nullptr, wout, rule) each rerun every
+// chunk but the last from the carries of the one before (the scanned ones
+// first) and keep its final carry in wout (over the spent maps), blocks
+// that return at once unless the rule chose longer chunks; then
+// outs(grid, lc, nmap, win, wref, nullptr, rule) launches pass 3, from
+// the last refinement's carries where the refinements ran.  The grids and
+// the workspace are those of carry_chunk_cols.
+//
+// Why the refinement: pass 1's particular chain starts a chunk from the
+// zero carry, and where the homogeneous response grows before it decays
+// (at κ(A) = 7.8e9 its entries reach ~6e4 within 64 columns) that chain
+// runs far from the true one and its rounding, relative to the true
+// carry, grows with that transient twice over.  The scanned carries carry
+// it into every later chunk coherently: at the large-regression
+// protocol's Kuu the Cholesky adjoint's trace-gradient sum moved 2e-2
+// (relative) against 1e-4 for a factor perturbed by one rounding, and 20
+// Adam steps' loss 1.7e-6 from the plain versions' (on an H100).  Rerun
+// from the scanned carry, a chunk follows the true chain, so its final
+// carry is off only by the scanned one's error times the chunk's decayed
+// map (below the rule's threshold), and the first chunks become the
+// one-chunk run's; a second refinement multiplies what is left by the map
+// again.  With two, the trace-gradient sum keeps the one-chunk run's
+// accuracy at every length from 256 columns at ℓ = 0.04-0.065
+// (tests/test_torch_chunk_rule.py), where one left 4 chunks at 37 times
+// the one-rounding spread.
 template <int K, typename T, typename Maps, typename Outs>
-cudaError_t launch_linear(int m, int nb, T* ws, Maps maps, Outs outs, cudaStream_t st) {
+cudaError_t launch_linear(int m, int nb, const T* l, T* ws, Maps maps, Outs outs,
+                          cudaStream_t st) {
   constexpr int D = K * (K + 1) / 2;
   const int lc = carry_chunk_cols(K, m);
   const int nchunks = (m + lc - 1) / lc;
   const int nmap = nchunks - 1;
   const T* win = nullptr;
+  T* wref = nullptr;
+  const int* rule = nullptr;
   if (nmap > 0) {
     if (ws == nullptr) return cudaErrorInvalidValue;
+    cudaError_t e;
+    rule = linear_rule<K, T>(m, nb, l, ws, st, &e);
+    if (e != cudaSuccess) return e;
     const size_t hs = static_cast<size_t>(nmap) * D * D;
     const size_t ys = static_cast<size_t>(nmap) * D;
     T* hmap = ws;
     T* ymap = hmap + nb * hs;
     T* w = ymap + nb * ys;
-    maps(dim3(nmap, nb), lc, nmap, hmap, ymap);
-    cudaError_t e = cudaGetLastError();
+    maps(dim3(nmap, nb), lc, nmap, hmap, ymap, rule);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    e = launch_chunk_scan<D, T>(1, nb, nmap, hmap, hs, ymap, ys, w, st);
+    e = launch_chunk_scan<D, T>(1, nb, nmap, hmap, hs, ymap, ys, w, st, rule, m);
     if (e != cudaSuccess) return e;
     win = w;
+    if (rule != nullptr) {
+      // (nb, nmap, D) each, laid out as the scanned carries, over the maps
+      T* bufs[2] = {hmap, ymap};
+      const T* from = win;
+      for (int r = 0; r < kRefinements; ++r) {
+        outs(dim3(nmap, nb), lc, nmap, from, nullptr, bufs[r % 2], rule);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        from = bufs[r % 2];
+      }
+      wref = bufs[(kRefinements - 1) % 2];
+    }
   }
-  outs(dim3(nchunks, nb), lc, nmap, win);
+  outs(dim3(nchunks, nb), lc, nmap, win, wref, nullptr, rule);
   return cudaGetLastError();
 }
 
 template <int K, typename T>
 cudaError_t launch_tak_fwd(int m, int nb, const T* l, T* s, T* ws, cudaStream_t st) {
   return launch_linear<K, T>(
-      m, nb, ws,
-      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
+      m, nb, l, ws,
+      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap, const int* rule) {
         tak_fwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, nullptr, nullptr, hmap, ymap);
+            m, lc, nmap, l, nullptr, nullptr, nullptr, nullptr, hmap, ymap, rule);
       },
-      [=](dim3 grid, int lc, int nmap, const T* win) {
+      [=](dim3 grid, int lc, int nmap, const T* win, const T* wref, T* wout,
+          const int* rule) {
         tak_fwd_chunk_kernel<K, T, false><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, s, win, nullptr, nullptr);
+            m, lc, nmap, l, s, win, wref, wout, nullptr, nullptr, rule);
       },
       st);
 }
@@ -655,14 +763,15 @@ template <int K, typename T>
 cudaError_t launch_chol_bwd(int m, int nb, const T* l, const T* cot, T* abar, T* ws,
                             cudaStream_t st) {
   return launch_linear<K, T>(
-      m, nb, ws,
-      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
+      m, nb, l, ws,
+      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap, const int* rule) {
         chol_bwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, cot, nullptr, nullptr, hmap, ymap);
+            m, lc, nmap, l, cot, nullptr, nullptr, nullptr, nullptr, hmap, ymap, rule);
       },
-      [=](dim3 grid, int lc, int nmap, const T* win) {
+      [=](dim3 grid, int lc, int nmap, const T* win, const T* wref, T* wout,
+          const int* rule) {
         chol_bwd_chunk_kernel<K, T, false><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, cot, abar, win, nullptr, nullptr);
+            m, lc, nmap, l, cot, abar, win, wref, wout, nullptr, nullptr, rule);
       },
       st);
 }
@@ -671,21 +780,50 @@ template <int K, typename T>
 cudaError_t launch_tak_bwd(int m, int nb, const T* l, const T* s, const T* cot,
                            const T* iv, T* lbar, T* ws, cudaStream_t st) {
   return launch_linear<K, T>(
-      m, nb, ws,
-      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap) {
+      m, nb, l, ws,
+      [=](dim3 grid, int lc, int nmap, T* hmap, T* ymap, const int* rule) {
         tak_bwd_chunk_kernel<K, T, true><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, s, cot, iv, nullptr, nullptr, hmap, ymap);
+            m, lc, nmap, l, s, cot, iv, nullptr, nullptr, nullptr, nullptr, hmap, ymap, rule);
       },
-      [=](dim3 grid, int lc, int nmap, const T* win) {
+      [=](dim3 grid, int lc, int nmap, const T* win, const T* wref, T* wout,
+          const int* rule) {
         tak_bwd_chunk_kernel<K, T, false><<<grid, 32, 0, st>>>(
-            m, lc, nmap, l, s, cot, iv, lbar, win, nullptr, nullptr);
+            m, lc, nmap, l, s, cot, iv, lbar, win, wref, wout, nullptr, nullptr, rule);
       },
       st);
+}
+
+// The chunk length a linear sweep takes over nb (K+1, m) factors l, with
+// its workspace ws, read back to the host (a synchronisation).
+template <int K, typename T>
+int linear_chunk_cols(int m, int nb, const T* l, T* ws, cudaStream_t st) {
+  const int lc = carry_chunk_cols(K, m);
+  if (lc >= m) return lc;
+  if (ws == nullptr) return -1;
+  cudaError_t e;
+  const int* rule = linear_rule<K, T>(m, nb, l, ws, st, &e);
+  if (e != cudaSuccess) return -1;
+  return rule == nullptr ? lc : read_rule(rule, st);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The chunk length the linear sweeps (K7, K8, K10-K12, K18-K20, K23) take
+// over nb (k+1, m) factors l, float when f32; ws: asvgp_carry_workspace(k,
+// m, nb) elements of the factors' type.  For reporting: it synchronises.
+int asvgp_linear_chunk_cols(int k, int m, int nb, const void* l, int f32, void* ws,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m < 1 || nb < 1) return -1;
+  if (f32) {
+    ASVGP_DISPATCH_K(k, (linear_chunk_cols<K, float>(m, nb, static_cast<const float*>(l),
+                                                    static_cast<float*>(ws), st)))
+  }
+  ASVGP_DISPATCH_K(k, (linear_chunk_cols<K, double>(m, nb, static_cast<const double*>(l),
+                                                   static_cast<double*>(ws), st)))
+}
 
 // Elements of workspace (of the sweep's dtype) that K9 / K15 / K17 need
 // for nb (k+1, m) bands: 0 when the columns form one chunk.

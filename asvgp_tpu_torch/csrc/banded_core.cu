@@ -161,9 +161,11 @@ tak_pair_chunk_kernel(int m, int lc, int nmap, const double* __restrict__ l_kuu,
                       const double* __restrict__ c0, double* __restrict__ s_kuu,
                       double* __restrict__ s_p, double* __restrict__ u,
                       const double* __restrict__ win, double* __restrict__ hmap,
-                      double* __restrict__ ymap) {
+                      double* __restrict__ ymap, const int* __restrict__ rule) {
   constexpr int DD = kPairCarry<K>;
   const int j0 = blockIdx.x;
+  lc = rule_cols(rule, lc);
+  if (j0 >= (m + lc - 1) / lc - (kMaps ? 1 : 0)) return;
   const size_t slot = static_cast<size_t>(blockIdx.y) * nmap + j0;
   const double* wc = (!kMaps && j0 > 0) ? win + (slot - 1) * DD : nullptr;
   double* hm = kMaps ? hmap + slot * DD * DD : nullptr;
@@ -185,9 +187,10 @@ int core_chol_cols(int k, int m) {
                         ASVGP_SCHUR_CHUNK, m);
 }
 
-// Columns per chunk of K2: at least kMinChunk (64), as many as the scan can
-// stage maps of DD^2 + DD doubles: at m = 10^4, 64 columns for k <= 3, 128
-// at k = 4, 192 at k = 5, 320 at k = 6.
+// Columns per chunk of K2's partition: at least kMinChunk (64), as many as
+// the scan can stage maps of DD^2 + DD doubles: at m = 10^4, 64 columns for
+// k <= 3, 128 at k = 4, 192 at k = 5, 320 at k = 6.  The shortest length
+// K2's rule (core_tak_rule) may choose.
 int core_tak_cols(int k, int m) {
   const long dd = static_cast<long>(k) * (k + 1) / 2 + k;
   return partition_cols(dd * dd + dd, kMinChunk, m);
@@ -195,7 +198,8 @@ int core_tak_cols(int k, int m) {
 
 // Doubles of workspace K1 or K2 needs (the larger): K1's triples (2, P-1,
 // kPairTri) and walked carries (2, P-1, kPairCarry); K2's maps H (2, P-1,
-// DD^2), y and incoming carries (2, P-1, DD) each; 0 when m is one chunk.
+// DD^2), y and incoming carries (2, P-1, DD) each; then one for K2's chunk
+// length; 0 when m is one chunk.
 size_t core_workspace(int k, int m) {
   const size_t dd = static_cast<size_t>(k) * (k + 1) / 2 + k;
   const size_t tri = static_cast<size_t>(k) * k + static_cast<size_t>(k) * (k + 1) + 2 * k;
@@ -205,7 +209,22 @@ size_t core_workspace(int k, int m) {
   const size_t n2 = static_cast<size_t>((m + lc2 - 1) / lc2 - 1);
   const size_t w1 = 2 * n1 * (tri + dd);
   const size_t w2 = 2 * n2 * (dd * dd + 2 * dd);
-  return w1 > w2 ? w1 : w2;
+  const size_t w = w1 > w2 ? w1 : w2;
+  return w > 0 ? w + 1 : 0;
+}
+
+// K2's chunk length, in its workspace: the rule of the linear sweeps
+// (forward_sweeps.cuh) over both factors, when m spans more than one of
+// core_tak_cols's chunks; null otherwise.
+template <int K>
+const int* core_tak_rule(int m, const double* l_kuu, const double* l_p, double* ws,
+                         cudaStream_t st, cudaError_t* e) {
+  *e = cudaSuccess;
+  const int lc = core_tak_cols(K, m);
+  if (lc >= m) return nullptr;
+  int* rule = reinterpret_cast<int*>(ws + core_workspace(K, m) - 1);
+  *e = launch_chunk_rule<K, double>(m, m, lc, kRuleTau, l_kuu, l_p, 0, 2, rule, st);
+  return rule;
 }
 
 template <int K>
@@ -249,24 +268,40 @@ cudaError_t launch_tak_pair(int m, const double* l_kuu, const double* l_p, const
   const int nchunks = (m + lc - 1) / lc;
   const int nmap = nchunks - 1;
   const double* win = nullptr;
+  const int* rule = nullptr;
   if (nmap > 0) {
     if (ws == nullptr) return cudaErrorInvalidValue;
+    cudaError_t e;
+    rule = core_tak_rule<K>(m, l_kuu, l_p, ws, st, &e);
+    if (e != cudaSuccess) return e;
     const size_t hsz = static_cast<size_t>(nmap) * DD * DD;
     const size_t ysz = static_cast<size_t>(nmap) * DD;
     double* hmap = ws;
     double* ymap = hmap + 2 * hsz;
     double* w = ymap + 2 * ysz;
     tak_pair_chunk_kernel<K, true><<<dim3(nmap, 2), 32, 0, st>>>(
-        m, lc, nmap, l_kuu, l_p, iv, c0, s_kuu, s_p, u, nullptr, hmap, ymap);
-    cudaError_t e = cudaGetLastError();
+        m, lc, nmap, l_kuu, l_p, iv, c0, s_kuu, s_p, u, nullptr, hmap, ymap, rule);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    e = launch_chunk_scan<DD, double, D>(1, 2, nmap, hmap, hsz, ymap, ysz, w, st);
+    e = launch_chunk_scan<DD, double, D>(1, 2, nmap, hmap, hsz, ymap, ysz, w, st, rule, m);
     if (e != cudaSuccess) return e;
     win = w;
   }
   tak_pair_chunk_kernel<K, false><<<dim3(nchunks, 2), 32, 0, st>>>(
-      m, lc, nmap, l_kuu, l_p, iv, c0, s_kuu, s_p, u, win, nullptr, nullptr);
+      m, lc, nmap, l_kuu, l_p, iv, c0, s_kuu, s_p, u, win, nullptr, nullptr, rule);
   return cudaGetLastError();
+}
+
+// K2's chunk length for the factors l_kuu, l_p, read back to the host.
+template <int K>
+int core_tak_chunk_cols(int m, const double* l_kuu, const double* l_p, double* ws,
+                        cudaStream_t st) {
+  const int lc = core_tak_cols(K, m);
+  if (lc >= m) return lc;
+  if (ws == nullptr) return -1;
+  cudaError_t e;
+  const int* rule = core_tak_rule<K>(m, l_kuu, l_p, ws, st, &e);
+  return e != cudaSuccess ? -1 : read_rule(rule, st);
 }
 
 }  // namespace
@@ -300,6 +335,15 @@ int asvgp_tak_pair_solve(int k, int m, const double* l_kuu, const double* l_p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   ASVGP_DISPATCH_K(k, (launch_tak_pair<K>(m, l_kuu, l_p, iv, c0, s_kuu, s_p, u, ws, s)))
+}
+
+// The chunk length K2 takes for the factors l_kuu, l_p (k+1, m); ws as for
+// K2.  For reporting: it synchronises.
+int asvgp_core_tak_chunk_cols(int k, int m, const double* l_kuu, const double* l_p,
+                              double* ws, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1) return -1;
+  ASVGP_DISPATCH_K(k, (core_tak_chunk_cols<K>(m, l_kuu, l_p, ws, s)))
 }
 
 const char* asvgp_error_string(int code) {

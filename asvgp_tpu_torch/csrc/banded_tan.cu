@@ -844,7 +844,9 @@ tak_quad_chunk_kernel(int m, int h, int lc, int nmap, const double* __restrict__
                       double* __restrict__ s_kuu, double* __restrict__ s_p,
                       double* __restrict__ u, double* __restrict__ sdot,
                       const double* __restrict__ win, double* __restrict__ hmap,
-                      double* __restrict__ ymap) {
+                      double* __restrict__ ymap, const int* __restrict__ rule) {
+  lc = rule_cols(rule, lc);
+  if (static_cast<int>(blockIdx.x) >= (h + lc - 1) / lc - (kMaps ? 1 : 0)) return;
   const int t = blockIdx.y;
   const double* lt = l + static_cast<size_t>(t) * (K + 1) * h;
   if ((t & 1) == 0) {
@@ -941,7 +943,10 @@ tak_pair_tan_chunk_kernel(int m, int lc, int nmap, const double* __restrict__ l_
                           const double* __restrict__ ivdot, double* __restrict__ s_kuu,
                           double* __restrict__ s_p, double* __restrict__ u,
                           double* __restrict__ sdot, const double* __restrict__ win,
-                          double* __restrict__ hmap, double* __restrict__ ymap) {
+                          double* __restrict__ hmap, double* __restrict__ ymap,
+                          const int* __restrict__ rule) {
+  lc = rule_cols(rule, lc);
+  if (static_cast<int>(blockIdx.x) >= (m + lc - 1) / lc - (kMaps ? 1 : 0)) return;
   if (blockIdx.y == 0) {
     tak_quad_chunk<K, true, kMaps, true>(m, m, lc, nmap, blockIdx.x, 0, l_kuu, ldot, iv, ivdot,
                                          nullptr, nullptr, nullptr, s_kuu, nullptr, nullptr,
@@ -970,12 +975,14 @@ int chol_quad_chunk_cols(int k, int h) {
                         ASVGP_SCHUR_CHUNK, h);
 }
 
-// Columns per chunk of K6 and of K4 (h = m): at least ASVGP_TAK_QUAD_CHUNK, at most kMaxChunks chunks
-// and at most as many as the scan can stage the maps of ((2D)^2 + 2D
-// doubles each, D = k(k+1)/2), a multiple of the tile.  At m = 10^4: 64
-// columns for k <= 3, 128 at k = 4, 192 at k = 5, 320 at k = 6.  At k = 3
-// on an H100, K6 took 0.069 / 0.067 / 0.079 / 0.095 ms of device time at
-// 64 / 128 / 192 / 256 columns (tools/twist_ab.py --tak-chunk).
+// Columns per chunk of K6's and K4's (h = m) partitions: at least
+// ASVGP_TAK_QUAD_CHUNK, at most kMaxChunks chunks and at most as many as
+// the scan can stage the maps of ((2D)^2 + 2D doubles each, D =
+// k(k+1)/2), a multiple of the tile.  At m = 10^4: 64 columns for k <= 3,
+// 128 at k = 4, 192 at k = 5, 320 at k = 6.  At k = 3 on an H100, K6 took
+// 0.069 / 0.067 / 0.079 / 0.095 ms of device time at 64 / 128 / 192 / 256
+// columns (tools/twist_ab.py --tak-chunk).  The shortest length their rule
+// (tak_tan_rule) may choose.
 int tak_quad_chunk_cols(int k, int h) {
   const long dd = static_cast<long>(k) * (k + 1);
   return partition_cols(dd * dd + dd, ASVGP_TAK_QUAD_CHUNK, h);
@@ -985,8 +992,9 @@ int tak_quad_chunk_cols(int k, int h) {
 // on walks of at most h columns need (the larger): the Cholesky's triples
 // (nmat, P-1, kQuadTriStride) and walked carries (nmat, P-1, k(k+1)); the
 // Takahashi's maps H (nmat, P-1, (2D)^2), y and incoming windows (nmat,
-// P-1, 2D) each; 0 when every walk is one chunk.  K5 and K6: four
-// matrices on streams of h = (m - k + 1) / 2 columns; K3 and K4: two on m.
+// P-1, 2D) each; then one for the Takahashi sweep's chunk length; 0 when
+// every walk is one chunk.  K5 and K6: four matrices on streams of
+// h = (m - k + 1) / 2 columns; K3 and K4: two on m.
 size_t tan_workspace(int k, int h, int nmat) {
   const size_t dd = static_cast<size_t>(k) * (k + 1);
   const size_t nc = static_cast<size_t>((h + chol_quad_chunk_cols(k, h) - 1) /
@@ -995,7 +1003,27 @@ size_t tan_workspace(int k, int h, int nmat) {
                                         tak_quad_chunk_cols(k, h) - 1);
   const size_t wc = nmat * nc * (2 * (static_cast<size_t>(k) * k + dd) + dd);
   const size_t wt = nmat * nt * (dd * dd + 2 * dd);
-  return wc > wt ? wc : wt;
+  const size_t w = wc > wt ? wc : wt;
+  return w > 0 ? w + 1 : 0;
+}
+
+// The Takahashi sweep's chunk length (K4: nmat = 2 factors l0, l1 of m
+// columns; K6: the four stream factors at l0, (K+1, h) each, whose walks
+// the rule takes at the shorter stream's g = m - h - K columns), in the
+// workspace ws: the rule of the linear sweeps (forward_sweeps.cuh) at the
+// tangent sweeps' threshold, when a walk spans more than one chunk; null
+// otherwise.
+template <int K>
+const int* tak_tan_rule(int m, int h, int nmat, const double* l0, const double* l1,
+                        double* ws, cudaStream_t st, cudaError_t* e) {
+  *e = cudaSuccess;
+  const int lc = tak_quad_chunk_cols(K, h);
+  if (lc >= h) return nullptr;
+  int* rule = reinterpret_cast<int*>(ws + tan_workspace(K, h, nmat) - 1);
+  const int n = nmat == 2 ? m : m - h - K;
+  *e = launch_chunk_rule<K, double>(n, h, lc, kRuleTauTan, l0, l1,
+                                    static_cast<size_t>(K + 1) * h, nmat, rule, st);
+  return rule;
 }
 
 template <int K>
@@ -1043,8 +1071,12 @@ cudaError_t launch_tak_tan(int m, const double* l_kuu, const double* l_p, const 
   const int nchunks = (m + lc - 1) / lc;
   const int nmap = nchunks - 1;
   const double* win = nullptr;
+  const int* rule = nullptr;
   if (nmap > 0) {
     if (ws == nullptr) return cudaErrorInvalidValue;
+    cudaError_t e;
+    rule = tak_tan_rule<K>(m, m, 2, l_kuu, l_p, ws, st, &e);
+    if (e != cudaSuccess) return e;
     const size_t hsz = static_cast<size_t>(nmap) * DD * DD;
     const size_t ysz = static_cast<size_t>(nmap) * DD;
     double* hmap = ws;
@@ -1052,15 +1084,17 @@ cudaError_t launch_tak_tan(int m, const double* l_kuu, const double* l_p, const 
     double* w = ymap + 2 * ysz;
     tak_pair_tan_chunk_kernel<K, true><<<dim3(nmap, 2), 32, 0, st>>>(
         m, lc, nmap, l_kuu, l_p, iv, c0, ldot, ivdot, nullptr, nullptr, nullptr, nullptr,
-        nullptr, hmap, ymap);
-    cudaError_t e = cudaGetLastError();
+        nullptr, hmap, ymap, rule);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    e = launch_chunk_scan<DD, double, D, true>(1, 2, nmap, hmap, hsz, ymap, ysz, w, st);
+    e = launch_chunk_scan<DD, double, D, true>(1, 2, nmap, hmap, hsz, ymap, ysz, w, st, rule,
+                                               m);
     if (e != cudaSuccess) return e;
     win = w;
   }
   tak_pair_tan_chunk_kernel<K, false><<<dim3(nchunks, 2), 32, 0, st>>>(
-      m, lc, nmap, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u, sdot, win, nullptr, nullptr);
+      m, lc, nmap, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u, sdot, win, nullptr, nullptr,
+      rule);
   return cudaGetLastError();
 }
 
@@ -1111,8 +1145,12 @@ cudaError_t launch_tak_quad(int m, int h, const double* l, const double* ldot,
   const int nchunks = (h + lc - 1) / lc;
   const int nmap = nchunks - 1;
   const double* win = nullptr;
+  const int* rule = nullptr;
   if (nmap > 0) {
     if (ws == nullptr) return cudaErrorInvalidValue;
+    cudaError_t e;
+    rule = tak_tan_rule<K>(m, h, 4, l, nullptr, ws, st, &e);
+    if (e != cudaSuccess) return e;
     const size_t hsz = static_cast<size_t>(nmap) * DD * DD;
     const size_t ysz = static_cast<size_t>(nmap) * DD;
     double* hmap = ws;
@@ -1120,16 +1158,30 @@ cudaError_t launch_tak_quad(int m, int h, const double* l, const double* ldot,
     double* w = ymap + 4 * ysz;
     tak_quad_chunk_kernel<K, true><<<dim3(nmap, 4), 32, 0, st>>>(
         m, h, lc, nmap, l, ldot, iv, ivdot, y, z, x2, nullptr, nullptr, nullptr, nullptr,
-        nullptr, hmap, ymap);
-    cudaError_t e = cudaGetLastError();
+        nullptr, hmap, ymap, rule);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    e = launch_chunk_scan<DD, double>(1, 4, nmap, hmap, hsz, ymap, ysz, w, st);
+    e = launch_chunk_scan<DD, double>(1, 4, nmap, hmap, hsz, ymap, ysz, w, st, rule, h);
     if (e != cudaSuccess) return e;
     win = w;
   }
   tak_quad_chunk_kernel<K, false><<<dim3(nchunks, 4), 32, 0, st>>>(
-      m, h, lc, nmap, l, ldot, iv, ivdot, y, z, x2, s_kuu, s_p, u, sdot, win, nullptr, nullptr);
+      m, h, lc, nmap, l, ldot, iv, ivdot, y, z, x2, s_kuu, s_p, u, sdot, win, nullptr, nullptr,
+      rule);
   return cudaGetLastError();
+}
+
+// The chunk length of K4 (nmat = 2, h = m, factors l0 and l1) or K6
+// (nmat = 4, the stream factors at l0), read back to the host.
+template <int K>
+int tak_tan_chunk_cols(int m, int h, int nmat, const double* l0, const double* l1,
+                       double* ws, cudaStream_t st) {
+  const int lc = tak_quad_chunk_cols(K, h);
+  if (lc >= h) return lc;
+  if (ws == nullptr) return -1;
+  cudaError_t e;
+  const int* rule = tak_tan_rule<K>(m, h, nmat, l0, l1, ws, st, &e);
+  return e != cudaSuccess ? -1 : read_rule(rule, st);
 }
 
 // The twisted split the kernels assume: h = (m - K + 1) / 2 and both streams
@@ -1173,6 +1225,24 @@ int asvgp_tak_pair_solve_tan(int k, int m, const double* l_kuu, const double* l_
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   ASVGP_DISPATCH_K(k, (launch_tak_tan<K>(m, l_kuu, l_p, iv, c0, ldot, ivdot, s_kuu, s_p, u,
                                              sdot, ws, s)))
+}
+
+// The chunk length K4 takes for K3's factors l_kuu, l_p (k+1, m); ws as
+// for K4.  For reporting: it synchronises.
+int asvgp_tan_tak_chunk_cols(int k, int m, const double* l_kuu, const double* l_p,
+                             double* ws, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1) return -1;
+  ASVGP_DISPATCH_K(k, (tak_tan_chunk_cols<K>(m, m, 2, l_kuu, l_p, ws, s)))
+}
+
+// The chunk length K6 takes for K5's stream factors l (4, k+1, h); ws as
+// for K6.  For reporting: it synchronises.
+int asvgp_twist_tak_chunk_cols(int k, int m, int h, const double* l, double* ws,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!twist_split_ok(k, m, h)) return -1;
+  ASVGP_DISPATCH_K(k, (tak_tan_chunk_cols<K>(m, h, 4, l, nullptr, ws, s)))
 }
 
 // Doubles of workspace K5 and K6 need at (k, m): 0 when every stream is one

@@ -110,6 +110,14 @@ inline int partition_cols(long per, long least, int n) {
 __device__ __forceinline__ double scan_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
 __device__ __forceinline__ float scan_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
+// The chunk length a sweep chose on the device (its chunk-length rule,
+// forward_sweeps.cuh), or lc when it has none; a kernel of such a sweep is
+// launched on the grid of the shortest length, and a block past the chosen
+// length's chunks returns at once.
+__device__ __forceinline__ int rule_cols(const int* rule, int lc) {
+  return rule != nullptr ? *rule : lc;
+}
+
 // Pass 2.  Batch entry blockIdx.y has nmap maps, H at hmap + y·h_stride
 // ((nmap, D, D): H[j][p][q] at (j D + p) D + q) and the particular parts of
 // its r columns at ymap + y·y_stride ((nmap, r, D)).  One thread per column
@@ -119,15 +127,22 @@ __device__ __forceinline__ float scan_fma(float a, float b, float c) { return __
 // serves here.  DB < D declares every H block-diagonal with blocks
 // 0..DB-1 and DB..D-1: the walk then skips the products of the two
 // off-diagonal blocks, which are 0; with kLower, block lower-triangular:
-// it skips the upper-right block alone.
+// it skips the upper-right block alone.  With a rule, the walk of n
+// positions has the chunks of the length the rule chose (the layout keeps
+// nmap's strides).
 template <int D, typename T, int DB = D, bool kLower = false>
 __global__ void __launch_bounds__(32)
 chunk_scan_kernel(int r, int nmap, const T* __restrict__ hmap, size_t h_stride,
-                  const T* __restrict__ ymap, size_t y_stride, T* __restrict__ win) {
+                  const T* __restrict__ ymap, size_t y_stride, T* __restrict__ win,
+                  const int* __restrict__ rule, int n) {
   extern __shared__ __align__(16) unsigned char scan_smem[];
   const int ncs = r < kScanCols ? r : kScanCols;     // y columns per staged map
   T* hs = reinterpret_cast<T*>(scan_smem);            // nmap D D
   T* ys = hs + static_cast<size_t>(nmap) * D * D;     // nmap ncs D
+  if (rule != nullptr) {
+    const int lc = *rule;
+    nmap = (n + lc - 1) / lc - 1;
+  }
   const size_t bat = blockIdx.y;
   hmap += bat * h_stride;
   ymap += bat * y_stride;
@@ -196,10 +211,11 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
 }
 
 // Launches pass 2 over nbatch map sequences of r columns each (DB and
-// kLower as for chunk_scan_kernel).
+// kLower as for chunk_scan_kernel; rule and n as there, nmap the most).
 template <int D, typename T, int DB = D, bool kLower = false>
 cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t h_stride,
-                              const T* ymap, size_t y_stride, T* win, cudaStream_t st) {
+                              const T* ymap, size_t y_stride, T* win, cudaStream_t st,
+                              const int* rule = nullptr, int n = 0) {
   const size_t smem = scan_smem_bytes<D, T>(nmap, r);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> done{0};
@@ -207,7 +223,7 @@ cudaError_t launch_chunk_scan(int r, int nbatch, int nmap, const T* hmap, size_t
   if (e != cudaSuccess) return e;
   const dim3 grid((r + kScanCols - 1) / kScanCols, nbatch);
   chunk_scan_kernel<D, T, DB, kLower><<<grid, 32, smem, st>>>(r, nmap, hmap, h_stride, ymap,
-                                                              y_stride, win);
+                                                              y_stride, win, rule, n);
   return cudaGetLastError();
 }
 

@@ -272,6 +272,128 @@ __device__ __forceinline__ void tak_fwd_step(T (&cs)[K][K + 1], const T (&lc)[K 
   for (int rr = 0; rr <= K; ++rr) cs[0][rr] = col[rr];
 }
 
+// ---------------------------------------------------------------------------
+// The chunk-length rule of the linear sweeps on the scan (K2, K4, K6, K7,
+// K8, K10-K12, K18-K20, K23)
+//
+// Over a chunk of lc columns the scan applies the chunk's map H to an
+// incoming carry that holds the rounding of every chunk before it.  H is
+// the Takahashi-type homogeneous response of the factor over those
+// columns: it first grows with κ(A) and then decays with the chunk's
+// length over the factor's correlation length.  At the north star (ℓ/δ =
+// 10) its entries are below 1e-5 after 64 columns; at the
+// large-regression protocol's Kuu (B3 × Matérn-5/2, m = 1000, ℓ = 0.05,
+// κ = 7.8e9) they are 5.9e4 after 64 columns, 0.52 after 256 and 2.7e-5
+// after 384, and 64-column chunks put a sweep 1e-6..1e-5 (relative) from
+// its one-chunk run, whose own spread under a rounding of L is 1e-10
+// (tools/chunk_rule_probe.py).  So each sweep takes its chunk length from
+// its factors, on the device: the shortest multiple of the tile, no
+// shorter than the partition's length lc0, after which the homogeneous
+// response of an interior chunk (walk positions from lc0 on, unit carries,
+// tak_fwd_step without the d^2 term) has no entry above tau, or the whole
+// walk (one chunk) when none does.  The adjoints' maps are the same size
+// as the Takahashi sweep's at every length (within 3x); the tangent
+// sweeps' maps (K4, K6) carry the derivative of S as well, a factor of up
+// to 1e3 more, hence their smaller tau.  chunk_rule_kernel runs the rule
+// over the matrices of a call, one block each, and leaves the longest
+// length in *rule (zeroed first); the passes and the scan read it there
+// (rule_cols), launched on the grid of lc0, so no host reads it.
+// ---------------------------------------------------------------------------
+constexpr double kRuleTau = 2e-3;     // the maps' largest entry: linear sweeps, K2
+constexpr double kRuleTauTan = 5e-5;  // K4, K6
+
+// Block b of the rule over factors (K+1, ld) at l0 + b stride, or l1 for
+// block 1 when l1 is given: walks positions lc0..n-1 (columns n-1-u) from
+// the D unit carries.
+template <int K, typename T>
+__global__ void __launch_bounds__(32)
+chunk_rule_kernel(int n, int ld, int lc0, T tau, const T* __restrict__ l0,
+                  const T* __restrict__ l1, size_t stride, int* __restrict__ rule) {
+  constexpr int D = K * (K + 1) / 2;
+  __shared__ T lt[K + 1][kTile];
+  const int lane = threadIdx.x;
+  const T* __restrict__ l =
+      (blockIdx.x == 1 && l1 != nullptr) ? l1 : l0 + blockIdx.x * stride;
+  T cs[K][K + 1];
+  {
+    int d = 0;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int r = 0; r <= K; ++r) cs[c][r] = T(0);
+#pragma unroll
+      for (int r = 0; r < K - c; ++r, ++d) cs[c][r] = (lane == d) ? T(1) : T(0);
+    }
+  }
+  int len = n;  // one chunk, unless the response decays
+  for (int u0 = lc0; u0 < n; u0 += kTile) {
+    const int cnt = min(kTile, n - u0);
+    __syncthreads();
+    for (int idx = lane; idx < (K + 1) * kTile; idx += 32) {
+      const int r = idx / kTile;
+      const int t = idx % kTile;
+      if (t < cnt) lt[r][t] = l[r * static_cast<size_t>(ld) + (n - 1 - (u0 + t))];
+    }
+    __syncthreads();
+    for (int t = 0; t < cnt; ++t) {
+      T lcur[K + 1];
+#pragma unroll
+      for (int r = 0; r <= K; ++r) lcur[r] = lt[r][t];
+      T col[K + 1];
+      tak_fwd_step<K, T, true>(cs, lcur, T(1) / lcur[0], T(0), n - 1 - (u0 + t), n, col);
+    }
+    T hmax = T(0);
+    {
+      int d = 0;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+#pragma unroll
+        for (int r = 0; r < K - c; ++r, ++d) {
+          const T a = cs[c][r] < T(0) ? -cs[c][r] : cs[c][r];
+          // NaN stays: no length is chosen from a factor that failed
+          if (lane < D && !(a <= hmax) && hmax == hmax) hmax = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const T o = __shfl_xor_sync(0xffffffffu, hmax, off);
+      if (!(o <= hmax) && hmax == hmax) hmax = o;
+    }
+    if (hmax <= tau) {
+      // the tiles walked, but never shorter than the partition's chunks
+      int done = (u0 + cnt - lc0 + kTile - 1) / kTile * kTile;
+      done = done < lc0 ? lc0 : done;
+      len = done < n ? done : n;
+      break;
+    }
+  }
+  if (lane == 0) atomicMax(rule, len);
+}
+
+// Runs the rule over nmat factors (K+1, ld) at l0 + i stride (l1 as for
+// chunk_rule_kernel) whose walks have n positions and the partition's
+// chunks lc0 columns: *rule is then the chunk length, lc0 or longer.
+template <int K, typename T>
+cudaError_t launch_chunk_rule(int n, int ld, int lc0, double tau, const T* l0, const T* l1,
+                              size_t stride, int nmat, int* rule, cudaStream_t st) {
+  cudaError_t e = cudaMemsetAsync(rule, 0, sizeof(int), st);
+  if (e != cudaSuccess) return e;
+  chunk_rule_kernel<K, T><<<nmat, 32, 0, st>>>(n, ld, lc0, static_cast<T>(tau), l0, l1, stride,
+                                               rule);
+  return cudaGetLastError();
+}
+
+// The chunk length a rule left at rule, copied to the host: for the entry
+// points that report it (a synchronisation; no sweep calls it).
+inline int read_rule(const int* rule, cudaStream_t st) {
+  int lc = 0;
+  if (cudaMemcpyAsync(&lc, rule, sizeof(int), cudaMemcpyDeviceToHost, st) != cudaSuccess) {
+    return -1;
+  }
+  return cudaStreamSynchronize(st) == cudaSuccess ? lc : -1;
+}
+
 // Passes 1 (kMaps) and 3 over chunk j0 (walk positions s..e-1 from
 // s = j0 lc, columns j = m-1-u) of one factor l, carrying DD values: the D
 // read entries of the S window and, kSolve, the upper solve's K-window
@@ -282,13 +404,15 @@ __device__ __forceinline__ void tak_fwd_step(T (&cs)[K][K + 1], const T (&lc)[K 
 // carry e_q without the particular terms, lane DD from 0 with them; the
 // final carries are H's columns and y, written at hm (H[p][q] at
 // hm[p DD + q]) and ym.  Pass 3: lane 0 runs from win (null for chunk 0:
-// the zero carry) and writes S to s_out and, kSolve, u.
+// the zero carry) and writes S to s_out and, kSolve, u; with s_out null and
+// cout given (the linear sweeps' refinement, banded_adjoint.cu) it writes
+// only its final D carried values, at cout.
 template <int K, typename T, bool kMaps, bool kIv, bool kSolve, int DD>
 __device__ __forceinline__ void tak_fwd_chunk(int m, int lc, int j0, const T* __restrict__ l,
                                               const T* __restrict__ iv, const T* __restrict__ b,
                                               T* __restrict__ s_out, T* __restrict__ u,
                                               const T* __restrict__ win, T* __restrict__ hm,
-                                              T* __restrict__ ym) {
+                                              T* __restrict__ ym, T* __restrict__ cout = nullptr) {
   constexpr int D = K * (K + 1) / 2;
   static_assert(DD >= D + (kSolve ? K : 0) && DD < 32, "the carry fits the warp's lanes");
   constexpr int RV = K + 1;              // the row of iv after L's rows
@@ -376,7 +500,7 @@ __device__ __forceinline__ void tak_fwd_chunk(int m, int lc, int j0, const T* __
       }
       T col[K + 1];
       tak_fwd_step<K, T, kMaps>(cs, lcur, d, part, j, m, col);
-      if (!kMaps && lane == 0) {
+      if (!kMaps && lane == 0 && s_out != nullptr) {
 #pragma unroll
         for (int r = 0; r <= K; ++r) s_out[r * ms + j] = col[r];
         if constexpr (kSolve) u[j] = uj;
@@ -385,6 +509,14 @@ __device__ __forceinline__ void tak_fwd_chunk(int m, int lc, int j0, const T* __
     __syncthreads();
   }
 
+  if (!kMaps && cout != nullptr && lane == 0) {
+    int d = 0;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int r = 0; r < K - c; ++r, ++d) cout[d] = cs[c][r];
+    }
+  }
   if (kMaps) {
     int d = 0;
 #pragma unroll

@@ -1,5 +1,5 @@
-"""Model classes: GPR1D, GPRKron, GPRAdditive, SVGP1D, the exact GP, Matérn
-kernels, Gaussian likelihood."""
+"""Model classes: GPR1D, GPRKron, GPRAdditive, SVGP1D, the exact GP, the VFF
+baseline, Matérn kernels, Gaussian likelihood."""
 
 from asvgp_tpu_torch.models.kernels import Matern, Matern12, Matern32, Matern52
 from asvgp_tpu_torch.models.likelihoods import Gaussian
@@ -8,6 +8,7 @@ from asvgp_tpu_torch.models.exact_gp import ExactGPR
 from asvgp_tpu_torch.models.svgp import SVGP1D, fit_svgp
 from asvgp_tpu_torch.models.kron import GPRKron, PosteriorKron
 from asvgp_tpu_torch.models.additive import GPRAdditive, PosteriorAdditive
+from asvgp_tpu_torch.models.vff import GPRVFF
 
 __all__ = [
     "Matern",
@@ -24,4 +25,5 @@ __all__ = [
     "PosteriorKron",
     "GPRAdditive",
     "PosteriorAdditive",
+    "GPRVFF",
 ]

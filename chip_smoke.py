@@ -462,6 +462,7 @@ TWIST_EDGES = ((1, 1001), (2, 1000), (2, 2 * 129 + 1), (3, 2 * 129 + 2), (3, 2 *
                (4, 2 * 256 + 4), (5, 2 * 256 + 5), (6, 2 * 256 + 6), (6, 10_000))
 TWISTED = ("chol_quad_solve_tan", "tak_quad_solve_tan")
 SMEM_LIMIT, MAX_CHUNKS, TILE = 232448, 256, 64  # csrc/chunk_scan.cuh
+TWO_CHUNK_COLS = 512  # csrc/banded_adjoint.cu kTwoChunkCols: past it the linear sweeps' rule
 # the serving sweeps K1 (chol_pair_solve; 128-column chunks, its walk stages
 # k² + k(k+1) + 2k doubles a chunk) and K2 (tak_pair_solve; 64 at k <= 3,
 # as many as the scan can stage maps of DD² + DD doubles, DD = k(k+1)/2 + k)
@@ -1387,6 +1388,445 @@ def additive_path(device) -> dict:
     }
 
 
+# ---- phase 6o: the chunk-length rule of the linear sweeps -----------------
+# GPRAdditive past the two-chunk limit: ADDITIVE_PROBE.json's data with
+# REPAIR_M features a dimension at the additive model's ℓ/δ = 49.4
+# (κ(Kuu) = 3.5e6); the step's gradient against the same step with K9-K12
+# all plain, each component (1.1e-6 with 64-column chunks), and
+# K10, K11 against their plain versions on the step's arguments (were
+# 1.4e-11, 1.5e-11)
+REPAIR_M = 1000
+REPAIR_ELL = ADD_ELL * (ADD_M - 3) / (REPAIR_M - 3)
+TOL_REPAIR_GRAD = 1e-8
+TOL_REPAIR_SWEEP = 1e-12
+# float64's own determination of that gradient, printed beside it: the
+# all-plain step whose adjoints take each dimension's factor L perturbed by
+# one rounding (1e-16 relative), what another order of operations leaves in
+# L, over REPAIR_SEEDS
+REPAIR_SEEDS = (0, 1, 2)
+# the large-regression protocol's Kuu (B3 × Matérn-5/2, m = 1000, ℓ = 0.05,
+# κ = 7.8e9) and its P on make_data(RULE_N, 0) at the model's default noise
+# 1.0: every sweep the rule chunks within RULE_SPREAD times the one-chunk
+# run's own spread, the plain version's distance when its factors are
+# perturbed by one rounding (1e-16 relative; float32 6e-8)
+RULE_N, RULE_M, RULE_ELL = 20_000, 1000, 0.05
+RULE_SPREAD = 5.0
+RULE_EPS = {torch.float64: 1e-16, torch.float32: 6e-8}
+# the lengths the rule keeps at the north star (the partitions' own)
+RULE_NORTH_STAR = 64
+
+
+def protocol_leg():
+    """experiments/large_regression/synthetic_1m_torch.py, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "experiments" / "large_regression" / \
+        "synthetic_1m_torch.py"
+    spec = importlib.util.spec_from_file_location("synthetic_1m_torch", path)
+    leg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(leg)
+    return leg
+
+
+def perturbed(t: torch.Tensor, seed: int) -> torch.Tensor:
+    """``t`` (on the CPU) times 1 + eps·N(0, 1) entrywise: one rounding."""
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randn(t.shape, generator=g, dtype=torch.float64)
+    return (t.double() * (1.0 + RULE_EPS[t.dtype] * noise)).to(t.dtype)
+
+
+def chosen_cols(sweep: str, factors, m: int | None = None) -> dict:
+    """The chunk length ``sweep``'s rule chose on the card for ``factors``
+    and the numpy copy's (banded/chunk_rule.py) on CPU copies."""
+    from asvgp_tpu_torch.banded import chunk_rule, core
+
+    dev = [f.to("cuda") for f in factors]
+    card = core.chosen_chunk_cols(sweep, *dev, m=m)
+    host = [f.cpu().numpy() for f in factors]
+    if sweep == "linear":
+        host = list(host[0]) if host[0].ndim == 3 else host
+        k, n = host[0].shape[0] - 1, host[0].shape[1]
+        lc0 = partition_cols((1, 1), ((k * (k + 1) // 2) ** 2 + k * (k + 1) // 2, 64), n)[1]
+        if n <= TWO_CHUNK_COLS:
+            return {"card": card, "numpy": None}
+        return {"card": card, "numpy": chunk_rule.sweep_cols(host, lc0, chunk_rule.TAU)}
+    k = host[0].shape[-2] - 1
+    if sweep == "twist":
+        from asvgp_tpu_torch.banded.twisted import split_point
+
+        h = split_point(m, k)
+        lc0 = twist_chunk_cols(k, m)[1]
+        return {"card": card, "numpy": chunk_rule.sweep_cols(list(host[0]), lc0,
+                                                             chunk_rule.TAU_TAN, m - h - k)}
+    lc0 = (core_chunk_cols if sweep == "core" else tan_chunk_cols)(k, host[0].shape[1])[1]
+    tau = chunk_rule.TAU if sweep == "core" else chunk_rule.TAU_TAN
+    return {"card": card, "numpy": chunk_rule.sweep_cols(host, lc0, tau)}
+
+
+def repair_additive(device) -> dict:
+    """GPRAdditive at REPAIR_M features a dimension: one value-and-grad step
+    with the kernels (the arguments K9-K12 got kept), one with K9-K12 all
+    swapped for their plain versions on CPU copies, one with each swapped
+    alone, and REPAIR_SEEDS all-plain steps whose adjoints (K10, K12) take
+    the factor L perturbed by one rounding (1e-16 relative), as another
+    order of operations in the forward sweep leaves it: how far float64
+    fixes the gradient at this shape; each of
+    K9-K12 against its plain version on the step's first arguments; the
+    length the linear sweeps chose for dimension 0's factor."""
+    from asvgp_tpu_torch.banded import single
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import GPRAdditive, Matern32
+
+    X, y = probe_data(N_ADD, ADD_SEED)
+    model = GPRAdditive((X, y), [Matern32(lengthscales=REPAIR_ELL) for _ in range(ADD_D)],
+                        [B3Spline(0.0, 1.0, REPAIR_M)] * ADD_D, noise_variance=ADD_NOISE,
+                        device=device)
+    sweeps = ("chol_fwd", "chol_bwd", "tak_fwd", "tak_bwd")
+    kernels = {n: getattr(single, n) for n in sweeps}
+    plains = {n: getattr(single, f"{n}_plain") for n in sweeps}
+    args = {n: [] for n in sweeps}
+
+    def keep(name):
+        def fn(*a):
+            args[name].append(tuple(t.detach().clone() for t in a))
+            return kernels[name](*a)
+        return fn
+
+    def plain_on_cpu(name, seed=None):
+        calls = iter(range(1_000_000))
+
+        def fn(*a):
+            a = [t.cpu() for t in a]
+            if seed is not None:  # the adjoint's factor, one perturbation a call
+                a[0] = perturbed(a[0], 1000 * seed + next(calls))
+            return plains[name](*a).to(device)
+        return fn
+
+    def step(plain=(), seed=None):
+        try:
+            for n in sweeps:
+                setattr(single, n, plain_on_cpu(n, seed if n in ("chol_bwd", "tak_bwd") else None)
+                        if n in plain else kernels[n])
+            return per_dim_value_and_grad(model)
+        finally:
+            for n in sweeps:
+                setattr(single, n, kernels[n])
+
+    def grad_rel(g, ref):
+        g, ref = np.asarray(g), np.asarray(ref)
+        return float(np.max(np.abs(g - ref) / np.abs(ref)))
+
+    try:
+        for n in sweeps:
+            setattr(single, n, keep(n))
+        loss, grad = per_dim_value_and_grad(model)
+    finally:
+        for n in sweeps:
+            setattr(single, n, kernels[n])
+    first = {n: a[0] for n, a in args.items()}
+    loss_plain, grad_plain = step(sweeps)
+    alone = {n: grad_rel(step((n,))[1], grad_plain) for n in sweeps}
+    spread = [grad_rel(step(sweeps, seed)[1], grad_plain) for seed in REPAIR_SEEDS]
+    vs_plain = {n: rel_err(kernels[n](*first[n]), plains[n](*[t.cpu() for t in first[n]]))
+                for n in sweeps}
+    return {"m_per_dim": REPAIR_M, "ell": REPAIR_ELL, "loss": loss, "loss_plain": loss_plain,
+            "grad_rel_vs_plain": grad_rel(grad, grad_plain), "grad_rel_one_plain": alone,
+            "plain_spread": spread, "kernel_vs_plain": vs_plain,
+            "chunk_cols": chosen_cols("linear", [first["tak_fwd"][0]])}
+
+
+def rule_bands():
+    """(Kuu, T = ∂Kuu/∂ℓ, P, Kuf·y) of the large-regression protocol's
+    GPR1D at init on make_data(RULE_N, 0), float64 on the CPU."""
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.features.spline_features import make_kuu
+    from asvgp_tpu_torch.models import GPR1D, Matern
+
+    x, y = protocol_leg().make_data(RULE_N, 0)
+    basis = B3Spline(0.0, 1.0, RULE_M)
+    model = GPR1D((x, y), Matern(1.0, RULE_ELL, nu2=5), basis, device="cpu")
+    with torch.no_grad():
+        e = torch.tensor(RULE_ELL, dtype=torch.float64)
+        v = torch.tensor(1.0, dtype=torch.float64)
+        kuu, tanb = torch.func.jvp(lambda l_: make_kuu(Matern(v, l_, nu2=5), basis),
+                                   (e,), (torch.ones_like(e),))
+        p = model.kufkfu_band + kuu  # noise 1.0
+    return kuu, tanb, p, model.kuf_y
+
+
+def rule_sweeps(device) -> dict:
+    """Each sweep the rule chunks, on the card at the protocol's Kuu and P
+    (K7, K8, K10-K12, K23 and, on float32 casts of the factors, K18-K20;
+    K2, K4, K6 on their plain producers' outputs), against its plain
+    version on a CPU copy, beside the plain version's own move when its
+    factors are perturbed by one rounding; and the length each chose."""
+    from asvgp_tpu_torch.banded import core, ops, single, tan, twist
+    from asvgp_tpu_torch.banded.twisted import split_point
+
+    kuu, tanb, p, b = rule_bands()
+    m = kuu.shape[1]
+    rng = np.random.RandomState(12)
+    out = {}
+
+    def rel_all(got, want):
+        got, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, want))
+        return max(rel_err(g, w) for g, w in zip(got, want, strict=True))
+
+    def hold(name, kernel, plain, args, pert_args, sweep, factors, **kw):
+        want = plain(*args)
+        got = kernel(*(a.to(device) for a in args))
+        spread = rel_all(plain(*pert_args), want)
+        out[name] = {"rel": rel_all(got, want), "spread": spread,
+                     "chunk_cols": chosen_cols(sweep, factors, **kw)}
+
+    lk, lp = ops.cholesky_band_plain(kuu), ops.cholesky_band_plain(p)
+    for dt in (torch.float64, torch.float32):
+        tag = "" if dt == torch.float64 else "_f32"
+        l = lk.to(dt)
+        s = ops.takahashi_inverse_band_plain(l)
+        cot = torch.from_numpy(rng.randn(*l.shape)).to(dt)
+        lpert = perturbed(l, 99)
+        hold("chol_bwd" + tag, single.chol_bwd, single.chol_bwd_plain, (l, cot), (lpert, cot),
+             "linear", [l])
+        hold("tak_fwd" + tag, single.tak_fwd, single.tak_fwd_plain, (l,), (lpert,),
+             "linear", [l])
+        hold("tak_bwd" + tag, single.tak_bwd, single.tak_bwd_plain, (l, s, cot),
+             (lpert, s, cot), "linear", [l])
+    l2 = torch.stack([lk, lp])
+    s2 = torch.stack([ops.takahashi_inverse_band_plain(t) for t in (lk, lp)])
+    cot2 = torch.from_numpy(rng.randn(*l2.shape))
+    iv2 = (1.0 / l2[:, 0]).contiguous()
+    l2p = perturbed(l2, 98)
+    hold("tak_bwd_vec", core.tak_bwd_vec, core.tak_bwd_vec_plain, (lk, s2[0], cot2[0], iv2[0]),
+         (l2p[0], s2[0], cot2[0], iv2[0]), "linear", [lk])
+    hold("chol_bwd_pair", core.chol_bwd_pair, core.chol_bwd_pair_plain, (l2, cot2), (l2p, cot2),
+         "linear", [l2])
+    hold("tak_bwd_pair", core.tak_bwd_pair, core.tak_bwd_pair_plain, (l2, s2, cot2, iv2),
+         (l2p, s2, cot2, iv2), "linear", [l2])
+    k1 = core.chol_pair_solve_plain(kuu, p, b)
+    k1p = (perturbed(k1[0], 97), perturbed(k1[1], 96), *k1[2:])
+    hold("tak_pair_solve", core.tak_pair_solve, core.tak_pair_solve_plain, k1, k1p,
+         "core", k1[:2])
+    k3 = tan.chol_pair_solve_tan_plain(kuu, tanb, p, b)
+    k3p = (perturbed(k3[0], 95), perturbed(k3[1], 94), *k3[2:])
+    hold("tak_pair_solve_tan", tan.tak_pair_solve_tan, tan.tak_pair_solve_tan_plain, k3, k3p,
+         "tan", k3[:2])
+    k5 = twist.chol_quad_solve_tan_plain(kuu, tanb, p, b)
+    _, z, x2, _ = twist.mid_step(kuu, tanb, p, b, k5[0], k5[1], k5[4])
+    k5p = (perturbed(k5[0], 93), *k5[1:])
+    z, x2 = z.contiguous(), x2.contiguous()
+    hold("tak_quad_solve_tan",
+         lambda *a: twist.tak_quad_solve_tan(*a, m),
+         lambda *a: twist.tak_quad_solve_tan_plain(*a, m),
+         (*k5, z, x2), (*k5p, z, x2), "twist", [k5[0]], m=m)
+    out["kuu_kappa"] = float(torch.linalg.cond(lower_band_dense(kuu)))
+    out["stream_cols"] = m - split_point(m, 3) - 3
+    return out
+
+
+def lower_band_dense(band: torch.Tensor) -> torch.Tensor:
+    """The symmetric dense matrix of a lower band."""
+    from asvgp_tpu_torch.banded import lower_band_to_dense
+
+    dense = lower_band_to_dense(band)
+    return dense + torch.tril(dense, -1).mT
+
+
+def north_star_cols(main_bands) -> dict:
+    """The lengths the rule chose at the north star (m = 10⁴) for each
+    sweep it chunks, on the main path's Kuu and P and the producers'
+    outputs."""
+    from asvgp_tpu_torch.banded import core, ops, tan, twist
+
+    kuu, tanb, p, b = main_bands
+    m = kuu.shape[1]
+    lk, lp = (ops.cholesky_band_plain(t.cpu()) for t in (kuu, p))
+    k1 = core.chol_pair_solve(kuu, p, b)
+    k3 = tan.chol_pair_solve_tan(*main_bands)
+    k5 = twist.chol_quad_solve_tan(*main_bands)
+    return {"linear_kuu": chosen_cols("linear", [lk]), "linear_p": chosen_cols("linear", [lp]),
+            "linear_kuu_f32": chosen_cols("linear", [lk.float()]),
+            "tak_pair_solve": chosen_cols("core", k1[:2]),
+            "tak_pair_solve_tan": chosen_cols("tan", k3[:2]),
+            "tak_quad_solve_tan": chosen_cols("twist", [k5[0]], m=m)}
+
+
+# ---- phase 6p: the large-regression protocol at full width ---------------
+# the torch leg's run_split (experiments/large_regression/synthetic_1m_torch.py)
+# on make_data(10⁶, 0), 95/5 split, B3 × m = 1000, Matérn-5/2 at ℓ = 0.05,
+# noise 1.0 (κ(Kuu) = 7.8e9), only the counts cut: fit_lbfgs 10 iterations
+# without restarts, Adam 20 steps at batch 4096 on RandomState(2) indices,
+# SVGP 20 steps at batch 100 on RandomState(3), VFF with 100 frequencies
+# (m = 201) and a 10-iteration fit
+LR_N, LR_M, LR_SEED = 1_000_000, 1000, 0
+LR_ADAM = {"steps": 20, "batch": 4096, "index_seed": 2}
+LR_SVGP = {"steps": 20, "batch": 100, "index_seed": 3}
+# the JAX package on a CPU in float64, set_impl("scan")
+# (tools/large_regression_anchors.py): GPR1D's loss and gradient (ℓ, σ²,
+# noise) at init, its 10-iteration fit (loss, iterations, evaluations),
+# NLPD and MSE on the 5·10⁴ held-out points; Adam's and SVGP's step-1 and
+# step-20 losses; VFF's loss, gradient, fit, NLPD and MSE
+ANCHOR_LR = {
+    "loss": 925000.2615772524,
+    "grad": (8770.170103850107, 5767.706927633629, 267509.52907025535),
+    "fit": 639367.6438254892, "fit_iters": 10, "fit_evals": 38,
+    "nlpd": 0.6681685311262755, "mse": 0.08984610987469131,
+    "adam": (924722.63249443, 869065.6845341403),
+    "svgp": (1088121.8855550557, 1195282.2364916536),
+    "vff_loss": 941727.0070194807,
+    "vff_grad": (25898.450151544, 16298.747990050144, 256944.94342445538),
+    "vff_fit": 247867.4489940568, "vff_fit_iters": 10, "vff_fit_evals": 17,
+    "vff_nlpd": 0.2232888032060818, "vff_mse": 0.08986251934838763,
+}
+# relative bars (PERF.md §2): GPRKron's and phase 6's (loss 1e-9, gradient
+# 1e-8 each, fits 1e-8 in the same counts, NLPD and MSE 1e-8, Adam and SVGP
+# losses 1e-9), raised to 10× the JAX package's own spread where
+# tools/large_regression_anchors.py --spread finds that larger.  At κ(Kuu)
+# = 7.8e9 Kuu perturbed by 1e-15 relative, the statistics by 1e-15, every
+# banded factor by one rounding, or only the factors the adjoints see,
+# move its GPR1D loss by up to 8.8e-8, the gradient 5.7e-5 / 8.5e-6 /
+# 1.9e-7 (ℓ, σ², noise), the 10-iteration fit 1.9e-5 (its evaluations from
+# 38 to 39-70), NLPD 1.9e-5, Adam's losses 9.0e-8 / 7.1e-8 (steps 1, 20),
+# SVGP's 6.6e-8 / 2.0e-7; VFF's values move ≤ 2.3e-14 and keep GPRKron's
+# bars, its fit its counts.  The GPR1D fit is held to its iterations, not
+# its evaluations
+TOL_LR = {"loss": 8.8e-7, "grad": (5.7e-4, 8.5e-5, 1.9e-6), "fit": 1.9e-4, "nlpd": 1.9e-4,
+          "mse": 1e-8, "adam": (9.0e-7, 7.1e-7), "svgp": (6.6e-7, 2.0e-6), "vff_loss": 1e-9,
+          "vff_grad": 1e-8, "vff_fit": 1e-8, "vff_nlpd": 1e-8, "vff_mse": 1e-8}
+# launches of each stage: the fit's per evaluation (the twisted route), the
+# others in all; VFF launches none of K1-K23
+LR_FIT_PER_EVAL = {"chol_quad_solve_tan": 1, "tak_quad_solve_tan": 1}
+LR_STAGES = {
+    "precompute": {},
+    "predict": {"chol_pair_solve": 2, "tak_pair_solve": 2},
+    "adam": {n: LR_ADAM["steps"] for n in ADAM_KERNELS},
+    "svgp": {n: c * LR_SVGP["steps"] + SVGP_SEED.get(n, 0) for n, c in SVGP_STEP.items()},
+    "svgp_predict": {n: 2 * c for n, c in SVGP_PREDICT.items()},
+    "vff_precompute": {}, "vff_fit": {}, "vff_predict": {},
+}
+
+
+def protocol_path(device) -> dict:
+    """Phase 6p: one split of the large-regression protocol through the torch
+    leg's ``run_split``, each stage on fresh counters (its launches read just
+    after it, its time by the host clock and CUDA events); then, on the
+    leg's own GPR1D, the loss and gradient at init and the times of a
+    value-and-grad step, the posterior and the prediction; and VFF's loss
+    and gradient at init."""
+    from asvgp_tpu_torch.banded import core
+
+    leg = protocol_leg()
+    args = leg.parser().parse_args([])
+    for key, value in dict(n=LR_N, m=LR_M, iters=10, restarts=0, adam_baseline=True,
+                           adam_steps=LR_ADAM["steps"], batch=LR_ADAM["batch"],
+                           svgp_baseline=True, svgp_steps=LR_SVGP["steps"],
+                           svgp_batch=LR_SVGP["batch"], vff_baseline=True,
+                           vff_frequencies=100, device=str(device)).items():
+        setattr(args, key, value)
+    n_train = LR_N - LR_N // 20
+    idx = {"adam": index_stream(LR_ADAM["index_seed"], LR_ADAM["steps"], LR_ADAM["batch"],
+                                n_train),
+           "svgp": index_stream(LR_SVGP["index_seed"], LR_SVGP["steps"], LR_SVGP["batch"],
+                                n_train)}
+    stages = {}
+
+    class Stage:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            core.reset_counters()
+            torch.cuda.synchronize(device)
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.t0 = time.perf_counter()
+            self.start.record()
+            return self
+
+        def __exit__(self, *exc):
+            self.end.record()
+            torch.cuda.synchronize(device)
+            if exc[0] is None:
+                stages[self.name] = {
+                    "host_ms": (time.perf_counter() - self.t0) * 1e3,
+                    "event_ms": self.start.elapsed_time(self.end),
+                    "launches": {n: c for n, c in core.LAUNCHES.items() if c},
+                    "plain_on_cuda": core.PLAIN_CALLS.get("cuda", 0)}
+            return False
+
+    record = {}
+    row = leg.run_split(args, LR_SEED, indices=idx, stage=Stage, record=record)
+    errors = {k: v for k, v in row.items() if k.endswith("_error")}
+    if errors:
+        raise AssertionError(f"a baseline of the protocol failed: {errors}")
+    evals = record["fit_info"]["ls_evals"]
+    want = dict(LR_STAGES, fit={n: c * evals for n, c in LR_FIT_PER_EVAL.items()})
+    for name, w in want.items():
+        got = stages[name]
+        if got["launches"] != w or got["plain_on_cuda"]:
+            raise AssertionError(f"protocol stage {name}: launches {got['launches']}, "
+                                 f"expected {w}; plain calls {got['plain_on_cuda']}")
+
+    model, fitted = record["model"], record["params"]
+    model.load_jax_params(model.init_params())
+    core.reset_counters()
+    loss, grads = value_and_grad(model)
+    read_launches(device, "protocol value-and-grad step",
+                  {n: c for n, c in LR_FIT_PER_EVAL.items()})
+    times = {"step": cuda_ms(lambda: value_and_grad(model))}
+    model.load_jax_params(fitted)
+    post = model.posterior()
+    x_test = torch.as_tensor(leg.make_data(LR_N, LR_SEED)[0][: LR_N // 20], device=device)
+    times["posterior"] = cuda_ms(model.posterior)
+    times["predict"] = cuda_ms(lambda: post.predict_f(x_test))
+    vff = record["vff"]
+    vff.zero_grad(set_to_none=True)
+    vff.load_jax_params(vff.init_params())
+    vff_loss = vff.training_loss()
+    vff_loss.backward()
+    vff_grad = [float(getattr(vff, n).grad) for n in PARAM_NAMES]
+    return {
+        "row": row, "stages": stages, "times": times,
+        "loss": loss, "grad": [grads[n] for n in PARAM_NAMES],
+        "fit": row["elbo"] * -1.0, "fit_iters": row["iters"], "fit_evals": evals,
+        "nlpd": row["nlpd"], "mse": row["mse"],
+        "adam": [float(record["adam_losses"][0]), float(record["adam_losses"][-1])],
+        "svgp": [float(record["svgp_losses"][0]), float(record["svgp_losses"][-1])],
+        "vff_loss": float(vff_loss.detach()), "vff_grad": vff_grad,
+        "vff_fit": row["elbo_vff"] * -1.0, "vff_fit_iters": int(record["vff_iters"]),
+        "vff_fit_evals": record["vff_info"]["ls_evals"],
+        "vff_nlpd": row["nlpd_vff"], "vff_mse": row["mse_vff"],
+    }
+
+
+def protocol_errors(lr: dict) -> dict:
+    """Each value of phase 6p against its anchor, relative: a scalar, or
+    each component of a gradient or of the two-step losses."""
+    out = {}
+    for key in TOL_LR:
+        got, want = lr[key], ANCHOR_LR[key]
+        if isinstance(want, tuple):
+            out[key] = [rel(g, w) for g, w in zip(got, want, strict=True)]
+        else:
+            out[key] = rel(got, want)
+    return out
+
+
+def protocol_misses(errs: dict) -> dict:
+    """The values of phase 6p beyond their bars (TOL_LR: one bar, or one a
+    component)."""
+    out = {}
+    for key, err in errs.items():
+        tol = TOL_LR[key]
+        if isinstance(err, list):
+            tols = tol if isinstance(tol, tuple) else (tol,) * len(err)
+            if any(not e <= t for e, t in zip(err, tols, strict=True)):
+                out[key] = err
+        elif not err <= tol:
+            out[key] = err
+    return out
+
+
 def random_f32_inputs(k: int, m: int, rng, device) -> dict:
     """K13/K14's and K17-K22's arguments at a random SPD band A = L Lᵀ, S
     its Takahashi band, random cotangents and right-hand sides (a vector
@@ -1560,6 +2000,14 @@ def adjoint_edge_parity(device, rng) -> dict:
                for n in ADJOINTS}}
 
 
+def rule_maps(ws: torch.Tensor, n: int, walk: int) -> tuple[int, int]:
+    """(chunk length, maps) a sweep's chunk-length rule chose, from the
+    workspace of n elements it ran with (the length sits in its last
+    element, csrc/forward_sweeps.cuh) on a walk of ``walk`` positions."""
+    lc = int(ws[n - 1:n].view(torch.int32)[0])
+    return lc, -(-walk // lc) - 1
+
+
 def adjoint_maps(args) -> dict:
     """The chunks of an adjoint (K7, K8, K10, K12, K18, K20, K23) on its
     wrapper's arguments ``args`` and the largest entry of their composed
@@ -1592,7 +2040,9 @@ def adjoint_maps(args) -> dict:
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry + suffix)(k, m, nb, *ptrs, out.data_ptr(), ws.data_ptr(), stream)
     _build.check(lib, rc, entry + suffix)
-    return {"chunks": maps + 1, "h_max": float(ws[: nb * maps * d * d].abs().max())}
+    lc, used = rule_maps(ws, n, m) if m > TWO_CHUNK_COLS else (None, maps)
+    h = ws[: nb * maps * d * d].view(nb, maps, d * d)[:, :used]
+    return {"chunks": used + 1, "lc": lc, "h_max": float(h.abs().max()) if used else 0.0}
 
 
 def adjoint_maps_of(calls: dict) -> dict:
@@ -1700,7 +2150,9 @@ def forward_maps(name: str, args) -> dict:
                                  stream)
     _build.check(lib, rc, entry)
     if not chol:
-        return {"chunks": maps + 1, "h_max": float(ws[: nb * maps * d * d].abs().max())}
+        lc, used = rule_maps(ws, n, m) if m > TWO_CHUNK_COLS else (None, maps)
+        h = ws[: nb * maps * d * d].view(nb, maps, d * d)[:, :used]
+        return {"chunks": used + 1, "lc": lc, "h_max": float(h.abs().max()) if used else 0.0}
     tri = ws[: nb * maps * (k * k + 2 * d)].view(nb, maps, -1).double()
     packed = ws[nb * maps * (k * k + 2 * d):].view(nb, maps, d).double()
     lo, up = torch.tril_indices(k, k), torch.triu_indices(k, k)
@@ -1869,7 +2321,8 @@ def twist_maps(bands) -> dict:
     n5, n6 = -(-h // lc5) - 1, -(-h // lc6) - 1
     stride = 2 * (k * k + dd)
     n = lib.asvgp_twist_workspace(k, m)
-    if n != max(4 * n5 * (stride + dd), 4 * n6 * (dd * dd + 2 * dd)):
+    want = max(4 * n5 * (stride + dd), 4 * n6 * (dd * dd + 2 * dd))
+    if n != (want + 1 if want else 0):  # and K6's chunk length
         raise AssertionError(f"twist_chunk_cols {lc5, lc6} disagrees with the kernels' "
                              f"workspace of {n} at k={k}, m={m}")
     ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
@@ -1892,9 +2345,12 @@ def twist_maps(bands) -> dict:
         rc = lib.asvgp_tak_quad_solve_tan(k, m, h, *(t.data_ptr() for t in (
             *k5, z.contiguous(), x2.contiguous(), *out6, ws)), stream)
         _build.check(lib, rc, "asvgp_tak_quad_solve_tan")
-    if n6 > 1:
-        hmap = ws[: 4 * n6 * dd * dd].view(4, n6, dd, dd)
-        res["k6_h_max"] = float(hmap[:, 1:].abs().max())
+    if n6 > 0:
+        res["k6_lc"], used = rule_maps(ws, n, h)
+        res["chunks"][1] = used + 1
+        if used > 1:
+            hmap = ws[: 4 * n6 * dd * dd].view(4, n6, dd, dd)
+            res["k6_h_max"] = float(hmap[:, 1:used].abs().max())
     return res
 
 
@@ -1954,7 +2410,8 @@ def core_maps(bands) -> dict:
     n1, n2 = -(-m // lc1) - 1, -(-m // lc2) - 1
     stride = k * k + 2 * d + 2 * k
     n = lib.asvgp_core_workspace(k, m)
-    if n != max(2 * n1 * (stride + dd), 2 * n2 * (dd * dd + 2 * dd)):
+    want = max(2 * n1 * (stride + dd), 2 * n2 * (dd * dd + 2 * dd))
+    if n != (want + 1 if want else 0):  # and K2's chunk length
         raise AssertionError(f"core_chunk_cols {lc1, lc2} disagrees with the kernels' "
                              f"workspace of {n} at k={k}, m={m}")
     ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
@@ -1986,9 +2443,13 @@ def core_maps(bands) -> dict:
         ws.fill_(float("nan"))
         rc = lib.asvgp_tak_pair_solve(k, m, *(t.data_ptr() for t in (*k1, *k2, ws)), stream)
         _build.check(lib, rc, "asvgp_tak_pair_solve")
-    if n2 > 1:
-        hmap = ws[: 2 * n2 * dd * dd].view(2, n2, dd, dd)[:, 1:]
-        res["k2_h_max"] = {"kuu": float(hmap[0].abs().max()), "p": float(hmap[1].abs().max())}
+    if n2 > 0:
+        res["k2_lc"], used = rule_maps(ws, n, m)
+        res["chunks"][1] = used + 1
+        if used > 1:
+            hmap = ws[: 2 * n2 * dd * dd].view(2, n2, dd, dd)[:, 1:used]
+            res["k2_h_max"] = {"kuu": float(hmap[0].abs().max()),
+                               "p": float(hmap[1].abs().max())}
     return res
 
 
@@ -2045,7 +2506,8 @@ def tan_maps(bands) -> dict:
     n3, n4 = -(-m // lc3) - 1, -(-m // lc4) - 1
     stride = 2 * (k * k + dd)
     n = lib.asvgp_tan_workspace(k, m)
-    if n != max(2 * n3 * (stride + dd), 2 * n4 * (dd * dd + 2 * dd)):
+    want = max(2 * n3 * (stride + dd), 2 * n4 * (dd * dd + 2 * dd))
+    if n != (want + 1 if want else 0):  # and K4's chunk length
         raise AssertionError(f"tan_chunk_cols {lc3, lc4} disagrees with the kernels' "
                              f"workspace of {n} at k={k}, m={m}")
     ws = torch.full((max(n, 1),), float("nan"), dtype=torch.float64, device=kuu.device)
@@ -2065,9 +2527,13 @@ def tan_maps(bands) -> dict:
         ws.fill_(float("nan"))
         rc = lib.asvgp_tak_pair_solve_tan(k, m, *(t.data_ptr() for t in (*k3, *k4, ws)), stream)
         _build.check(lib, rc, "asvgp_tak_pair_solve_tan")
-    if n4 > 1:
-        hmap = ws[: 2 * n4 * dd * dd].view(2, n4, dd, dd)[:, 1:]
-        res["k4_h_max"] = {"kuu": float(hmap[0].abs().max()), "p": float(hmap[1].abs().max())}
+    if n4 > 0:
+        res["k4_lc"], used = rule_maps(ws, n, m)
+        res["chunks"][1] = used + 1
+        if used > 1:
+            hmap = ws[: 2 * n4 * dd * dd].view(2, n4, dd, dd)[:, 1:used]
+            res["k4_h_max"] = {"kuu": float(hmap[0].abs().max()),
+                               "p": float(hmap[1].abs().max())}
     return res
 
 
@@ -2759,6 +3225,63 @@ def main() -> None:
     check_parity(add_single, TOL_PARITY_MAIN, "of K9-K12 on the additive step's arguments")
     add_launches = ag["launches"]["step"]
 
+    # ---- phase 6o: the linear sweeps' chunk-length rule ----------------------
+    # GPRAdditive past the two-chunk limit against the all-plain step; the
+    # sweeps the rule chunks at the protocol's Kuu and P against their plain
+    # versions, within RULE_SPREAD times the plain version's own spread; the
+    # lengths chosen at the north star and at these shapes, the card's equal
+    # to banded/chunk_rule.py's
+    rep = repair_additive(device)
+    emit("6o_repair_additive", card=smi, **rep, tol_grad=TOL_REPAIR_GRAD,
+         tol_sweep=TOL_REPAIR_SWEEP)
+    if not (rep["grad_rel_vs_plain"] <= TOL_REPAIR_GRAD
+            and max(rep["kernel_vs_plain"][n] for n in ("chol_bwd", "tak_fwd"))
+            <= TOL_REPAIR_SWEEP):
+        raise AssertionError(f"GPRAdditive past the two-chunk limit: the gradient "
+                             f"{rep['grad_rel_vs_plain']} from the all-plain step, K10/K11 "
+                             f"{rep['kernel_vs_plain']} from their plain versions")
+    rule = rule_sweeps(device)
+    ns_cols = north_star_cols(main_bands)
+    emit("6o_rule_sweeps", card=smi, m=RULE_M, ell=RULE_ELL, sweeps=rule,
+         north_star_cols=ns_cols, spread_bar=RULE_SPREAD)
+    sweeps = {n: r for n, r in rule.items() if isinstance(r, dict)}
+    bad = {n: r for n, r in sweeps.items() if not r["rel"] <= RULE_SPREAD * r["spread"]}
+    if bad:
+        raise AssertionError(f"sweeps beyond {RULE_SPREAD}x the one-chunk spread at the "
+                             f"protocol's Kuu: {bad}")
+    cols = [rep["chunk_cols"]] + [r["chunk_cols"] for n, r in sweeps.items()
+                                  if not n.endswith("_f32")] + list(ns_cols.values())
+    if any(c["numpy"] is not None and c["card"] != c["numpy"] for c in cols):
+        raise AssertionError(f"the card's chunk lengths are not the rule's: {cols}")
+    if any(c["card"] != RULE_NORTH_STAR for c in ns_cols.values()):
+        raise AssertionError(f"the rule moved the north star's chunks: {ns_cols}")
+
+    # ---- phase 6p: the large-regression protocol at full width ---------------
+    lr = protocol_path(device)
+    lr_rel = protocol_errors(lr)
+    emit("6p_protocol", card=smi, n=LR_N, m=LR_M, row=lr["row"], rel_err=lr_rel,
+         tol={k: list(v) if isinstance(v, tuple) else v for k, v in TOL_LR.items()},
+         anchor_fit_evals=ANCHOR_LR["fit_evals"],
+         loss=lr["loss"], grad=lr["grad"], fit_evals=lr["fit_evals"],
+         vff_fit_iters=lr["vff_fit_iters"], vff_fit_evals=lr["vff_fit_evals"],
+         adam=lr["adam"], svgp=lr["svgp"], vff_loss=lr["vff_loss"], vff_grad=lr["vff_grad"])
+    emit("6p_proof_of_protocol", card=smi,
+         launches={n: st["launches"] for n, st in lr["stages"].items()},
+         stage_ms={n: {"host_ms": st["host_ms"], "event_ms": st["event_ms"]}
+                   for n, st in lr["stages"].items()},
+         times=lr["times"])
+    bad = protocol_misses(lr_rel)
+    counts = {"fit": lr["fit_iters"], "vff_fit": (lr["vff_fit_iters"], lr["vff_fit_evals"])}
+    want_counts = {"fit": ANCHOR_LR["fit_iters"],
+                   "vff_fit": (ANCHOR_LR["vff_fit_iters"], ANCHOR_LR["vff_fit_evals"])}
+    if bad or counts != want_counts:
+        raise AssertionError(f"the protocol against its anchors: {bad}; iterations and "
+                             f"evaluations {counts}, the anchors' {want_counts}")
+    lr_launches = {}
+    for st in lr["stages"].values():
+        for n, c in st["launches"].items():
+            lr_launches[n] = lr_launches.get(n, 0) + c
+
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
@@ -3105,6 +3628,7 @@ def main() -> None:
             "bound_by": bnd["bound_by"],
             "library_ms": library_ms.get(name),
             "launches_additive_step": add_launches[name],
+            "launches_protocol": lr_launches.get(name, 0),
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

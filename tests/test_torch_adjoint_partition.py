@@ -34,7 +34,7 @@ import torch
 
 from asvgp_tpu.banded import ops as jops
 from asvgp_tpu_torch import banded
-from asvgp_tpu_torch.banded import core, ops, single
+from asvgp_tpu_torch.banded import chunk_rule, core, ops, single
 from asvgp_tpu_torch.basis import B3Spline
 from asvgp_tpu_torch.features.spline_features import make_kuu
 from asvgp_tpu_torch.models import GPR1D, Matern32
@@ -128,10 +128,12 @@ def tak_step(Q, lcol, d, cot, mask, dt, sc=None, cs=None):
     return Q, np.stack([((-db) * d) * d] + wb[1:])
 
 
-def partitioned(l, cot, lc, s=None, iv=None, chol=True):
+def partitioned(l, cot, lc, s=None, iv=None, chol=True, refine=False):
     """Ā = chol_bwd(L, L̄) (``chol``) or L̄ = tak_bwd(L, S, S̄[, iv]) by the
     kernel's three passes, in ``l``'s dtype, for nb (k+1, m) bands (or one),
-    and the largest entry of the composed maps.  The walk (columns m-1..0
+    and the largest entry of the composed maps; ``refine`` refinements
+    between the scan and pass 3, as the kernels' (every chunk but the last
+    rerun from the carries before, its final carry the next chunk's).  The walk (columns m-1..0
     for the Cholesky adjoint, 0..m-1 for the Takahashi one) is cut into
     chunks of ``lc`` positions from its start; each pass runs every chunk
     of every matrix at once.  Positions past the walk's end are columns
@@ -214,6 +216,13 @@ def partitioned(l, cot, lc, s=None, iv=None, chol=True):
     win = np.zeros((nb, nc, dd), dt)
     for j in range(nc - 1):
         win[:, j + 1] = y[:, j] + np.einsum("bpq,bq->bp", h[:, j], win[:, j])
+    for _ in range(int(refine)):
+        carry = np.zeros((k, kp1, nb * nc, 1), dt)
+        for e, (q, r) in enumerate(slots):
+            carry[q, r, :, 0] = win[:, :, e].reshape(-1)
+        fin, _ = sweep(carry, np.ones(1, dt), False)
+        out = np.stack([fin[q, r, :, 0] for q, r in slots], axis=-1).reshape(nb, nc, dd)
+        win = np.concatenate([np.zeros_like(win[:, :1]), out[:, :-1]], axis=1)
     # pass 3: the plain recursion from the true carries, writing the outputs
     carry = np.zeros((k, kp1, nb * nc, 1), dt)
     for e, (q, r) in enumerate(slots):
@@ -386,24 +395,30 @@ def kuu_factor(m, ell_over_delta):
 
 @pytest.mark.parametrize("m", [1000, 2000])
 def test_partition_past_two_chunks_at_additive_conditioning(m):
-    """Past 512 columns the two-chunk rule ends and the open fault of
-    ROADMAP.md queue 3 shows: at the additive model's ℓ/δ = 49.4 the
-    kernels' 64-column chunks (maps above 10) leave both adjoints more than
-    5e-13 from the one-chunk run, at m = 1000 as at 2000, where at the
-    north star's ℓ/δ = 10 (maps below 1e-5) they lie within 1e-14 of it
-    and 256-column chunks at ℓ/δ = 49.4 (maps below 1e-2) within 5e-13:
-    the loss follows the maps' size, not m."""
+    """Past 512 columns the two-chunk rule ends and the chunk-length rule
+    (``banded/chunk_rule.py``) chooses the kernels' chunks from the factor:
+    at the additive model's ℓ/δ = 49.4, 256 columns, where the maps fall
+    below 1e-2 and both adjoints lie within 5e-13 of the one-chunk run, at
+    m = 1000 as at 2000; at the north star's ℓ/δ = 10 (maps below 1e-5)
+    it keeps the partition's 64 columns, within 1e-14.  The mechanism the
+    rule avoids: at ℓ/δ = 49.4, 64-column chunks (maps above 10) leave
+    both adjoints more than 5e-13 from the one-chunk run; the loss follows
+    the maps' size, not m."""
     assert chunk_cols(3, m) == CHUNK
     cot = np.random.RandomState(12).randn(4, m)
-    for ell_over_delta, lc, h_in, tol in ((49.4, CHUNK, (10.0, np.inf), (5e-13, 1.0)),
-                                          (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14)),
-                                          (49.4, 256, (0.0, 1e-2), (0.0, 5e-13))):
+    for ell_over_delta, want_lc, h_in, tol in ((49.4, 256, (0.0, 1e-2), (0.0, 5e-13)),
+                                               (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14))):
         l = kuu_factor(m, ell_over_delta)
+        lc = chunk_rule.sweep_cols([l.numpy()], chunk_cols(3, m), chunk_rule.TAU)
+        assert lc == want_lc
         s = ops.takahashi_inverse_band_plain(l)
         for kwargs in ({}, {"s": s.numpy(), "chol": False}):
             one, _ = partitioned(l.numpy(), cot, m, **kwargs)
             got, h_max = partitioned(l.numpy(), cot, lc, **kwargs)
-            assert h_in[0] < h_max < h_in[1] and tol[0] < rel(got, one) < tol[1]
+            assert h_in[0] < h_max < h_in[1] and tol[0] <= rel(got, one) < tol[1]
+            if ell_over_delta > 10.0:
+                old, h_old = partitioned(l.numpy(), cot, CHUNK, **kwargs)
+                assert h_old > 10.0 and rel(old, one) > 5e-13
 
 
 def test_partition_at_north_star_conditioning():
@@ -465,9 +480,10 @@ def test_cuda_adjoints_at_partition_edges(cuda_device, k, m, nb):
     (``single.tak_bwd``), K7 (``core.tak_bwd_vec``) and K23
     (``core.tak_bwd_pair``) on the card against their plain versions, each
     call counted once; the kernels' workspace is that of ``chunk_cols``'s
-    chunks."""
+    chunks and one element for the chunk-length rule."""
     d = k * (k + 1) // 2
-    assert core.carry_workspace(k, m, nb) == nb * (-(-m // chunk_cols(k, m)) - 1) * (d * d + 2 * d)
+    maps = -(-m // chunk_cols(k, m)) - 1
+    assert core.carry_workspace(k, m, nb) == (nb * maps * (d * d + 2 * d) + 1 if maps else 0)
     l, s, l_bar, s_bar = adjoint_inputs(k, m, nb, 90 + k)
     dev = cuda_device
     iv = (1.0 / l[:, 0]).contiguous()

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from asvgp_tpu.banded import ops as jops
-from asvgp_tpu_torch.banded import core, ops, single
+from asvgp_tpu_torch.banded import chunk_rule, core, ops, single
 from asvgp_tpu_torch.basis import B3Spline
 from asvgp_tpu_torch.features.spline_features import make_kuu
 from asvgp_tpu_torch.models import GPR1D, Matern32
@@ -135,11 +135,13 @@ def tak_step(cs, lcol, mask, part, dt):
     return np.concatenate([col[None], cs[:-1]]), col
 
 
-def partitioned_tak(l, lc):
+def partitioned_tak(l, lc, refine=False):
     """S = tak_fwd(L) by the kernel's three passes, in ``l``'s dtype, for
     nb (k+1, m) bands (or one), and the largest entry of the composed
     maps.  The walk (columns m-1..0) is cut into chunks of ``lc``
-    positions from its start."""
+    positions from its start.  ``refine`` refinements between the scan and
+    pass 3, as the kernel's (every chunk but the last rerun from the
+    windows before, its final window the next chunk's)."""
     dt = l.dtype.type
     one = l.ndim == 2
     l = l[None] if one else l
@@ -173,6 +175,13 @@ def partitioned_tak(l, lc):
     win = np.zeros((nb, nc, dd), dt)
     for j in range(nc - 1):
         win[:, j + 1] = y[:, j] + np.einsum("bpq,bq->bp", h[:, j], win[:, j])
+    for _ in range(int(refine)):
+        cs = np.zeros((k, kp1, nb * nc, 1), dt)
+        for e, (c, r) in enumerate(slots):
+            cs[c, r, :, 0] = win[:, :, e].reshape(-1)
+        cs, _ = sweep(cs, np.ones(1, dt))
+        out = np.stack([cs[c, r, :, 0] for c, r in slots], axis=-1).reshape(nb, nc, dd)
+        win = np.concatenate([np.zeros_like(win[:, :1]), out[:, :-1]], axis=1)
     # pass 3: the plain recursion from the true windows, writing S
     cs = np.zeros((k, kp1, nb * nc, 1), dt)
     for e, (c, r) in enumerate(slots):
@@ -490,22 +499,27 @@ def test_takahashi_two_chunks_at_additive_conditioning():
 
 @pytest.mark.parametrize("m", [1000, 2000])
 def test_takahashi_past_two_chunks_at_additive_conditioning(m):
-    """Past 512 columns the two-chunk rule ends and the open fault of
-    ROADMAP.md queue 3 shows: at the additive model's ℓ/δ = 49.4 the
-    Takahashi sweep's 64-column chunks (maps above 10) leave S more than
-    5e-12 from the one-chunk run, where at the north star's ℓ/δ = 10 (maps
-    below 1e-5) it lies within 1e-14 of it and 256-column chunks at
-    ℓ/δ = 49.4 (maps below 1e-2) within 5e-13."""
+    """Past 512 columns the two-chunk rule ends and the chunk-length rule
+    (``banded/chunk_rule.py``) chooses the Takahashi sweep's chunks from
+    the factor: at the additive model's ℓ/δ = 49.4, 256 columns (maps
+    below 1e-2), within 5e-13 of the one-chunk run; at the north star's
+    ℓ/δ = 10 (maps below 1e-5) the partition's 64, within 1e-14.  The
+    mechanism the rule avoids: at ℓ/δ = 49.4, 64-column chunks (maps above
+    10) leave S more than 5e-12 from the one-chunk run."""
     assert chunk_cols(3, m, True) == CHUNK
-    for ell_over_delta, lc, h_in, tol in ((49.4, CHUNK, (10.0, np.inf), (5e-12, 1.0)),
-                                          (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14)),
-                                          (49.4, 256, (0.0, 1e-2), (0.0, 5e-13))):
+    for ell_over_delta, want_lc, h_in, tol in ((49.4, 256, (0.0, 1e-2), (0.0, 5e-13)),
+                                               (10.0, CHUNK, (0.0, 1e-5), (0.0, 1e-14))):
         kernel, basis = Matern32(1.0, ell_over_delta / (m - 3)), B3Spline(0.0, 1.0, m)
         with torch.no_grad():
             l = ops.cholesky_band_plain(make_kuu(kernel, basis))
+        lc = chunk_rule.sweep_cols([l.numpy()], chunk_cols(3, m, True), chunk_rule.TAU)
+        assert lc == want_lc
         one, _ = partitioned_tak(l.numpy(), m)
         got, h_max = partitioned_tak(l.numpy(), lc)
-        assert h_in[0] < h_max < h_in[1] and tol[0] < rel(got, one) < tol[1]
+        assert h_in[0] < h_max < h_in[1] and tol[0] <= rel(got, one) < tol[1]
+        if ell_over_delta > 10.0:
+            old, h_old = partitioned_tak(l.numpy(), CHUNK)
+            assert h_old > 10.0 and rel(old, one) > 5e-12
 
 
 def test_partition_at_north_star_conditioning():
@@ -591,7 +605,7 @@ def test_cuda_forward_sweeps_at_partition_edges(cuda_device, k, m, nb):
     maps = -(-m // chunk_cols(k, m, False)) - 1
     assert core.schur_workspace(k, m, nb) == nb * maps * (k * k + 3 * d)
     maps = -(-m // chunk_cols(k, m, True)) - 1
-    assert core.carry_workspace(k, m, nb) == nb * maps * (d * d + 2 * d)
+    assert core.carry_workspace(k, m, nb) == (nb * maps * (d * d + 2 * d) + 1 if maps else 0)
     a, l, s = random_case(k, m, nb, 60 + k)
     dev = cuda_device
     core.reset_counters()

@@ -10,7 +10,11 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = sorted((ROOT / "asvgp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "asvgp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "experiments" / "large_regression" / "synthetic_1m_torch.py",
+    ROOT / "experiments" / "snelson" / "example_torch.py",
+]
 FORBIDDEN = ("jax", "jaxlib", "asvgp_tpu")
 
 
@@ -28,12 +32,14 @@ def _forbidden(name):
 
 def test_sources_found():
     assert len(SOURCES) > 15 and (ROOT / "asvgp_tpu_torch" / "banded" / "core.py") in SOURCES
+    assert all(path.is_file() for path in SOURCES)
     pkg = ROOT / "asvgp_tpu_torch"
     for rel in ("banded/tan.py", "banded/twist.py", "banded/twisted.py", "models/exact_gp.py",
                 "train/lbfgs.py", "train/fused_lbfgs.py", "banded/single.py", "train/adam.py",
                 "models/svgp.py", "banded/block.py", "banded/dense_block.py", "stats/kron.py",
                 "models/kron.py", "banded/solve.py", "stats/additive.py",
-                "models/additive.py", "models/per_dimension.py"):
+                "models/additive.py", "models/per_dimension.py", "features/fourier.py",
+                "models/vff.py", "banded/chunk_rule.py"):
         assert pkg / rel in SOURCES, rel
 
 
