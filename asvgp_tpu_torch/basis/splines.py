@@ -208,6 +208,18 @@ class BSplineBasis:
             vals = vals * t[:, None] + coeffs[None, :, q]
         return vals, c
 
+    def evaluate_basis_dense(self, X: torch.Tensor, dx: int = 0) -> torch.Tensor:
+        """The dense (m, n) evaluation matrix (the reference's sparse=False
+        path): column p holds ``evaluate_basis``'s values at rows
+        start[p]..start[p]+order, zeros elsewhere."""
+        vals, start = self.evaluate_basis(X, dx)
+        n = vals.shape[0]
+        rows = start[:, None] + torch.arange(self.order + 1, device=start.device)[None, :]
+        cols = torch.arange(n, device=start.device)[:, None].expand_as(rows)
+        out = vals.new_zeros((self.m, n))
+        out[rows, cols] = vals  # each (row, column) once: no accumulation
+        return out
+
 
 def B1Spline(a, b, m):
     return BSplineBasis(a, b, m, 1)

@@ -106,6 +106,11 @@ def make_kuf(basis: BSplineBasis, X: torch.Tensor) -> tuple:
     return basis.evaluate_basis(X, dx=0)
 
 
+def kuf_to_dense(basis: BSplineBasis, X: torch.Tensor) -> torch.Tensor:
+    """Dense (m, n) Kuf, for tests and small m."""
+    return basis.evaluate_basis_dense(X, dx=0)
+
+
 @dataclasses.dataclass(frozen=True)
 class SplineFeatures1D:
     """Bundles (kernel, basis) like the reference's feature class."""

@@ -68,3 +68,12 @@ class ExactGPR(MaternGaussianModel):
         mean = A.T @ torch.linalg.solve_triangular(L, self.y[:, None], upper=False)[:, 0]
         var = kernel.K_diag(x2) - torch.sum(torch.square(A), dim=0)
         return mean[:, None], var[:, None]
+
+    @torch.no_grad()
+    def predict_log_density(self, data, params=None):
+        """The log predictive density of the points (Xnew, ynew), (n*, 1)."""
+        Xnew, ynew = data
+        _, lik = self._build(params)
+        mean, var = self.predict_f(Xnew, params=params)
+        y = torch.as_tensor(ynew, dtype=_F64, device=mean.device).reshape(mean.shape)
+        return lik.predict_log_density(mean, var, y)

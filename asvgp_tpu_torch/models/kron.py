@@ -1,22 +1,24 @@
-"""GPRKron — tensor-product B-spline features for 2-D inputs, in PyTorch.
+"""GPRKron — tensor-product B-spline features for D ≥ 2 inputs, in PyTorch.
 
-PyTorch counterpart of ``asvgp_tpu/models/kron.py`` at D = 2.  Everything
-stays factorized or banded:
+PyTorch counterpart of ``asvgp_tpu/models/kron.py``.  Everything stays
+factorized or banded:
 
   log|Kuu|   the per-dimension banded Cholesky factors (K9, backward K10)
              and the Kronecker determinant identity
   trace term the per-dimension Takahashi bands (K11, backward K12) against
-             the multiband of KufKfu (stats/kron.py), elementwise
-  P          block-banded (block row i₁, block bandwidth k₁): the blocked
-             Cholesky of banded/block.py, whose diagonal-block step is K16
+             the multiband of KufKfu, elementwise
+  P          block-banded (block row i₁, block bandwidth k₁, dense blocks
+             of side M₂ = Π_{d≥2} m_d, the trailing dimensions flattened
+             row-major): the blocked Cholesky of banded/block.py, whose
+             diagonal-block step is K16
   predict    the block Takahashi band of P⁻¹ and per-point window gathers,
-             O((k+1)⁴) per test point
+             O(Π_d (k_d+1)²) per test point
 
-The data enter through the sufficient statistics, computed once at
-construction on the model's device (the CUDA device unless told
-otherwise); the hyperparameters and the batched predictions are
-models/per_dimension.py's, shared with GPRAdditive.  D ≥ 3 (the JAX
-package's stats/kron_nd.py) is not ported.
+D = 2 takes the statistics of stats/kron.py, D ≥ 3 those of
+stats/kron_nd.py.  The data enter through the sufficient statistics,
+computed once at construction on the model's device (the CUDA device
+unless told otherwise); the hyperparameters and the batched predictions
+are models/per_dimension.py's, shared with GPRAdditive.
 """
 
 from __future__ import annotations
@@ -43,16 +45,32 @@ from asvgp_tpu_torch.stats.kron import (
     t_band_to_blocks,
     t_band_trace_against_kron,
 )
+from asvgp_tpu_torch.stats.kron_nd import (
+    compute_kron_stats_nd,
+    t_band_to_blocks_nd,
+    t_band_trace_against_kron_nd,
+)
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
 
 
+def _trailing_dense(bases, kuu_bands):
+    """The dense Kronecker product of the trailing (d ≥ 2) Kuu factors,
+    row-major over dimensions 2..D."""
+    dense = None
+    for b, kb in zip(bases[1:], kuu_bands[1:]):
+        fd = banded.band_to_dense(banded.symmetrise_lower_band(kb), b.order, b.order)
+        dense = fd if dense is None else torch.kron(dense, fd)
+    return dense
+
+
 def _p_blocks(bases, kuu_bands, sigma2, t_band):
-    """Block-banded P = Kuu₁ ⊗ Kuu₂ + KufKfu/σ²."""
-    kuu2_dense = banded.band_to_dense(
-        banded.symmetrise_lower_band(kuu_bands[1]), bases[1].order, bases[1].order)
-    return t_band_to_blocks(t_band, kuu_bands[0], kuu2_dense, sigma2)
+    """Block-banded P = Kuu₁ ⊗ (⊗_{d≥2} Kuu_d) + KufKfu/σ²."""
+    trailing = _trailing_dense(bases, kuu_bands)
+    if len(bases) == 2:
+        return t_band_to_blocks(t_band, kuu_bands[0], trailing, sigma2)
+    return t_band_to_blocks_nd(t_band, kuu_bands[0], trailing, sigma2)
 
 
 def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
@@ -69,7 +87,10 @@ def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
     log_det_kuu = sum(math.prod(ms) // ms[d] * banded.log_det_from_cholesky(l_bands[d])
                       for d in range(len(bases)))
     s_bands = [banded.takahashi_inverse_band(lb) for lb in l_bands]
-    trace_term = t_band_trace_against_kron(stats.t_band, s_bands[0], s_bands[1])
+    if len(bases) == 2:
+        trace_term = t_band_trace_against_kron(stats.t_band, s_bands[0], s_bands[1])
+    else:
+        trace_term = t_band_trace_against_kron_nd(stats.t_band, s_bands)
 
     l_p, linv_p = block.cholesky_block_banded(_p_blocks(bases, kuu_bands, sigma2, stats.t_band))
     log_det_p = block.log_det_from_block_cholesky(l_p)
@@ -93,37 +114,48 @@ class PosteriorKron(PerDimensionPosterior):
 
     def __init__(self, kernels, lik, bases, w_flat, sp, s_bands):
         super().__init__(kernels, lik, bases, w_flat.device)
-        self.w_flat = w_flat  # (m1, m2)
-        self.sp = sp          # (k1+1, m1, m2, m2) block band of P⁻¹
+        self.w_flat = w_flat  # (m1, M2)
+        self.sp = sp          # (k1+1, m1, M2, M2) block band of P⁻¹
         self.s_bands = s_bands
         self.kdiag = math.prod(k.variance for k in kernels)
 
     def _predict_chunk(self, x):
-        b1, b2 = self.bases
-        k1 = b1.order
-        v1, c1 = make_kuf(b1, x[:, 0])
-        v2, c2 = make_kuf(b2, x[:, 1])
+        bases = self.bases
+        k1 = bases[0].order
+        v1, c1 = make_kuf(bases[0], x[:, 0])
+        n = v1.shape[0]
         r1 = c1[:, None] + torch.arange(k1 + 1, device=c1.device)[None, :]
-        r2 = c2[:, None] + torch.arange(b2.order + 1, device=c2.device)[None, :]
-        # kusᵀ Kuu⁻¹ kus = Π_d (per-dimension window quadratic forms)
-        q_prod = (window_quadratic_form(self.s_bands[0], v1, c1)
-                  * window_quadratic_form(self.s_bands[1], v2, c2))
-        # mean = Σ v1[s1] v2[t] w[c1+s1, c2+t]
-        w_win = self.w_flat[r1[:, :, None], r2[:, None, :]]
-        mean = torch.einsum("na,nat,nt->n", v1, w_win, v2)
+        # kusᵀ Kuu⁻¹ kus = Π_d (per-dimension window quadratic forms); with
+        # it the flattened trailing window: indices r_t (n, T) into the
+        # row-major Π_{d≥2} m_d axis and weights v_t (n, T), T = Π_{d≥2} (k_d+1)
+        q_prod = window_quadratic_form(self.s_bands[0], v1, c1)
+        v_t = r_t = None
+        for d in range(1, len(bases)):
+            vd, cd = make_kuf(bases[d], x[:, d])
+            rd = cd[:, None] + torch.arange(bases[d].order + 1, device=cd.device)[None, :]
+            q_prod = q_prod * window_quadratic_form(self.s_bands[d], vd, cd)
+            if v_t is None:
+                v_t, r_t = vd, rd
+            else:
+                r_t = (r_t[:, :, None] * bases[d].m + rd[:, None, :]).reshape(n, -1)
+                v_t = (v_t[:, :, None] * vd[:, None, :]).reshape(n, -1)
+        # mean = Σ v1[s1] v_t[t] w[c1+s1, r_t[t]]
+        w_win = self.w_flat[r1[:, :, None], r_t[:, None, :]]
+        mean = torch.einsum("na,nat,nt->n", v1, w_win, v_t)
         # kusᵀ P⁻¹ kus through the windows of the block Takahashi band
         quad_p = torch.zeros_like(mean)
         for d in range(k1 + 1):
             mult = 1.0 if d == 0 else 2.0
             for s1 in range(k1 + 1 - d):
-                win = self.sp[d][(c1 + s1)[:, None, None], r2[:, :, None], r2[:, None, :]]
-                val = torch.einsum("nt,ntu,nu->n", v2, win, v2)
+                win = self.sp[d][(c1 + s1)[:, None, None], r_t[:, :, None], r_t[:, None, :]]
+                val = torch.einsum("nt,ntu,nu->n", v_t, win, v_t)
                 quad_p = quad_p + mult * v1[:, s1 + d] * v1[:, s1] * val
         return mean, self.kdiag + quad_p - q_prod
 
 
 class GPRKron(PerDimensionGP):
-    """2-D ASVGP regression with tensor-product B-spline inducing features.
+    """D-dimensional ASVGP regression (D ≥ 2) with tensor-product B-spline
+    inducing features.
 
     One Matérn kernel and one basis per input dimension; the hyperparameters
     as ``PerDimensionGP`` holds them, and the sufficient statistics float64
@@ -143,10 +175,6 @@ class GPRKron(PerDimensionGP):
         check_domain(xv, bases)
         for k, b in zip(kernels, bases):
             validate_kernel_basis(k, b)
-        if D != 2:
-            raise NotImplementedError(
-                f"GPRKron at D = {D}: only D = 2 is ported; the D >= 3 statistics "
-                "(stats/kron_nd.py) are open in ROADMAP.md, queue 1, under \"GPRKron at D ≥ 3\"")
         device = resolve_device(device)
         self.bases = list(bases)
         self.D = D
@@ -156,7 +184,8 @@ class GPRKron(PerDimensionGP):
         yf = torch.as_tensor(y_in, dtype=_F64, device=device).reshape(-1)
         if X.shape[0] != yf.shape[0]:
             raise ValueError("X and y must have the same number of points")
-        stats = compute_kron_stats(self.bases, X, yf)
+        build = compute_kron_stats if D == 2 else compute_kron_stats_nd
+        stats = build(self.bases, X, yf)
         self.register_buffer("kuf_y", stats.kuf_y)
         self.register_buffer("t_band", stats.t_band)
         self.register_buffer("yty", stats.yty)
@@ -165,6 +194,16 @@ class GPRKron(PerDimensionGP):
     @property
     def stats(self) -> KronStats:
         return KronStats(kuf_y=self.kuf_y, t_band=self.t_band, yty=self.yty, n=self.n)
+
+    @property
+    def bandwidth(self) -> int:
+        """The joint scalar bandwidth of P under row-major flattening (the
+        reference's equal-m special case at asvgp/gpr.py:262); informational:
+        the model uses the block-banded form."""
+        bw = 0
+        for d in range(self.D):
+            bw += self.bases[d].order * math.prod(b.m for b in self.bases[d + 1:])
+        return bw
 
     # ---- training objective -----------------------------------------------
     def elbo(self, params=None) -> torch.Tensor:

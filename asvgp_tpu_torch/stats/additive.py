@@ -64,7 +64,7 @@ def compute_additive_stats(bases, X: torch.Tensor, y: torch.Tensor) -> AdditiveS
     yty = torch.sum(torch.square(yf))
     n = torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device)
 
-    kuf_y = torch.cat([_stats_sorted(bases[d], *evals[d], yf)[0] for d in range(D)])
+    kuf_y = torch.cat([_stats_sorted(bases[d].m, *evals[d], yf)[0] for d in range(D)])
 
     offs = [0]
     for b in bases:

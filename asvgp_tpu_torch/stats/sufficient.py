@@ -50,12 +50,12 @@ def _prefix_sums(values):
     return torch.cat([zero, (within + before[:, :, None]).reshape(p, -1)[:, :n]], dim=1)
 
 
-def _stats_sorted(basis, vals, start, yf) -> tuple:
-    """Scatter-free Kuf·y and banded Kuf·Kufᵀ: every per-point product is
-    summed per cell by one prefix sum and the cell boundaries."""
+def _stats_sorted(m: int, vals, start, yf) -> tuple:
+    """Scatter-free Kuf·y and banded Kuf·Kufᵀ of a basis of ``m`` functions:
+    every per-point product is summed per cell by one prefix sum and the
+    cell boundaries."""
     kp1 = vals.shape[1]
-    m = basis.m
-    n_cells = basis.n_cells
+    n_cells = m - kp1 + 1
     order = torch.argsort(start, stable=True)
     vals_s = vals[order]
     y_s = yf[order]
@@ -86,5 +86,18 @@ def compute_stats(basis, X: torch.Tensor, y: torch.Tensor) -> SufficientStats:
     vals, start = basis.evaluate_basis(X, dx=0)
     yty = torch.sum(torch.square(yf))
     n = torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device)
-    kuf_y, band = _stats_sorted(basis, vals, start, yf)
+    kuf_y, band = _stats_sorted(basis.m, vals, start, yf)
     return SufficientStats(kuf_y=kuf_y, kufkfu_band=band, yty=yty, n=n)
+
+
+def kuf_matvec(vals, start, y, m: int) -> torch.Tensor:
+    """Kuf·y (m,) from the structured-sparse Kuf (``vals`` (n, k+1),
+    ``start`` (n,), as ``make_kuf`` gives them), by the sorted prefix sums
+    of ``compute_stats``: the same bits on every run, on the GPU too."""
+    return _stats_sorted(m, vals, start, y.reshape(-1))[0]
+
+
+def kufkfu_band(vals, start, m: int) -> torch.Tensor:
+    """The lower band (k+1, m) of Kuf·Kufᵀ from the structured-sparse Kuf,
+    by the same sorted prefix sums."""
+    return _stats_sorted(m, vals, start, vals.new_zeros(vals.shape[0]))[1]

@@ -5,7 +5,8 @@ minibatch Adam and SVGP1D at the north-star shape — N = 10⁶ points from
 bench.py's generator, m = 10⁴ B3-spline features on [0, 1], Matérn-3/2 —
 GPRKron at the eNATL60
 protocol's shape (experiments/spatial_2d/ocean_ssh.py: N = 2·10⁶ 2-D
-points, 100 × 100 B4-spline features) and GPRAdditive at
+points, 100 × 100 B4-spline features; also through the protocol's torch
+leg) and at D = 3 (N = 10⁶, 20³ B3-spline features), GPRAdditive at
 ADDITIVE_PROBE.json's shape (tools/additive_probe.py: N = 5·10⁵ points in
 4 dimensions, 250 B3-spline features each, M = 1000), through the port's
 public entry points, on the card:
@@ -125,6 +126,23 @@ public entry points, on the card:
      evaluation, the posterior K9 = K11 = 4 and K16 = 8; K16 equal bit for
      bit to its plain version on the 8 diagonal blocks the step gave it,
      K9–K12 against theirs on the step's arguments (m = 250)
+  6q. the eNATL60 protocol's torch leg (experiments/spatial_2d/
+     ocean_ssh_torch.py, ``run``) at its full width with 10 iterations: its
+     ELBO, MSE and NLL held to tools/kron_anchors.py's values at GPRKron's
+     bars in 10 iterations and 12 evaluations, its artifact's keys the JAX
+     script's without relay_wait_s, each stage's launches exact
+  6r. GPRKron at D = 3 (tools/kron_nd_anchors.py's shape: 10⁶ points of a
+     3-D field, 3 × B3 of m = 20, so P has 20 block columns of dense 400 ×
+     400 blocks): the statistics (built twice: the same bits), the loss and
+     its gradient by backward(), fit_lbfgs (10 iterations, curv_rtol 10,
+     three times), the posterior, predictions on 10⁵ held-out points, MSE
+     and NLPD, all held to that script's values; predictions against a
+     posterior built by the plain versions on a CPU copy
+  6s. its proof: construction and prediction launch nothing, a step K9,
+     K10, K11, K12 three times each and K16 20 times, the fit that per
+     evaluation, the posterior K9 = K11 = 3 and K16 = 20; K16 at B = 400
+     equal bit for bit to its plain version on the step's 20 diagonal
+     blocks, K9–K12 within 1e-13 of theirs on the step's arguments
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K1, K2, K13, K14,
@@ -147,7 +165,11 @@ public entry points, on the card:
      alone at B = 128 with its bound, and the additive P's block route
      (log|P| + L⁻¹b, P⁻¹b + P⁻¹) against the library's yardstick on the
      same padded P (torch.linalg.cholesky + solve_triangular; + cholesky_solve
-     + torch.cholesky_inverse)
+     + torch.cholesky_inverse); at D = 3 the statistics, the step and its
+     backward, one block Cholesky of P, the fit per iteration, the
+     posterior and predict (with their busy shares), and K16 at B = 400 on
+     one block, on the 20 in one launch and as 20 launches, beside the
+     library pair on the same blocks, with its bound
 
 Every phase prints one JSON line; any failure raises.  The second-last
 line lists the kernels, the last line is the device record.  Run from the
@@ -158,7 +180,9 @@ repository root:
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import importlib.util
 import json
 import math
 import re
@@ -239,10 +263,17 @@ TOL_ADAM_LOSS = 1e-9   # relative, step-1 and step-20 losses
 TOL_ADAM_GRAD = 1e-8   # relative, each step-1 gradient component and final parameter
 TOL_SVGP_LOSS = 1e-9   # relative, step-1 and step-20 losses
 
+# the profiled calls a step's busy share is read over; two keep the trace of
+# a Kron step (≈ 8000 device operations a call) short
+PROFILE_REPS = 2
+
 # H100 SXM data sheet: HBM3 bandwidth and the FP64 and FP32 (non-tensor-core)
 # peaks; the sweeps' arithmetic is scalar fma
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
+# FP64 on the tensor cores: the rate of K16's dense Cholesky and triangular
+# inverse, which are matmul-shaped
+PEAK_FP64_TC_PER_S = 67e12
 PEAK_FP32_PER_S = 67e12
 
 KERNELS = {
@@ -409,6 +440,64 @@ ADD_STEP = {"chol_fwd": ADD_D, "chol_bwd": ADD_D, "tak_fwd": ADD_D, "tak_bwd": A
             "chol_inv_dense": ADD_NB}
 ADD_POSTERIOR = {"chol_fwd": ADD_D, "tak_fwd": ADD_D, "chol_inv_dense": ADD_NB}
 
+# GPRKron at D = 3 (tools/kron_nd_anchors.py's shape): synthetic_field_3d(N_ND
+# + N_ND_TEST) from ND_SEED, the first N_ND_TEST points held out,
+# ND_D × BSplineBasis(0, 1, ND_M, ND_ORDER) (M = 8000 features, ND_M block
+# columns of dense blocks of side ND_B = 400), ND_D × Matern32(ℓ = 0.2),
+# noise 0.1; only the iteration count is cut (10)
+N_ND, N_ND_TEST, ND_SEED = 1_000_000, 100_000, 2024
+ND_D, ND_M, ND_ORDER, ND_ELL, ND_NOISE = 3, 20, 3, 0.2, 0.1
+ND_B = ND_M ** (ND_D - 1)
+# the same model built by the JAX package on a CPU in float64
+# (tools/kron_nd_anchors.py on the GPU machine's CPU): the statistics as
+# stat_summary gives them, the loss and its gradient at the initial
+# parameters (order: kernels[d] ℓ and σ² for d = 0..2, noise),
+# fit_lbfgs(max_iters=10, curv_rtol=10.0), and the MSE and NLPD of its
+# posterior on the held-out points.  With the statistics or each Kuu band
+# perturbed by 1e-15 relative (``--spread``) these move by ≤ 1.4e-13 (loss),
+# ≤ 7.1e-13 (each gradient component), ≤ 9.2e-15 (fit), ≤ 7.6e-16 (MSE,
+# NLPD), in the same 10 iterations and 12 evaluations: GPRKron's bars hold
+ANCHOR_ND = {
+    "stats": {
+        "kuf_y": {"sum": -29972.848955179623, "abs_sum": 722112.3694239776,
+                  "sumsq": 140907577.3625167, "proj": -2563.0221672881016,
+                  "proj_abs": 565118.9268311497},
+        "t_band": {"sum": 739522.2476334567, "abs_sum": 739522.2476334567,
+                   "sumsq": 7095418.076303582, "proj": 5945.407147247732,
+                   "proj_abs": 590953.8753723652},
+        "yty": 729212.2049221199,
+        "n": 1000000.0,
+    },
+    "loss": 580713.6943829674,
+    "grad": (178188.11174145513, 479444.2443951602, 178735.0353435378,
+             479444.2443951554, 178177.08600719162, 479444.2443951453,
+             -293541.9518282401),
+    "fit_loss": -852009.637113552, "fit_iters": 10, "fit_evals": 12,
+    "mse": 0.00993946808153179,
+    "nlpd": -0.8865584164779218,
+}
+# relative limits (PERF.md §2): GPRKron's bars at D = 2
+TOL_ND = {"stats": 1e-10, "loss": 1e-9, "grad": 1e-8, "fit": 1e-8, "mse": 1e-8, "nlpd": 1e-8}
+# a step factors each Kuu_d and takes its Takahashi band forward (K9, K11)
+# and backward (K10, K12), and runs K16 once per block column of P (ND_M);
+# the posterior the same without the backward
+ND_STEP = {"chol_fwd": ND_D, "chol_bwd": ND_D, "tak_fwd": ND_D, "tak_bwd": ND_D,
+           "chol_inv_dense": ND_M}
+ND_POSTERIOR = {"chol_fwd": ND_D, "tak_fwd": ND_D, "chol_inv_dense": ND_M}
+# timed fits after the warm-up one (a D = 3 fit takes seconds)
+ND_FIT_REPS = 2
+
+# the eNATL60 protocol's torch leg (experiments/spatial_2d/ocean_ssh_torch.py)
+# at its defaults with 10 iterations: held to the GPRKron anchors above
+ENATL_LEG = Path(__file__).resolve().parent / "experiments" / "spatial_2d" / "ocean_ssh_torch.py"
+ENATL_ITERS = 10
+# the JAX script's artifact keys without relay_wait_s
+ENATL_KEYS = {
+    "n_train", "n_test", "features", "order", "device", "elbo", "iters", "grad_norm",
+    "converged", "opt_info", "mse", "nll", "timings_s", "opt_phases_s", "stats_phases_s",
+    "pred_phases_s", "cpu_f64_baseline",
+}
+
 # the solves K13/K14 and the float32 kernels K17-K22 against their plain
 # versions on random bands at PARITY_M (phase 6j), relative to the largest
 # entry: the float64 solves at the float64 sweeps' bar (TOL_PARITY_ADJOINT);
@@ -537,8 +626,13 @@ F32_POSTERIOR = {"chol_fwd_f32": 2, "tak_fwd_f32": 2, "solve_lower_f32": 1,
                  "solve_upper_t_f32": 1}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - _T0, 2), **fields}),
+          flush=True)
 
 
 def bench_data(n: int, seed: int):
@@ -1013,19 +1107,19 @@ def route_step(device, model, route: str, want: dict):
     return loss, grads, read_launches(device, route, want)
 
 
-def fit_runs(device, model, route: str, per_eval: dict, **kwargs) -> dict:
-    """``fit_lbfgs`` REPS + 1 times from the model's parameters, each on
+def fit_runs(device, model, route: str, per_eval: dict, reps: int = REPS, **kwargs) -> dict:
+    """``fit_lbfgs`` ``reps`` + 1 times from the model's parameters, each on
     fresh counters: each kernel of ``per_eval`` must launch that many times
     per evaluation and nothing else at all.  The first run is the warm-up;
     the times (host clock, the fit syncs once per evaluation) are of the
-    other REPS."""
+    other ``reps``."""
     from asvgp_tpu_torch.banded import core
     from asvgp_tpu_torch.train import fit_lbfgs
     from asvgp_tpu_torch.train.lbfgs import tree_map
 
     start = model.params()
     runs = []
-    for _ in range(REPS + 1):
+    for _ in range(reps + 1):
         info = {}
         core.reset_counters()
         torch.cuda.synchronize(device)
@@ -1218,38 +1312,53 @@ def per_dim_value_and_grad(model) -> tuple[float, list]:
     return float(loss.detach()), grads + [float(model.raw_noise_variance.grad)]
 
 
-def kron_path(device) -> dict:
-    """Phases 6h and 6i: GPRKron at the eNATL60 protocol's shape, each stage
-    on fresh counters: the statistics (built twice), one value-and-grad
-    step (the diagonal blocks K16 got kept), fit_lbfgs REPS + 1 times, the
-    posterior at the fitted parameters, predictions, MSE and NLPD, and the
-    same predictions from a posterior built by the plain versions on a CPU
-    copy."""
+def synthetic_field_3d(n: int, seed: int = ND_SEED):
+    """tools/kron_nd_anchors.py's 3-D field on (0.02, 0.98)³, noise 0.1:
+    f = sin(6u + 2v) + ½ cos(5w) sin(4v) + 0.3 sin(11uw + 1)."""
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(0.02, 0.98, (n, 3))
+    u, v, w = X[:, 0], X[:, 1], X[:, 2]
+    f = np.sin(6 * u + 2 * v) + 0.5 * np.cos(5 * w) * np.sin(4 * v) + 0.3 * np.sin(11 * u * w + 1)
+    return X, (f + 0.1 * rng.randn(n)).reshape(-1, 1)
+
+
+def kron_path(device, data, n_test: int, d: int, m: int, order: int, ell: float, noise: float,
+              step: dict, posterior: dict, fit_reps: int = REPS) -> dict:
+    """Phases 6h and 6i (D = 2) or 6r and 6s (D = 3): GPRKron on ``data``
+    with the first ``n_test`` points held out, ``d`` × BSplineBasis(0, 1,
+    m, order), ``d`` × Matern32(ℓ = ell), each stage on fresh counters: the
+    statistics (built twice), one value-and-grad step (the arguments K16
+    and K9-K12 got kept) held to ``step``, fit_lbfgs ``fit_reps`` + 1 times,
+    the posterior at the fitted parameters held to ``posterior``,
+    predictions, MSE and NLPD, and the same predictions from a posterior
+    built by the plain versions on a CPU copy."""
     from asvgp_tpu_torch.banded import block, core, single
     from asvgp_tpu_torch.basis import BSplineBasis
     from asvgp_tpu_torch.models import GPRKron, Matern32
-    from asvgp_tpu_torch.stats import compute_kron_stats
+    from asvgp_tpu_torch.stats import compute_kron_stats, compute_kron_stats_nd
     from asvgp_tpu_torch.train import mse, nlpd
     from asvgp_tpu_torch.train.lbfgs import tree_map
 
-    X, y = synthetic_ssh(N_KRON + N_KRON_TEST)
-    Xtr, ytr = X[N_KRON_TEST:], y[N_KRON_TEST:]
-    Xte, yte = X[:N_KRON_TEST], y[:N_KRON_TEST]
-    bases = [BSplineBasis(0.0, 1.0, KRON_M, KRON_ORDER)] * 2
-    kernels = [Matern32(lengthscales=KRON_ELL), Matern32(lengthscales=KRON_ELL)]
+    X, y = data
+    Xtr, ytr = X[n_test:], y[n_test:]
+    Xte, yte = X[:n_test], y[:n_test]
+    bases = [BSplineBasis(0.0, 1.0, m, order)] * d
+    kernels = [Matern32(lengthscales=ell) for _ in range(d)]
+    where = f"GPRKron (D = {d})"
 
     core.reset_counters()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    model = GPRKron((Xtr, ytr), kernels, bases, noise_variance=KRON_NOISE, device=device)
+    model = GPRKron((Xtr, ytr), kernels, bases, noise_variance=noise, device=device)
     torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
-    build_launches = read_launches(device, "GPRKron construction", {})
+    build_launches = read_launches(device, f"{where} construction", {})
     xtr_d = torch.as_tensor(Xtr, device=device)
     ytr_d = torch.as_tensor(ytr, device=device)
-    again = compute_kron_stats(bases, xtr_d, ytr_d)
+    again = (compute_kron_stats if d == 2 else compute_kron_stats_nd)(bases, xtr_d, ytr_d)
     repeatable = bool(torch.equal(again.kuf_y, model.kuf_y)
                       and torch.equal(again.t_band, model.t_band))
+    del again
     summary = {"kuf_y": stat_summary(model.kuf_y), "t_band": stat_summary(model.t_band),
                "yty": float(model.yty), "n": float(model.n)}
 
@@ -1258,36 +1367,37 @@ def kron_path(device) -> dict:
     with capture(args, block, "chol_inv_dense"), capture(args, single, "chol_fwd", "chol_bwd",
                                                         "tak_fwd", "tak_bwd"):
         loss, grad = per_dim_value_and_grad(model)
-    step_launches = read_launches(device, "GPRKron value-and-grad step", KRON_STEP)
+    step_launches = read_launches(device, f"{where} value-and-grad step", step)
 
-    fit = fit_runs(device, model, "GPRKron fit", KRON_STEP, max_iters=10, curv_rtol=10.0)
+    fit = fit_runs(device, model, f"{where} fit", step, reps=fit_reps, max_iters=10,
+                   curv_rtol=10.0)
     params = fit["params_out"]
 
     core.reset_counters()
     post = model.posterior(params)
-    posterior_launches = read_launches(device, "GPRKron posterior", KRON_POSTERIOR)
+    posterior_launches = read_launches(device, f"{where} posterior", posterior)
     core.reset_counters()
     mean, var = post.predict_f(Xte, batch=PREDICT_BATCH)
     log_density = post.predict_log_density((Xte, yte), batch=PREDICT_BATCH)
     yte_d = torch.as_tensor(yte, device=device)
     score_mse, score_nlpd = float(mse(yte_d, mean)), float(nlpd(log_density))
-    predict_launches = read_launches(device, "GPRKron predict", {})
-    if not (mean.shape == var.shape == (N_KRON_TEST, 1)):
-        raise AssertionError(f"GPRKron predict_f shapes {tuple(mean.shape)}, {tuple(var.shape)}")
+    predict_launches = read_launches(device, f"{where} predict", {})
+    if not (mean.shape == var.shape == (n_test, 1)):
+        raise AssertionError(f"{where} predict_f shapes {tuple(mean.shape)}, {tuple(var.shape)}")
     if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
             and bool((var > 0).all())):
-        raise AssertionError("non-finite or non-positive GPRKron predictions")
+        raise AssertionError(f"non-finite or non-positive {where} predictions")
 
     cpu_model = copy.deepcopy(model).to("cpu")
     t0 = time.perf_counter()
     cpu_post = cpu_model.posterior(tree_map(lambda v: v.cpu(), params))
     cpu_posterior_s = time.perf_counter() - t0
     mean_c, var_c = cpu_post.predict_f(Xte, batch=PREDICT_BATCH)
+    del cpu_model, cpu_post
     return {
         "model": model, "post": post, "params": params, "x_test": torch.as_tensor(Xte, device=device),
         "xy_train": (xtr_d, ytr_d), "build_s": build_s, "stats_repeatable": repeatable,
-        "stats": summary, "stats_rel": stats_errors(summary, ANCHOR_KRON_STATS),
-        "loss": loss, "grad": grad, "args": args, "fit": fit,
+        "stats": summary, "loss": loss, "grad": grad, "args": args, "fit": fit,
         "mse": score_mse, "nlpd": score_nlpd, "min_var": float(var.min()),
         "mean_rel_vs_cpu": rel_err(mean, mean_c), "var_rel_vs_cpu": rel_err(var, var_c),
         "cpu_plain_posterior_s": cpu_posterior_s,
@@ -1295,6 +1405,45 @@ def kron_path(device) -> dict:
                      "fit": fit["launches"], "posterior": posterior_launches,
                      "predict": predict_launches},
     }
+
+
+def enatl_leg(device) -> dict:
+    """Phase 6q: the eNATL60 protocol's torch leg (``ocean_ssh_torch.run``)
+    at its defaults with ENATL_ITERS iterations, each stage on fresh
+    counters: construction launches nothing, the fit KRON_STEP per
+    evaluation, the predict stage KRON_POSTERIOR (one posterior serves both
+    metrics).  Returns the artifact, the launches and host seconds per
+    stage."""
+    from asvgp_tpu_torch.banded import core
+
+    spec = importlib.util.spec_from_file_location("ocean_ssh_torch", ENATL_LEG)
+    leg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(leg)
+    args = leg.parser().parse_args(["--iters", str(ENATL_ITERS), "--device", str(device)])
+    launches, seconds = {}, {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        core.reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(device)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {n: core.LAUNCHES.get(n, 0) for n in KERNELS}
+        if core.PLAIN_CALLS.get("cuda", 0) != 0:
+            raise AssertionError(f"eNATL60 leg {name}: plain calls {dict(core.PLAIN_CALLS)}")
+
+    art = leg.run(args, stage=stage)
+    evals = art["opt_info"]["ls_evals"]
+    want = {"precompute": {}, "optimize": {n: c * evals for n, c in KRON_STEP.items()},
+            "predict": KRON_POSTERIOR}
+    for name, per in want.items():
+        expected = {n: per.get(n, 0) for n in KERNELS}
+        if launches[name] != expected:
+            raise AssertionError(f"eNATL60 leg {name}: launches {launches[name]}, "
+                                 f"expected {expected}")
+    return {"artifact": art, "launches": launches, "seconds": seconds}
 
 
 def probe_data(n: int, seed: int):
@@ -2696,11 +2845,18 @@ def bound(ops: int, nbytes: int, peak: float = PEAK_FP64_PER_S) -> dict:
     """The least time the card could take for ``ops`` operations moving
     ``nbytes`` (each input read once and each output written once): the
     bytes at the HBM rate against the operations at ``peak`` (the FP64 or
-    the FP32 rate, by the kernel's type); the larger one bounds."""
+    the FP32 rate by the kernel's type, the FP64 tensor-core rate for
+    K16); the larger one bounds."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def dense_block_bound(B: int) -> dict:
+    """K16's bound on one B×B block: its Cholesky and triangular inverse
+    are matmul-shaped, so its operations go at the FP64 tensor-core rate."""
+    return bound(dense_block_ops(B), dense_block_bytes(B), PEAK_FP64_TC_PER_S)
 
 
 def once_ms(fn) -> float:
@@ -2728,10 +2884,11 @@ def backward_ms(model, reps: int = REPS) -> dict:
 
 
 def device_profile(fn, reps: int = REPS) -> dict:
-    """Where a step's time goes: its wall time per call (host clock to a
-    synchronize, no profiler), the device time of its kernels and copies
-    per call (torch.profiler), their ratio (the device's busy share), the
-    device operations per call and the six largest by device time."""
+    """Where a step's time goes: its wall time per call over ``reps`` calls
+    (host clock to a synchronize, no profiler), the device time of its
+    kernels and copies per call over PROFILE_REPS profiled calls
+    (torch.profiler), their ratio (the device's busy share), the device
+    operations per call and the six largest by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2743,21 +2900,21 @@ def device_profile(fn, reps: int = REPS) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(PROFILE_REPS):
             fn()
         torch.cuda.synchronize()
     # the device's own entries (kernels, copies); a host op's entry repeats
     # the device time of what it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
-    ops = sum(e.count for e in events) / reps
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / PROFILE_REPS
+    ops = sum(e.count for e in events) / PROFILE_REPS
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms if device_ms > 0 else "not measured",
         "busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
         "device_ops": ops,
-        "top": [[e.key[:80], e.self_device_time_total / 1e3 / reps] for e in top],
+        "top": [[e.key[:80], e.self_device_time_total / 1e3 / PROFILE_REPS] for e in top],
     }
 
 
@@ -2995,7 +3152,9 @@ def main() -> None:
         raise AssertionError(f"K16 against its plain version: {k16}")
 
     # ---- phase 6h: GPRKron at the eNATL60 protocol's shape --------------------
-    kr = kron_path(device)
+    kr = kron_path(device, synthetic_ssh(N_KRON + N_KRON_TEST), N_KRON_TEST, 2, KRON_M,
+                   KRON_ORDER, KRON_ELL, KRON_NOISE, KRON_STEP, KRON_POSTERIOR)
+    kr["stats_rel"] = stats_errors(kr["stats"], ANCHOR_KRON_STATS)
     kfit = kr["fit"]
     kron_rel = {
         "stats": max(kr["stats_rel"].values()),
@@ -3282,13 +3441,101 @@ def main() -> None:
         for n, c in st["launches"].items():
             lr_launches[n] = lr_launches.get(n, 0) + c
 
+    # ---- phase 6q: the eNATL60 protocol's torch leg at full width ------------
+    leg = enatl_leg(device)
+    art = leg["artifact"]
+    leg_rel = {"elbo": rel(-art["elbo"], ANCHOR_KRON_FIT_LOSS),
+               "mse": rel(art["mse"], ANCHOR_KRON_MSE), "nll": rel(art["nll"], ANCHOR_KRON_NLPD)}
+    emit("6q_enatl_leg", card=smi, artifact=art, rel_err=leg_rel,
+         tol={"elbo": TOL_KRON_FIT, "mse": TOL_KRON_METRICS, "nll": TOL_KRON_METRICS},
+         launches=leg["launches"], stage_s=leg["seconds"])
+    if set(art) != ENATL_KEYS:
+        raise AssertionError(f"the eNATL60 leg's artifact keys: {sorted(set(art) ^ ENATL_KEYS)}")
+    if not (leg_rel["elbo"] <= TOL_KRON_FIT
+            and max(leg_rel["mse"], leg_rel["nll"]) <= TOL_KRON_METRICS
+            and art["iters"] == ANCHOR_KRON_FIT_ITERS
+            and art["opt_info"]["ls_evals"] == ANCHOR_KRON_FIT_EVALS):
+        raise AssertionError(f"the eNATL60 leg against the GPRKron anchors: {leg_rel}, "
+                             f"{art['iters']} iterations, {art['opt_info']['ls_evals']} evaluations")
+    leg_launches = {n: sum(st[n] for st in leg["launches"].values()) for n in KERNELS}
+
+    # ---- phase 6r: GPRKron at D = 3 ------------------------------------------
+    nd = kron_path(device, synthetic_field_3d(N_ND + N_ND_TEST), N_ND_TEST, ND_D, ND_M, ND_ORDER,
+                   ND_ELL, ND_NOISE, ND_STEP, ND_POSTERIOR, fit_reps=ND_FIT_REPS)
+    ndfit = nd["fit"]
+    nd_stats_rel = stats_errors(nd["stats"], ANCHOR_ND["stats"])
+    nd_rel = {
+        "stats": max(nd_stats_rel.values()),
+        "loss": rel(nd["loss"], ANCHOR_ND["loss"]),
+        "grad": max(rel(g, a) for g, a in zip(nd["grad"], ANCHOR_ND["grad"], strict=True)),
+        "fit": max(rel(v, ANCHOR_ND["fit_loss"]) for v in ndfit["losses"]),
+        "mse": rel(nd["mse"], ANCHOR_ND["mse"]),
+        "nlpd": rel(nd["nlpd"], ANCHOR_ND["nlpd"]),
+    }
+    emit("6r_kron_nd_path", card=smi, n=N_ND, n_test=N_ND_TEST, d=ND_D, m=ND_M, order=ND_ORDER,
+         block=ND_B, build_s=nd["build_s"], stats_repeatable=nd["stats_repeatable"],
+         stats=nd["stats"], stats_rel_err=nd_stats_rel, loss=nd["loss"], grad=nd["grad"],
+         fit_losses=ndfit["losses"], fit_iters=ndfit["iter_counts"],
+         fit_evals=ndfit["eval_counts"], fit_params=ndfit["params"], mse=nd["mse"],
+         nlpd=nd["nlpd"], min_var=nd["min_var"], mean_rel_vs_cpu=nd["mean_rel_vs_cpu"],
+         var_rel_vs_cpu=nd["var_rel_vs_cpu"], cpu_plain_posterior_s=nd["cpu_plain_posterior_s"],
+         rel_err=nd_rel, tol=TOL_ND)
+    if not nd["stats_repeatable"]:
+        raise AssertionError("a second D = 3 stats build from the same data gave other bits")
+    bad = {key: v for key, v in nd_rel.items() if not v <= TOL_ND[key]}
+    if bad or set(ndfit["iter_counts"]) != {ANCHOR_ND["fit_iters"]} \
+            or set(ndfit["eval_counts"]) != {ANCHOR_ND["fit_evals"]}:
+        raise AssertionError(f"GPRKron at D = 3 against its anchors: {bad}; fits in "
+                             f"{ndfit['iter_counts']} iterations, {ndfit['eval_counts']} "
+                             f"evaluations")
+    if not max(nd["mean_rel_vs_cpu"], nd["var_rel_vs_cpu"]) <= TOL_PREDICT:
+        raise AssertionError(f"D = 3 predictions differ from the plain CPU ones: "
+                             f"{nd['mean_rel_vs_cpu']}, {nd['var_rel_vs_cpu']}")
+
+    # ---- phase 6s: proof of the D = 3 path; K16 at B = 400, K9-K12 -----------
+    # held exactly in kron_path: construction and predict nothing; a step
+    # K9 = K10 = K11 = K12 = ND_D and K16 = ND_M; the fit that per
+    # evaluation; the posterior K9 = K11 = ND_D and K16 = ND_M.  K16 equal
+    # bit for bit to its plain version on the step's ND_M diagonal blocks of
+    # side ND_B; K9-K12 within TOL_PARITY_ADJOINT of theirs on the step's
+    # arguments
+    nd_blocks = [a[0] for a in nd["args"]["chol_inv_dense"]]
+    nd_host = torch.stack([blk.cpu() for blk in nd_blocks])
+    nd_eig = torch.linalg.eigvalsh(nd_host)
+    nd_plain = dense_block.chol_inv_dense_plain(nd_host)
+    nd_k16 = {"chol_inv_dense_rel": 0.0, "chol_inv_dense_abs": 0.0}
+    nd_k16_equal = len(nd_blocks) == ND_M and all(blk.shape == (ND_B, ND_B) for blk in nd_blocks)
+    for i, blk in enumerate(nd_blocks):
+        got, want = dense_block.chol_inv_dense(blk), (nd_plain[0][i], nd_plain[1][i])
+        nd_k16_equal &= all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        errs = _errs("chol_inv_dense", got, want)
+        nd_k16 = {key: max(nd_k16[key], errs[key]) for key in nd_k16}
+    del nd_host, nd_plain
+    nd_single = adjoint_parity({n: nd["args"][n] for n in ("chol_fwd", "chol_bwd", "tak_fwd",
+                                                           "tak_bwd")})
+    emit("6s_proof_of_kron_nd_path", card=smi, launches=nd["launches"],
+         k16_blocks=len(nd_blocks), k16_block_size=ND_B,
+         k16_max_kappa=float((nd_eig[:, -1] / nd_eig[:, 0]).max()), k16_bit_equal=nd_k16_equal,
+         **nd_k16, **nd_single, calls={n: len(a) for n, a in nd["args"].items()},
+         tol=TOL_PARITY_ADJOINT)
+    if not nd_k16_equal:
+        raise AssertionError(f"K16 on the D = 3 step's {len(nd_blocks)} diagonal blocks is not "
+                             f"its plain version bit for bit: {nd_k16}")
+    check_parity(nd_single, TOL_PARITY_ADJOINT, "of K9-K12 on the D = 3 step's arguments")
+    nd_launches = nd["launches"]["step"]
+
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
     from asvgp_tpu_torch.features.spline_features import make_kuu
     from asvgp_tpu_torch.models import additive
     from asvgp_tpu_torch.models.kron import _p_blocks as kron_p_blocks
-    from asvgp_tpu_torch.stats import compute_additive_stats, compute_kron_stats, compute_stats
+    from asvgp_tpu_torch.stats import (
+        compute_additive_stats,
+        compute_kron_stats,
+        compute_kron_stats_nd,
+        compute_stats,
+    )
 
     model, post, xt = run["model"], run["posterior"], run["x_test"]
     tmodel = tr["model"]
@@ -3367,6 +3614,35 @@ def main() -> None:
         core.reset_counters()
         block.cholesky_block_banded(p_blocks)
     read_launches(device, "one block Cholesky", {"chol_inv_dense": KRON_M})
+
+    # GPRKron at D = 3: one block Cholesky of P (ND_M blocks of side ND_B);
+    # K16 on the step's first diagonal block, on all ND_M in one launch and
+    # as ND_M launches back to back, against the library pair on the same
+    # blocks
+    ndmodel, ndpost, ndparams = nd["model"], nd["post"], nd["params"]
+    with torch.no_grad():
+        kernels_n, lik_n = ndmodel._build()
+        kuu_n = [make_kuu(kk, bb) for kk, bb in zip(kernels_n, ndmodel.bases)]
+        p_blocks_nd = kron_p_blocks(ndmodel.bases, kuu_n, lik_n.variance, ndmodel.t_band)
+        core.reset_counters()
+        block.cholesky_block_banded(p_blocks_nd)
+    read_launches(device, "one D = 3 block Cholesky", {"chol_inv_dense": ND_M})
+    nblk = nd_blocks[0]
+    nblk_batch = torch.stack(nd_blocks)
+    eye_b400 = torch.eye(ND_B, dtype=nblk.dtype, device=device)
+    calls[f"chol_inv_dense_b{ND_B}"] = (lambda: dense_block.chol_inv_dense(nblk),
+                                        lambda: dense_block.chol_inv_dense_plain(nblk))
+
+    def k16_chain():
+        for blk in nd_blocks:
+            dense_block.chol_inv_dense(blk)
+
+    def library_b400(blk):
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(blk), eye_b400, upper=False)
+
+    def library_chain():
+        for blk in nd_blocks:
+            library_b400(blk)
 
     # GPRAdditive: K16 on the step's first diagonal block (B = 128) and on
     # all ADD_NB of them; P at the model's parameters through the block
@@ -3483,6 +3759,19 @@ def main() -> None:
         "chol_inv_dense_b128_library": cuda_ms(
             lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(ablk), eye_b128,
                                                   upper=False)),
+        "kron_nd_stats_build": cuda_ms(lambda: compute_kron_stats_nd(ndmodel.bases,
+                                                                     *nd["xy_train"])),
+        "kron_nd_value_and_grad": cuda_ms(lambda: per_dim_value_and_grad(ndmodel)),
+        "kron_nd_backward": backward_ms(ndmodel),
+        "kron_nd_block_cholesky": cuda_ms(lambda: block.cholesky_block_banded(p_blocks_nd)),
+        "kron_nd_posterior": cuda_ms(lambda: ndmodel.posterior(ndparams)),
+        "kron_nd_predict_1e5": cuda_ms(lambda: ndpost.predict_f(nd["x_test"],
+                                                                batch=PREDICT_BATCH)),
+        f"chol_inv_dense_b{ND_B}_batch{ND_M}": cuda_ms(
+            lambda: dense_block.chol_inv_dense(nblk_batch)),
+        f"chol_inv_dense_b{ND_B}_chain{ND_M}": cuda_ms(k16_chain),
+        f"chol_inv_dense_b{ND_B}_library": cuda_ms(lambda: library_b400(nblk)),
+        f"chol_inv_dense_b{ND_B}_library_chain{ND_M}": cuda_ms(library_chain),
     }
     for name, (kernel_fn, _) in calls.items():
         times[name] = cuda_ms(kernel_fn)
@@ -3513,7 +3802,11 @@ def main() -> None:
         *((name, calls[name][0]) for name in add_k9_k12),
         ("chol_inv_dense_b128_batch8", lambda: dense_block.chol_inv_dense(ablk_batch)),
         ("additive_p_block_logdet_halfsolve", add_block_halfsolve),
-        ("additive_p_library_cholesky_solve_triangular", add_library_halfsolve)]
+        ("additive_p_library_cholesky_solve_triangular", add_library_halfsolve),
+        (f"chol_inv_dense_b{ND_B}", calls[f"chol_inv_dense_b{ND_B}"][0]),
+        (f"chol_inv_dense_b{ND_B}_batch{ND_M}", lambda: dense_block.chol_inv_dense(nblk_batch)),
+        (f"chol_inv_dense_b{ND_B}_library", lambda: library_b400(nblk)),
+        ("kron_nd_block_cholesky", lambda: block.cholesky_block_banded(p_blocks_nd))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
         if ((name in partitioned or name in stages)
@@ -3537,24 +3830,24 @@ def main() -> None:
                              f"plain calls {dict(core.PLAIN_CALLS)}")
     emit("7_plain_versions_launch_nothing", launches=dict(core.LAUNCHES),
          plain_calls=dict(core.PLAIN_CALLS))
-    profiles = {
-        "value_and_grad_twisted": device_profile(lambda: value_and_grad(tmodel)),
-        "value_and_grad_single_ended": device_profile(step_single),
-        "value_and_grad_snelson_m100": device_profile(lambda: value_and_grad(tr["snelson_model"])),
-        "kron_value_and_grad": device_profile(lambda: per_dim_value_and_grad(kmodel)),
-        "additive_value_and_grad": device_profile(lambda: per_dim_value_and_grad(amodel)),
-        "additive_posterior": device_profile(lambda: amodel.posterior(aparams)),
-        "additive_predict_1e5": device_profile(
-            lambda: apost.predict_f(ag["x_test"], batch=PREDICT_BATCH)),
+    profiled = {
+        "value_and_grad_twisted": lambda: value_and_grad(tmodel),
+        "value_and_grad_single_ended": step_single,
+        "value_and_grad_snelson_m100": lambda: value_and_grad(tr["snelson_model"]),
+        "kron_value_and_grad": lambda: per_dim_value_and_grad(kmodel),
+        "additive_value_and_grad": lambda: per_dim_value_and_grad(amodel),
+        "additive_posterior": lambda: amodel.posterior(aparams),
+        "additive_predict_1e5": lambda: apost.predict_f(ag["x_test"], batch=PREDICT_BATCH),
+        "kron_nd_value_and_grad": lambda: per_dim_value_and_grad(ndmodel),
+        "kron_nd_posterior": lambda: ndmodel.posterior(ndparams),
+        "kron_nd_predict_1e5": lambda: ndpost.predict_f(nd["x_test"], batch=PREDICT_BATCH),
+        "f32_value_and_grad": lambda: value_and_grad(f32_model),
     }
-    for name, prof in profiles.items():
-        emit("7_profile", what=name, card=smi, **prof)
-    profiles_f32 = {"f32_value_and_grad": device_profile(lambda: value_and_grad(f32_model))}
-    for name, prof in profiles_f32.items():
-        emit("7_profile", what=name, card=smi, **prof)
+    for name, fn in profiled.items():
+        emit("7_profile", what=name, card=smi, **device_profile(fn))
     for name, run_fit in (("fit_north_star", fit), ("fit_snelson", sn_fit),
                           ("fit_exact_snelson", ex_fit), ("fit_kron", kfit),
-                          ("fit_additive", afit)):
+                          ("fit_additive", afit), ("fit_kron_nd", ndfit)):
         emit("7_time", what=name, card=smi, median_ms_per_iter=run_fit["ms_per_iter"],
              ms_per_iter=run_fit["ms_per_iter_all"], evals=run_fit["info"]["ls_evals"],
              evals_per_iter=run_fit["info"].get("evals_per_iter"))
@@ -3599,15 +3892,17 @@ def main() -> None:
         del dense, lhs
     torch.cuda.empty_cache()
     # K16 at the additive path's B = 128: the lower triangle read and the
-    # two B×B outputs written, against its operations at the FP64 rate
+    # two B×B outputs written, against its operations at the FP64
+    # tensor-core rate
     b128 = ablk.shape[0]
-    emit("7_bound", what="chol_inv_dense", B=b128,
-         **bound(dense_block_ops(b128), dense_block_bytes(b128)))
+    emit("7_bound", what="chol_inv_dense", B=b128, **dense_block_bound(b128))
+    # and at the D = 3 path's B = 400
+    emit("7_bound", what="chol_inv_dense", B=ND_B, **dense_block_bound(ND_B))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "chol_inv_dense":
             shape = {"B": blk.shape[0]}
-            bnd = bound(dense_block_ops(blk.shape[0]), dense_block_bytes(blk.shape[0]))
+            bnd = dense_block_bound(blk.shape[0])
         else:
             shape = {"k": k, "m": m}
             ins, outs = io[name]
@@ -3629,6 +3924,8 @@ def main() -> None:
             "library_ms": library_ms.get(name),
             "launches_additive_step": add_launches[name],
             "launches_protocol": lr_launches.get(name, 0),
+            "launches_enatl_leg": leg_launches[name],
+            "launches_kron_nd_step": nd_launches[name],
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -94,3 +94,15 @@ def test_partition_of_unity():
     vals, _ = basis.evaluate_basis(x)
     torch.testing.assert_close(vals.sum(1), torch.ones(100, dtype=torch.float64), rtol=0, atol=1e-14)
 
+
+
+@pytest.mark.parametrize("order,dx", [(1, 0), (3, 0), (3, 2), (6, 1)])
+def test_evaluate_basis_dense_matches_jax(order, dx):
+    ours = BSplineBasis(-0.5, 3.0, 2 * order + 7, order)
+    ref = JBasis(-0.5, 3.0, 2 * order + 7, order)
+    x = _points(ours, 61, seed=order + 100 * dx)
+    got = ours.evaluate_basis_dense(torch.from_numpy(x), dx)
+    want = np.asarray(ref.evaluate_basis_dense(jnp.asarray(x), dx))
+    assert got.shape == want.shape == (ours.m, x.shape[0]) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    np.testing.assert_array_equal(got.numpy() != 0, want != 0)

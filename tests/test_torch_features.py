@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from asvgp_tpu.basis import BSplineBasis as JBasis
+from asvgp_tpu.features.spline_features import kuf_to_dense as jkuf_to_dense
 from asvgp_tpu.features.spline_features import make_kuf as jmake_kuf
 from asvgp_tpu.features.spline_features import make_kuu as jmake_kuu
 from asvgp_tpu.features.spline_features import validate_kernel_basis as jvalidate
@@ -21,7 +22,7 @@ from asvgp_tpu.models.parameters import positive as jpositive
 from asvgp_tpu.models.parameters import positive_inverse as jpositive_inverse
 from asvgp_tpu_torch.basis import BSplineBasis
 from asvgp_tpu_torch.features import SplineFeatures1D, make_kuf, make_kuu
-from asvgp_tpu_torch.features.spline_features import validate_kernel_basis
+from asvgp_tpu_torch.features.spline_features import kuf_to_dense, validate_kernel_basis
 from asvgp_tpu_torch.models import Gaussian, Matern, Matern12, Matern32, Matern52
 from asvgp_tpu_torch.models.parameters import positive, positive_inverse
 
@@ -95,3 +96,11 @@ def test_positive_roundtrip_matches_jax(value):
     np.testing.assert_allclose(raw.item(), float(jpositive_inverse(value)), rtol=1e-14)
     np.testing.assert_allclose(positive(raw).item(), value, rtol=1e-13)
     np.testing.assert_allclose(positive(raw).item(), float(jpositive(jnp.asarray(raw.item()))), rtol=1e-15)
+
+
+def test_kuf_to_dense_matches_jax():
+    x = np.random.RandomState(4).uniform(0.01, 0.99, 45)
+    got = kuf_to_dense(BSplineBasis(0.0, 1.0, 17, 4), torch.from_numpy(x))
+    want = np.asarray(jkuf_to_dense(JBasis(0.0, 1.0, 17, 4), jnp.asarray(x)))
+    assert got.shape == want.shape == (17, 45)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())

@@ -204,9 +204,6 @@ def test_validation_errors():
         GPRKron((X * 1.1, y), kernels, bases, device="cpu")
     with pytest.raises(ValueError, match="order"):
         GPRKron((X, y), [Matern52(), Matern32()], _bases("o24", BSplineBasis), device="cpu")
-    X3 = np.random.RandomState(0).uniform(0.1, 0.9, (50, 3))
-    with pytest.raises(NotImplementedError, match="D >= 3"):
-        GPRKron((X3, y), kernels + [Matern32()], bases + bases[:1], device="cpu")
     model = GPRKron((X, y), kernels, bases, device="cpu")
     with pytest.raises(NotImplementedError):
         model.predict_f(X, full_cov=True)

@@ -17,7 +17,7 @@ from asvgp_tpu.stats.sufficient import compute_stats as jcompute_stats
 from asvgp_tpu.stats.sufficient import kufkfu_band as jkufkfu_band
 from asvgp_tpu.stats.sufficient import kuf_matvec as jkuf_matvec
 from asvgp_tpu_torch.basis import BSplineBasis
-from asvgp_tpu_torch.stats import SufficientStats, compute_stats
+from asvgp_tpu_torch.stats import SufficientStats, compute_stats, kuf_matvec, kufkfu_band
 from asvgp_tpu_torch.stats.sufficient import _prefix_sums
 
 
@@ -74,3 +74,20 @@ def test_prefix_sums(n):
     assert got.shape == (3, n + 1)
     # two-level order of summation: a few ulps of the running magnitude
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13 * np.abs(v).sum())
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_kuf_matvec_and_kufkfu_band_match_jax(order):
+    """The public structured-Kuf products against the JAX package's
+    scatter-add forms, on points that leave cells empty."""
+    rng = np.random.RandomState(order)
+    x = np.concatenate([rng.uniform(0.05, 0.3, 70), rng.uniform(0.6, 0.95, 50)])
+    y = rng.randn(x.shape[0])
+    m = 30
+    vals, start = BSplineBasis(0.0, 1.0, m, order).evaluate_basis(torch.from_numpy(x))
+    jvals, jstart = JBasis(0.0, 1.0, m, order).evaluate_basis(jnp.asarray(x))
+    got_y = kuf_matvec(vals, start, torch.from_numpy(y), m)
+    got_band = kufkfu_band(vals, start, m)
+    assert got_y.shape == (m,) and got_band.shape == (order + 1, m)
+    _close(got_y, jkuf_matvec(jvals, jstart, jnp.asarray(y), m))
+    _close(got_band, jkufkfu_band(jvals, jstart, m))

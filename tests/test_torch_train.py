@@ -273,6 +273,21 @@ def test_exact_gp_matches_jax(params):
                                atol=1e-10 * float(np.max(np.abs(jvar))))
 
 
+def test_exact_gp_predict_log_density_matches_jax():
+    X, y, Xt = snelson()
+    yt = np.sin(Xt[:40])
+    model = ExactGPR((X, y), Matern32(), device="cpu")
+    jmodel = JExactGPR((jnp.asarray(X), jnp.asarray(y)), JMatern32())
+    params = {"kernel": {"raw_lengthscales": np.float64(0.3), "raw_variance": np.float64(-0.4)},
+              "likelihood": {"raw_variance": np.float64(-1.5)}}
+    model.load_jax_params(params)
+    got = model.predict_log_density((Xt[:40], yt))
+    want = np.asarray(jmodel.predict_log_density(jax.tree.map(jnp.asarray, params),
+                                                 (jnp.asarray(Xt[:40]), jnp.asarray(yt))))
+    assert got.shape == want.shape == (40, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10 * float(np.max(np.abs(want))))
+
+
 def test_exact_gp_fit_matches_jax():
     X, y, _ = snelson()
     model = ExactGPR((X, y), Matern32(), device="cpu")
