@@ -40,7 +40,11 @@ from asvgp_tpu_torch.models.per_dimension import (
     check_domain,
     params_to_kernels,
 )
-from asvgp_tpu_torch.stats.additive import AdditiveStats, compute_additive_stats
+from asvgp_tpu_torch.stats.additive import (
+    AdditiveStats,
+    compute_additive_stats,
+    compute_additive_stats_sharded,
+)
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
@@ -175,10 +179,13 @@ class GPRAdditive(PerDimensionGP):
     The hyperparameters as ``PerDimensionGP`` holds them, and the
     sufficient statistics (``kuf_y`` (M,), the dense ``kufkfu`` (M, M),
     ``yty``, ``n``) float64 buffers, all on ``device`` (default: the CUDA
-    device, raising without one; pass ``device="cpu"`` for the CPU).
+    device, raising without one; pass ``device="cpu"`` for the CPU).  With a
+    ``torch.distributed`` ``group`` (the JAX package's ``mesh``), ``data``
+    is this rank's shard and the statistics are summed over the group's
+    ranks.
     """
 
-    def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None):
+    def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None, group=None):
         super().__init__()
         X_in, y_in = data
         xv = X_in if isinstance(X_in, np.ndarray) else torch.as_tensor(X_in)
@@ -196,7 +203,8 @@ class GPRAdditive(PerDimensionGP):
         yf = torch.as_tensor(y_in, dtype=_F64, device=device).reshape(-1)
         if X.shape[0] != yf.shape[0]:
             raise ValueError("X and y must have the same number of points")
-        stats = compute_additive_stats(self.bases, X, yf)
+        stats = (compute_additive_stats(self.bases, X, yf) if group is None
+                 else compute_additive_stats_sharded(self.bases, X, yf, group))
         for name in ("kuf_y", "kufkfu", "yty", "n"):
             self.register_buffer(name, getattr(stats, name))
 

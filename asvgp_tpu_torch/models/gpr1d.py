@@ -45,7 +45,11 @@ from asvgp_tpu_torch.features.spline_features import (
 from asvgp_tpu_torch.models.kernels import Matern
 from asvgp_tpu_torch.models.likelihoods import Gaussian
 from asvgp_tpu_torch.models.parameters import positive, positive_inverse
-from asvgp_tpu_torch.stats.sufficient import SufficientStats, compute_stats
+from asvgp_tpu_torch.stats.sufficient import (
+    SufficientStats,
+    compute_stats,
+    compute_stats_sharded,
+)
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
@@ -275,9 +279,10 @@ class MaternGaussianModel(nn.Module):
         raw_var, raw_ell, raw_noise = self._raw(params)
         if self.dtype != _F64 and any(getattr(t, "dtype", None) != self.dtype
                                       for t in (raw_var, raw_ell, raw_noise)):
-            # fit_lbfgs and fit_adam_minibatch carry float64 parameters; a
-            # float32 model takes only its own dtype, so nothing promotes
-            # it to float64 on the way
+            # the trainers carry the dtype of the parameters they are given
+            # (init_params() of a float32 model is float32); a float32 model
+            # takes only its own dtype, so no float64 parameter promotes it
+            # to float64 on the way
             raise TypeError(f"a {self.dtype} model takes parameters of its own dtype")
         kernel = Matern(positive(raw_var), positive(raw_ell), nu2=self.nu2)
         return kernel, Gaussian(positive(raw_noise))
@@ -292,10 +297,15 @@ class GPR1D(MaternGaussianModel):
     float64; ``torch.float32``: the float32 model, see the module's
     docstring).  Construction computes the statistics there once, in
     float64, and casts them to ``dtype``.
+
+    ``group`` (a ``torch.distributed`` process group; the JAX package's
+    ``mesh``): ``data`` is this rank's shard (``parallel.shard_data``), and
+    the statistics are the sum over the group's ranks
+    (``compute_stats_sharded``); everything after them is as without it.
     """
 
     def __init__(self, data, kernel: Matern, basis: BSplineBasis, *,
-                 noise_variance=1.0, device=None, dtype=None):
+                 noise_variance=1.0, device=None, dtype=None, group=None):
         super().__init__()
         device = resolve_device(device)
         X_in, y_in = data
@@ -323,7 +333,8 @@ class GPR1D(MaternGaussianModel):
         self.basis = basis
         self._init_hyperparameters(kernel, noise_variance, device, dtype or _F64)
 
-        stats = compute_stats(basis, X, yf)
+        stats = (compute_stats(basis, X, yf) if group is None
+                 else compute_stats_sharded(basis, X, yf, group))
         for name in ("kuf_y", "kufkfu_band", "yty", "n"):
             self.register_buffer(name, getattr(stats, name).to(self.dtype))
 

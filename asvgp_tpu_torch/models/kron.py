@@ -42,11 +42,13 @@ from asvgp_tpu_torch.models.per_dimension import (
 from asvgp_tpu_torch.stats.kron import (
     KronStats,
     compute_kron_stats,
+    compute_kron_stats_sharded,
     t_band_to_blocks,
     t_band_trace_against_kron,
 )
 from asvgp_tpu_torch.stats.kron_nd import (
     compute_kron_stats_nd,
+    compute_kron_stats_nd_sharded,
     t_band_to_blocks_nd,
     t_band_trace_against_kron_nd,
 )
@@ -160,10 +162,12 @@ class GPRKron(PerDimensionGP):
     One Matérn kernel and one basis per input dimension; the hyperparameters
     as ``PerDimensionGP`` holds them, and the sufficient statistics float64
     buffers, all on ``device`` (default: the CUDA device, raising without
-    one; pass ``device="cpu"`` for the CPU).
+    one; pass ``device="cpu"`` for the CPU).  With a ``torch.distributed``
+    ``group`` (the JAX package's ``mesh``), ``data`` is this rank's shard
+    and the statistics are summed over the group's ranks.
     """
 
-    def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None):
+    def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None, group=None):
         super().__init__()
         X_in, y_in = data
         xv = X_in if isinstance(X_in, np.ndarray) else torch.as_tensor(X_in)
@@ -184,8 +188,12 @@ class GPRKron(PerDimensionGP):
         yf = torch.as_tensor(y_in, dtype=_F64, device=device).reshape(-1)
         if X.shape[0] != yf.shape[0]:
             raise ValueError("X and y must have the same number of points")
-        build = compute_kron_stats if D == 2 else compute_kron_stats_nd
-        stats = build(self.bases, X, yf)
+        if group is None:
+            build = compute_kron_stats if D == 2 else compute_kron_stats_nd
+            stats = build(self.bases, X, yf)
+        else:
+            build = compute_kron_stats_sharded if D == 2 else compute_kron_stats_nd_sharded
+            stats = build(self.bases, X, yf, group)
         self.register_buffer("kuf_y", stats.kuf_y)
         self.register_buffer("t_band", stats.t_band)
         self.register_buffer("yty", stats.yty)

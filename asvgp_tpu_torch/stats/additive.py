@@ -18,7 +18,12 @@ import dataclasses
 
 import torch
 
-from asvgp_tpu_torch.stats.sufficient import _prefix_sums, _stats_sorted
+from asvgp_tpu_torch.stats.sufficient import (
+    _prefix_sums,
+    _stats_sorted,
+    _totals,
+    all_reduce_stats,
+)
 
 
 @dataclasses.dataclass
@@ -53,16 +58,18 @@ def _cross_block(v_d, c_d, nc_d: int, m_d: int, v_e, c_e, nc_e: int, m_e: int) -
     return out
 
 
-def compute_additive_stats(bases, X: torch.Tensor, y: torch.Tensor) -> AdditiveStats:
+def compute_additive_stats(bases, X: torch.Tensor, y: torch.Tensor, w=None) -> AdditiveStats:
     """Sufficient statistics of (X (n, D), y) on their device, in their
     dtype: Kuf·y per dimension by the 1-D sorted path, and the dense
     KufKfu block by block (the upper blocks built, the lower ones their
-    transposes)."""
+    transposes).  ``w`` (n,) optionally weights the points (0/1), carried by
+    every dimension's basis weights as in the JAX package."""
     D = len(bases)
     yf = y.reshape(-1)
     evals = [b.evaluate_basis(X[:, d], dx=0) for d, b in enumerate(bases)]
-    yty = torch.sum(torch.square(yf))
-    n = torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device)
+    if w is not None:
+        evals = [(v * w[:, None], c) for v, c in evals]
+    yty, n = _totals(yf, w)
 
     kuf_y = torch.cat([_stats_sorted(bases[d].m, *evals[d], yf)[0] for d in range(D)])
 
@@ -80,3 +87,9 @@ def compute_additive_stats(bases, X: torch.Tensor, y: torch.Tensor) -> AdditiveS
             if e != d:
                 kk[offs[e]:offs[e + 1], offs[d]:offs[d + 1]] += blk.T
     return AdditiveStats(kuf_y=kuf_y, kufkfu=kk, yty=yty, n=n)
+
+
+def compute_additive_stats_sharded(bases, X, y, group, w=None) -> AdditiveStats:
+    """Data-parallel statistics: (X, y) (and the weights ``w``) are this
+    rank's shard, summed over ``group`` by one ``all_reduce``."""
+    return all_reduce_stats(compute_additive_stats(bases, X, y, w), group)

@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from asvgp_tpu_torch.stats.sufficient import _prefix_sums
+from asvgp_tpu_torch.stats.sufficient import _prefix_sums, _totals, all_reduce_stats
 
 
 @dataclasses.dataclass
@@ -40,10 +40,11 @@ def _pairs(k: int):
     return [(a, b) for a in range(k + 1) for b in range(a, k + 1)]
 
 
-def compute_kron_stats(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
+def compute_kron_stats(bases, X: torch.Tensor, y: torch.Tensor, w=None) -> KronStats:
     """Sufficient statistics of (X (n, 2), y) on their device, in their
     dtype: the batched pair-product build of the JAX package
-    (stats/kron.py:53-143)."""
+    (stats/kron.py:53-143).  ``w`` (n,) optionally weights the points (0/1),
+    folded into dimension 1's basis weights as the JAX package folds it."""
     b1, b2 = bases
     k1, k2 = b1.order, b2.order
     m1, m2 = b1.m, b2.m
@@ -53,8 +54,9 @@ def compute_kron_stats(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
 
     v1, c1 = b1.evaluate_basis(X[:, 0], dx=0)
     v2, c2 = b2.evaluate_basis(X[:, 1], dx=0)
-    yty = torch.sum(torch.square(yf))
-    n_t = torch.tensor(float(n), dtype=yf.dtype, device=yf.device)
+    if w is not None:
+        v1 = v1 * w[:, None]
+    yty, n_t = _totals(yf, w)
 
     # sort once by joint cell
     joint = c1 * nc2 + c2
@@ -100,6 +102,12 @@ def compute_kron_stats(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
                     j = p2idx[(min(s2, s2 + o2), max(s2, s2 + o2))]
                     acc[s1:s1 + nc1, s2:s2 + nc2] += grid[i * np2 + j]
     return KronStats(kuf_y=kuf_y.reshape(-1), t_band=t_band, yty=yty, n=n_t)
+
+
+def compute_kron_stats_sharded(bases, X, y, group, w=None) -> KronStats:
+    """Data-parallel statistics: (X, y) (and the weights ``w``) are this
+    rank's shard, summed over ``group`` by one ``all_reduce``."""
+    return all_reduce_stats(compute_kron_stats(bases, X, y, w), group)
 
 
 def t_band_trace_against_kron(t_band, s1_band, s2_band):

@@ -30,7 +30,7 @@ from itertools import product
 import torch
 
 from asvgp_tpu_torch.stats.kron import KronStats, _pairs
-from asvgp_tpu_torch.stats.sufficient import _prefix_sums
+from asvgp_tpu_torch.stats.sufficient import _prefix_sums, _totals, all_reduce_stats
 
 # series made and summed per cell at a time
 _BLOCK = 128
@@ -66,9 +66,11 @@ def _series_sums(factors, cell_sums) -> torch.Tensor:
     return torch.cat(out)
 
 
-def compute_kron_stats_nd(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
+def compute_kron_stats_nd(bases, X: torch.Tensor, y: torch.Tensor, w=None) -> KronStats:
     """Sufficient statistics of (X (n, D), y) on their device, in their
-    dtype: the JAX package's generic-D build (stats/kron_nd.py:39-162).
+    dtype: the JAX package's generic-D build (stats/kron_nd.py:39-162);
+    ``w`` (n,) optionally weights the points (0/1), folded into dimension
+    1's basis weights as there.
     ``kuf_y`` is flattened row-major over (m₁, …, m_D); ``t_band`` has
     shape (k₁+1, 2k₂+1, …, 2k_D+1, m₁, …, m_D)."""
     D = len(bases)
@@ -76,15 +78,14 @@ def compute_kron_stats_nd(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
     ms = [b.m for b in bases]
     ncs = [b.n_cells for b in bases]
     yf = y.reshape(-1)
-    n = yf.shape[0]
-    yty = torch.sum(torch.square(yf))
-    n_t = torch.tensor(float(n), dtype=yf.dtype, device=yf.device)
-
     vs, cs = [], []
     for d, b in enumerate(bases):
         v, c = b.evaluate_basis(X[:, d], dx=0)
         vs.append(v)
         cs.append(c)
+    if w is not None:
+        vs[0] = vs[0] * w[:, None]
+    yty, n_t = _totals(yf, w)
 
     # sort once by joint cell, row-major over the per-dimension cells
     joint = cs[0]
@@ -141,6 +142,12 @@ def compute_kron_stats_nd(bases, X: torch.Tensor, y: torch.Tensor) -> KronStats:
                 sl = tuple(slice(s[d], s[d] + ncs[d]) for d in range(D))
                 acc[sl] += grid[col_of(pi, nps)]
     return KronStats(kuf_y=kuf_y.reshape(-1), t_band=t_band, yty=yty, n=n_t)
+
+
+def compute_kron_stats_nd_sharded(bases, X, y, group, w=None) -> KronStats:
+    """Data-parallel statistics: (X, y) (and the weights ``w``) are this
+    rank's shard, summed over ``group`` by one ``all_reduce``."""
+    return all_reduce_stats(compute_kron_stats_nd(bases, X, y, w), group)
 
 
 def _shift_row(row: torch.Tensor, s: int) -> torch.Tensor:

@@ -1,6 +1,10 @@
 """Sufficient statistics: Kuf·y, banded Kuf·Kufᵀ, yᵀy — on the data's device.
 
-PyTorch counterpart of ``asvgp_tpu/stats/sufficient.py`` (single device).
+PyTorch counterpart of ``asvgp_tpu/stats/sufficient.py``.  Every statistic
+is a sum over data points, so data parallelism needs only a sum: each rank
+of a ``torch.distributed`` group builds the statistics of its own shard
+and one ``all_reduce`` adds them (``compute_stats_sharded``; the other
+families' sharded builds use the same ``all_reduce_stats``).
 Kuf is never materialized: each data point contributes its (order+1)
 contiguous basis weights.  The statistics are assembled in the sorted,
 scatter-free form of the JAX package: sort the points by mesh cell once,
@@ -80,14 +84,89 @@ def _stats_sorted(m: int, vals, start, yf) -> tuple:
     return kuf_y, band
 
 
-def compute_stats(basis, X: torch.Tensor, y: torch.Tensor) -> SufficientStats:
-    """Sufficient statistics of (X, y) on their device, in their dtype."""
+def _totals(yf, w):
+    """yᵀy and n of the points (y flat), weighted by ``w`` when given."""
+    if w is None:
+        return (torch.sum(torch.square(yf)),
+                torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device))
+    return torch.sum(w * torch.square(yf)), torch.sum(w)
+
+
+def compute_stats(basis, X: torch.Tensor, y: torch.Tensor, w=None) -> SufficientStats:
+    """Sufficient statistics of (X, y) on their device, in their dtype.
+
+    ``w`` (n,) optionally weights the points (0/1: padded points carry 0),
+    as the JAX package's ``_stats_local``: the basis weights carry it, so
+    Kuf·y is w-weighted and the band w²-weighted; yᵀy and n are Σ w·y² and
+    Σ w."""
     yf = y.reshape(-1)
     vals, start = basis.evaluate_basis(X, dx=0)
-    yty = torch.sum(torch.square(yf))
-    n = torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device)
+    if w is not None:
+        vals = vals * w[:, None]
+    yty, n = _totals(yf, w)
     kuf_y, band = _stats_sorted(basis.m, vals, start, yf)
     return SufficientStats(kuf_y=kuf_y, kufkfu_band=band, yty=yty, n=n)
+
+
+def all_reduce_stats(stats, group):
+    """The sum of a statistics dataclass over the ranks of ``group``: its
+    fields packed into one buffer, one ``all_reduce`` (SUM), unpacked.
+    Every rank gets the same sum."""
+    import torch.distributed as dist
+
+    if group is None:
+        raise ValueError("the sharded statistics need a process group")
+    fields = [f.name for f in dataclasses.fields(stats)]
+    parts = [getattr(stats, f) for f in fields]
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, lo = {}, 0
+    for f, p in zip(fields, parts):
+        out[f] = flat[lo:lo + p.numel()].view(p.shape)
+        lo += p.numel()
+    return type(stats)(**out)
+
+
+def rescale_stats(stats, n_total):
+    """The statistics of a batch scaled by N_total / n (every field, n
+    included): the stochastic collapsed bound's statistics."""
+    scale = torch.as_tensor(float(n_total), dtype=stats.n.dtype, device=stats.n.device) / stats.n
+    return type(stats)(**{f.name: getattr(stats, f.name) * scale
+                          for f in dataclasses.fields(stats)})
+
+
+def compute_stats_sharded(basis, X, y, group) -> SufficientStats:
+    """Data-parallel statistics: (X, y) is this rank's shard (see
+    ``parallel.shard_data``); its statistics are summed over ``group`` by
+    one ``all_reduce``.  A group of one rank gives ``compute_stats``'s bits."""
+    return all_reduce_stats(compute_stats(basis, X, y), group)
+
+
+def pad_for_sharding(X, y, num_shards: int):
+    """Pad (X, y) to a multiple of ``num_shards`` points; returns (X, y, w).
+
+    The padded points repeat X[0] with y = 0 and weight 0, so they stay
+    inside the basis' domain and add nothing to the weighted statistics
+    (``compute_stats_sharded_masked``).  X is (n,) / (n, 1), flattened, or
+    (n, D), padded by rows."""
+    x = torch.as_tensor(X)
+    if x.ndim != 2 or x.shape[1] == 1:
+        x = x.reshape(-1)
+    yf = torch.as_tensor(y).reshape(-1)
+    n = x.shape[0]
+    rem = (-n) % num_shards
+    w = x.new_ones(n + rem)
+    if rem:
+        x = torch.cat([x, x[:1].expand(rem, *x.shape[1:])])
+        yf = torch.cat([yf, yf.new_zeros(rem)])
+        w[n:] = 0.0
+    return x, yf, w
+
+
+def compute_stats_sharded_masked(basis, X, y, w, group) -> SufficientStats:
+    """``compute_stats_sharded`` with the 0/1 weights ``w`` of this rank's
+    shard (the padded points of ``pad_for_sharding`` carry 0)."""
+    return all_reduce_stats(compute_stats(basis, X, y, w), group)
 
 
 def kuf_matvec(vals, start, y, m: int) -> torch.Tensor:

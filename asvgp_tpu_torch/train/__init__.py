@@ -1,7 +1,8 @@
-"""Trainers (full-batch L-BFGS, minibatch Adam) and metrics (NLPD, MSE)."""
+"""Trainers (full-batch L-BFGS, minibatch Adam, optax's Adam as a functional
+optimizer for the data-parallel steps) and metrics (NLPD, MSE)."""
 
 from asvgp_tpu_torch.train.lbfgs import fit_lbfgs
-from asvgp_tpu_torch.train.adam import fit_adam_minibatch
+from asvgp_tpu_torch.train.adam import Adam, fit_adam_minibatch
 from asvgp_tpu_torch.train.metrics import mse, nlpd
 
-__all__ = ["fit_lbfgs", "fit_adam_minibatch", "mse", "nlpd"]
+__all__ = ["fit_lbfgs", "Adam", "fit_adam_minibatch", "mse", "nlpd"]

@@ -55,10 +55,14 @@ def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
               max_linesearch_steps: int = 30, curv_rtol: float = 0.9,
               ls_guess: str = "keep"):
     """Minimize ``loss_fn(params)`` over the ``params`` pytree (nested dicts,
-    lists and tuples of float64 tensors or numpy arrays) with L-BFGS and a
-    zoom line search.  Returns (params, final_loss, num_iters): the
-    parameters in the same tree, as tensors on the device of the given ones
-    (the CPU for numpy), the loss as a float.
+    lists and tuples of tensors or numpy arrays) with L-BFGS and a zoom line
+    search.  Returns (params, final_loss, num_iters): the parameters in the
+    same tree, as tensors on the device of the given ones (the CPU for
+    numpy), the loss as a float.
+
+    The fit runs in the parameters' dtype, as the JAX package's runs in
+    ``ravel_pytree``'s: all float32 leaves give a float32 fit (evaluation
+    point, gradient, controller and result), anything else float64.
 
     ``info``: optional dict; records ``grad_norm`` (final gradient norm),
     ``converged`` (grad_norm < tol), ``restarts`` (restarts used),
@@ -80,18 +84,19 @@ def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
     if len(devices) > 1:
         raise ValueError(f"all parameters must lie on one device, got {sorted(map(str, devices))}")
     device = devices.pop() if devices else torch.device("cpu")
-    host = [np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v, dtype=np.float64)
-            for v in leaves]
+    host = [np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v) for v in leaves]
+    dtype = np.float32 if all(a.dtype == np.float32 for a in host) else np.float64
+    tdtype = torch.float32 if dtype == np.float32 else torch.float64
     shapes = [a.shape for a in host]
     sizes = [a.size for a in host]
-    flat0 = np.concatenate([a.reshape(-1) for a in host])
+    flat0 = np.concatenate([a.reshape(-1).astype(dtype) for a in host])
 
     def to_tree(vec: torch.Tensor):
         parts = torch.split(vec, sizes)
         return _unflatten(params, iter([p.view(s) for p, s in zip(parts, shapes)]))
 
     def value_and_grad(q: np.ndarray):
-        x = torch.tensor(q, dtype=torch.float64, device=device, requires_grad=True)
+        x = torch.tensor(q, dtype=tdtype, device=device, requires_grad=True)
         with torch.enable_grad():
             value = loss_fn(to_tree(x))
             (grad,) = torch.autograd.grad(value, x)
@@ -137,5 +142,5 @@ def fit_lbfgs(loss_fn, params, *, max_iters: int = 500, tol: float = 1e-8,
             f"{restarts} accept-only-if-better restarts; zoom ls "
             f"(c1=1e-4, curv_rtol={curv_rtol:g}, guess={ls_guess})"
         )
-    params_out = to_tree(torch.as_tensor(x, dtype=torch.float64).to(device))
+    params_out = to_tree(torch.as_tensor(x, dtype=tdtype).to(device))
     return params_out, float(final_loss), int(iters)

@@ -8,8 +8,9 @@ protocol's shape (experiments/spatial_2d/ocean_ssh.py: N = 2·10⁶ 2-D
 points, 100 × 100 B4-spline features; also through the protocol's torch
 leg) and at D = 3 (N = 10⁶, 20³ B3-spline features), GPRAdditive at
 ADDITIVE_PROBE.json's shape (tools/additive_probe.py: N = 5·10⁵ points in
-4 dimensions, 250 B3-spline features each, M = 1000), through the port's
-public entry points, on the card:
+4 dimensions, 250 B3-spline features each, M = 1000), the float32 trainers
+and data parallelism on a world of one rank, through the port's public
+entry points, on the card:
 
   0. card check: prints nvidia-smi's name and power limit; no CUDA, no run
   1. build: compiles the CUDA sweeps (csrc/*.cu) with nvcc, one process per
@@ -143,6 +144,26 @@ public entry points, on the card:
      evaluation, the posterior K9 = K11 = 3 and K16 = 20; K16 at B = 400
      equal bit for bit to its plain version on the step's 20 diagonal
      blocks, K9–K12 within 1e-13 of theirs on the step's arguments
+  6t. the float32 trainers: fit_lbfgs of the float32 GPR1D on Snelson
+     (the defaults, up to 500 iterations) and at the north star (10
+     iterations, curv_rtol 10), and fit_adam_minibatch(..., dtype=float32)
+     at the north star (phase 6a's batch, steps and indices), each once on
+     fresh counters: losses and parameters within max(10 × spread, 1e-6)
+     of tools/f32_fit_anchors.py's JAX float32 runs (the spread: how far one
+     float32 rounding of their inputs moves them), the iteration counts and
+     ``converged`` equal, each final loss within 10 × the JAX float32 run's
+     distance from its float64 run; every evaluation and step launches the
+     float32 route (K17 ×2, K19, K21, K18 ×2, K20, K22) exactly, the
+     parameters stay float32; ms of each run
+  6u. data parallelism on a world of one NCCL rank (this process): the
+     sharded statistics at the north star, the eNATL60 shape and
+     ADDITIVE_PROBE.json's, each bit-equal to the build without the
+     all_reduce, and the all_reduce's ms; two data-parallel Adam steps of
+     each family (full batch), each loss and the parameters bit-equal to
+     the same step without the all_reduce, each step's launches exact
+     (K1, K2, K7, K8; K9–K12 ×2 and K16 × 100; K9–K12 ×4 and K16 × 8) and
+     its ms; the eNATL60 leg with --mesh 1 (a rank process of its own), its
+     ELBO, MSE and NLL equal to phase 6q's
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K1, K2, K13, K14,
@@ -624,6 +645,38 @@ F32_STEP = {"chol_fwd_f32": 2, "tak_fwd_f32": 1, "solve_lower_f32": 1,
             "chol_bwd_f32": 2, "tak_bwd_f32": 1, "solve_upper_t_f32": 1}
 F32_POSTERIOR = {"chol_fwd_f32": 2, "tak_fwd_f32": 2, "solve_lower_f32": 1,
                  "solve_upper_t_f32": 1}
+# the float32 trainers (phase 6t): the JAX package's float32 runs on a CPU
+# (x64 off, the scan recursions; tools/f32_fit_anchors.py --spread 4):
+# fit_lbfgs of the float32 GPR1D on Snelson (the defaults: up to 500
+# iterations) and at the north star (max_iters=10, curv_rtol=10.0), and
+# fit_adam_minibatch's loop at the north star (ADAM_* above) in float32.
+# params are (ℓ, σ², noise), raw.  "spread" is each quantity's largest
+# relative move when the float32 statistics and the initial parameters move
+# by one float32 rounding (4 repeats); the bar is max(10 × spread, 1e-6).
+# The counts are held where the spread left them fixed (Snelson: 500
+# iterations, not converged; the north star: 10 iterations, not converged;
+# the evaluations moved: 1554-1633 and 27-48), and each final loss within
+# 10 × the JAX float32 run's own distance from its float64 run (f64)
+F32_FITS = {
+    "snelson": {"loss": 60.9678955078125, "iters": 500, "converged": False,
+                "params": [0.6008453369140625, 0.4865211546421051, -2.495842933654785],
+                "spread": {"loss": 0.002188411629615837,
+                           "params": [0.11736447513777078, 0.14483341777467987,
+                                      0.004207550320376022]},
+                "f64": ANCHOR_SNELSON_LOSS},
+    "north_star": {"loss": 230472.5, "iters": 10, "converged": False,
+                   "params": [-6.9321489334106445, 0.5439996123313904, -2.3705263137817383],
+                   "spread": {"loss": 0.0006443284990617101,
+                              "params": [0.004825705730658829, 0.019457205094579162,
+                                         0.010178112441801569]},
+                   "f64": ANCHOR_FIT_LOSS},
+}
+F32_ADAM = {"loss_1": -131978.5, "loss_last": -229725.5,
+            "params": [-7.105610370635986, 0.7393084168434143, -2.4523892402648926],
+            "spread": {"loss_1": 0.0049591410722200965, "loss_last": 0.0007552491995882042,
+                       "params": [2.2212461862176037e-05, 0.0008741055071629972,
+                                  7.680292932205567e-06]},
+            "f64": ANCHOR_ADAM_LOSS_20}
 
 
 _T0 = time.perf_counter()
@@ -1444,6 +1497,249 @@ def enatl_leg(device) -> dict:
             raise AssertionError(f"eNATL60 leg {name}: launches {launches[name]}, "
                                  f"expected {expected}")
     return {"artifact": art, "launches": launches, "seconds": seconds}
+
+
+def spread_bar(spread: float) -> float:
+    """The float32 trainers' bar: 10 × the JAX run's one-rounding spread,
+    or 1e-6 where that is larger."""
+    return max(10.0 * spread, 1e-6)
+
+
+def raw_params(params) -> list:
+    """(ℓ, σ², noise), raw, of a 1-D params pytree."""
+    return [float(params["kernel"]["raw_lengthscales"]), float(params["kernel"]["raw_variance"]),
+            float(params["likelihood"]["raw_variance"])]
+
+
+def f32_trainers(device, model_ns, x_d, y_d) -> dict:
+    """Phase 6t: fit_lbfgs of the float32 GPR1D on Snelson (the defaults)
+    and at the north star (``model_ns``, 10 iterations, curv_rtol 10), and
+    fit_adam_minibatch(..., dtype=float32) at the north star, each once on
+    fresh counters: every evaluation and every Adam step launches F32_STEP
+    exactly, nothing else, no plain version; the parameters stay float32.
+    Host-clock ms of each run."""
+    from asvgp_tpu_torch.banded import core
+    from asvgp_tpu_torch.basis import B3Spline
+    from asvgp_tpu_torch.models import GPR1D, Matern32
+    from asvgp_tpu_torch.models.gpr1d import default_params
+    from asvgp_tpu_torch.train import fit_adam_minibatch, fit_lbfgs
+    from asvgp_tpu_torch.train.adam import minibatch_loss
+
+    X, Y = snelson_data()
+    snelson = GPR1D((X, Y), Matern32(), B3Spline(-3.5, 10.5, 100), device=device,
+                    dtype=torch.float32)
+    out = {}
+    for name, model, kw in (("snelson", snelson, {}),
+                            ("north_star", model_ns, {"max_iters": 10, "curv_rtol": 10.0})):
+        info = {}
+        core.reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, loss, iters = fit_lbfgs(model.training_loss, model.params(), info=info, **kw)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(device, f"float32 {name} fit",
+                                 {k: n * info["ls_evals"] for k, n in F32_STEP.items()})
+        if not all(t.dtype == torch.float32 for d in params.values() for t in d.values()):
+            raise AssertionError(f"float32 {name} fit: parameters left float32")
+        out[name] = {"loss": loss, "params": raw_params(params), "iters": iters,
+                     "evals": info["ls_evals"], "converged": info["converged"],
+                     "grad_norm": info["grad_norm"], "ms": ms, "ms_per_iter": ms / iters,
+                     "ms_per_eval": ms / info["ls_evals"], "launches": launches}
+    idx = index_stream(ADAM_INDEX_SEED, ADAM_STEPS, ADAM_BATCH, N)
+    basis = B3Spline(0.0, 1.0, M)
+    params0 = default_params(Matern32(1.0, 1e-3), 0.1)
+    ms = []
+    for _ in range(2):  # the first run is the warm-up
+        core.reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, losses = fit_adam_minibatch(
+            basis, 3, x_d, y_d, params0, batch_size=ADAM_BATCH, steps=ADAM_STEPS,
+            learning_rate=ADAM_LR, indices=idx, device=device, dtype=torch.float32)
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches(device, "float32 Adam fit",
+                                 {k: n * ADAM_STEPS for k, n in F32_STEP.items()})
+    if losses.dtype != torch.float32 or not all(
+            t.dtype == torch.float32 for d in params.values() for t in d.values()):
+        raise AssertionError("float32 Adam: losses or parameters left float32")
+    # one float32 step (the batch's statistics, the loss, its gradient) under
+    # the profiler: where an Adam step's time goes
+    xb = x_d[torch.as_tensor(idx[0], device=device)].float()
+    yb = y_d[torch.as_tensor(idx[0], device=device)].float()
+    p32 = {g: {k: torch.tensor(float(v), dtype=torch.float32, device=device,
+                               requires_grad=True) for k, v in d.items()}
+           for g, d in params0.items()}
+
+    def step():
+        minibatch_loss(basis, 3, N, p32, xb, yb).backward()
+
+    out["adam"] = {"loss_1": float(losses[0]), "loss_last": float(losses[-1]),
+                   "params": raw_params(params), "ms_first": ms[0], "ms": ms[1],
+                   "ms_per_step": ms[1] / ADAM_STEPS, "launches": launches,
+                   "step_profile": device_profile(step, reps=3)}
+    return out
+
+
+def f32_trainer_errors(runs: dict) -> tuple[dict, list]:
+    """Each float32 run against F32_FITS / F32_ADAM: relative errors, and
+    what misses its bar (max(10 × spread, 1e-6); the counts where the
+    spread fixed them; the final loss within 10 × the JAX float32 run's
+    distance from its float64 run)."""
+    errs, bad = {}, []
+    for name, want in F32_FITS.items():
+        got = runs[name]
+        e = {"loss": rel(got["loss"], want["loss"]),
+             "params": [rel(g, w) for g, w in zip(got["params"], want["params"])],
+             "vs_f64": rel(got["loss"], want["f64"]),
+             "jax_vs_f64": rel(want["loss"], want["f64"])}
+        errs[name] = e
+        if not e["loss"] <= spread_bar(want["spread"]["loss"]):
+            bad.append(f"{name} loss")
+        bad += [f"{name} param {i}" for i, (v, s) in enumerate(zip(e["params"],
+                                                                   want["spread"]["params"]))
+                if not v <= spread_bar(s)]
+        if got["iters"] != want["iters"] or got["converged"] != want["converged"]:
+            bad.append(f"{name} counts")
+        if not e["vs_f64"] <= 10 * e["jax_vs_f64"]:
+            bad.append(f"{name} vs float64")
+    got, want = runs["adam"], F32_ADAM
+    e = {key: rel(got[key], want[key]) for key in ("loss_1", "loss_last")}
+    e["params"] = [rel(g, w) for g, w in zip(got["params"], want["params"])]
+    e["vs_f64"], e["jax_vs_f64"] = rel(got["loss_last"], want["f64"]), rel(want["loss_last"],
+                                                                           want["f64"])
+    errs["adam"] = e
+    bad += [f"adam {key}" for key in ("loss_1", "loss_last")
+            if not e[key] <= spread_bar(want["spread"][key])]
+    bad += [f"adam param {i}" for i, (v, s) in enumerate(zip(e["params"],
+                                                             want["spread"]["params"]))
+            if not v <= spread_bar(s)]
+    if not e["vs_f64"] <= 10 * e["jax_vs_f64"]:
+        bad.append("adam vs float64")
+    return errs, bad
+
+
+def dp_phase(device, x_d, y_d, leg_artifact: dict) -> dict:
+    """Phase 6u: data parallelism on a world of one rank over NCCL (this
+    process, on ``device``): each family's statistics at full width by the
+    sharded build (one all_reduce) and without it, which must be equal
+    bit for bit, the all_reduce timed alone; two data-parallel Adam steps of
+    each family (full batch, num_data_total = N) from the initial
+    parameters, each on fresh counters held exactly to the family's step
+    launches, each loss bit-equal to the same step without the all_reduce;
+    then the eNATL60 leg with --mesh 1 (a rank process of its own), whose
+    ELBO, MSE and NLL must equal phase 6q's."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from asvgp_tpu_torch.banded import core
+    from asvgp_tpu_torch.basis import B3Spline, BSplineBasis
+    from asvgp_tpu_torch.models import Matern32
+    from asvgp_tpu_torch.models.gpr1d import default_params
+    from asvgp_tpu_torch.parallel import (
+        make_dp_train_step,
+        make_dp_train_step_additive,
+        make_dp_train_step_kron,
+    )
+    from asvgp_tpu_torch.stats import (
+        all_reduce_stats,
+        compute_additive_stats,
+        compute_additive_stats_sharded,
+        compute_kron_stats,
+        compute_kron_stats_sharded,
+        compute_stats,
+        compute_stats_sharded,
+    )
+
+    def per_dim(kernels, noise):
+        return {"kernels": [default_params(k)["kernel"] for k in kernels],
+                "likelihood": default_params(kernels[0], noise)["likelihood"]}
+
+    Xk, yk = synthetic_ssh(N_KRON + N_KRON_TEST)
+    Xa, ya = probe_data(N_ADD, ADD_SEED)
+    kron_bases = [BSplineBasis(0.0, 1.0, KRON_M, KRON_ORDER)] * 2
+    add_bases = [B3Spline(0.0, 1.0, ADD_M)] * ADD_D
+    basis = B3Spline(0.0, 1.0, M)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    families = {
+        "gpr1d": (x_d, y_d.reshape(-1), lambda x, y: compute_stats(basis, x, y),
+                  lambda x, y, g: compute_stats_sharded(basis, x, y, g),
+                  lambda g: make_dp_train_step(basis, 3, g, num_data_total=N),
+                  default_params(Matern32(1.0, 1e-3), 0.1), dict.fromkeys(ADAM_KERNELS, 1)),
+        "kron": (dev(Xk[N_KRON_TEST:]), dev(yk[N_KRON_TEST:]).reshape(-1),
+                 lambda x, y: compute_kron_stats(kron_bases, x, y),
+                 lambda x, y, g: compute_kron_stats_sharded(kron_bases, x, y, g),
+                 lambda g: make_dp_train_step_kron(kron_bases, [3, 3], g, num_data_total=N_KRON),
+                 per_dim([Matern32(lengthscales=KRON_ELL)] * 2, KRON_NOISE), KRON_STEP),
+        "additive": (dev(Xa), dev(ya).reshape(-1),
+                     lambda x, y: compute_additive_stats(add_bases, x, y),
+                     lambda x, y, g: compute_additive_stats_sharded(add_bases, x, y, g),
+                     lambda g: make_dp_train_step_additive(add_bases, [3] * ADD_D, g,
+                                                           num_data_total=N_ADD),
+                     per_dim([Matern32(lengthscales=ADD_ELL)] * ADD_D, ADD_NOISE), ADD_STEP),
+    }
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tmp = tempfile.mkdtemp(prefix="asvgp_dp_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    group = dist.group.WORLD
+    out = {"stats": {}, "steps": {}}
+    try:
+        for name, (x, y, local, sharded, make, params0, per_step) in families.items():
+            want = local(x, y)
+            core.reset_counters()
+            got = sharded(x, y, group)
+            read_launches(device, f"{name} sharded statistics", {})
+            equal = all(torch.equal(getattr(got, f), getattr(want, f)) for f in vars(want))
+            numel = sum(getattr(want, f).numel() for f in vars(want))
+            out["stats"][name] = {"n": int(x.shape[0]), "numel": numel, "bit_equal": equal,
+                                  "all_reduce_ms": cuda_ms(
+                                      lambda w=want: all_reduce_stats(w, group))["median_ms"]}
+            step, opt = make(group)
+            plain, _ = make(None)
+            p, state, p0, state0 = params0, opt.init(params0), params0, opt.init(params0)
+            losses, plain_losses, launches, ms = [], [], [], []
+            for _ in range(2):
+                core.reset_counters()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                p, state, loss = step(p, state, x, y)
+                torch.cuda.synchronize(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(read_launches(device, f"{name} data-parallel step", per_step))
+                p0, state0, loss0 = plain(p0, state0, x, y)
+                losses.append(float(loss))
+                plain_losses.append(float(loss0))
+            out["steps"][name] = {
+                "losses": losses, "launches": launches[0], "ms": ms,
+                "bit_equal": losses == plain_losses and all(
+                    torch.equal(a, b) for a, b in zip(_tree_leaves(p), _tree_leaves(p0)))}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    spec = importlib.util.spec_from_file_location("ocean_ssh_torch", ENATL_LEG)
+    leg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(leg)
+    t0 = time.perf_counter()
+    art = leg.run_mesh(leg.parser().parse_args(["--iters", str(ENATL_ITERS), "--mesh", "1"]),
+                       timeout=900)
+    out["leg"] = {"artifact": art, "seconds": time.perf_counter() - t0,
+                  "equal": {k: art[k] == leg_artifact[k] for k in ("elbo", "mse", "nll")}}
+    return out
+
+
+def _tree_leaves(tree) -> list:
+    from asvgp_tpu_torch.train.lbfgs import _leaves
+
+    return list(_leaves(tree))
 
 
 def probe_data(n: int, seed: int):
@@ -3524,6 +3820,33 @@ def main() -> None:
     check_parity(nd_single, TOL_PARITY_ADJOINT, "of K9-K12 on the D = 3 step's arguments")
     nd_launches = nd["launches"]["step"]
 
+    # ---- phase 6t: the float32 trainers -----------------------------------
+    f32t = f32_trainers(device, f32["model"], x_d, y_d)
+    f32t_errs, bad = f32_trainer_errors(f32t)
+    emit("6t_f32_trainers", card=smi, runs=f32t, rel_err=f32t_errs,
+         spread={n: F32_FITS[n]["spread"] for n in F32_FITS} | {"adam": F32_ADAM["spread"]},
+         per_eval=F32_STEP)
+    if bad:
+        raise AssertionError(f"float32 trainers against tools/f32_fit_anchors.py: {bad}; "
+                             f"{f32t_errs}")
+    f32t_launches = {n: sum(r["launches"].get(n, 0) for r in f32t.values()) for n in KERNELS}
+
+    # ---- phase 6u: data parallelism, a world of one rank on NCCL ---------------
+    dp = dp_phase(device, x_d, y_d, art)
+    emit("6u_dp", card=smi, stats=dp["stats"], steps=dp["steps"],
+         leg={"elbo": dp["leg"]["artifact"]["elbo"], "mse": dp["leg"]["artifact"]["mse"],
+              "nll": dp["leg"]["artifact"]["nll"], "iters": dp["leg"]["artifact"]["iters"],
+              "evals": dp["leg"]["artifact"]["opt_info"]["ls_evals"],
+              "equal_to_6q": dp["leg"]["equal"], "seconds": dp["leg"]["seconds"],
+              "timings_s": dp["leg"]["artifact"]["timings_s"]})
+    bad = [f"{n} statistics" for n, st in dp["stats"].items() if not st["bit_equal"]]
+    bad += [f"{n} steps" for n, st in dp["steps"].items() if not st["bit_equal"]]
+    bad += [f"leg {k}" for k, eq in dp["leg"]["equal"].items() if not eq]
+    if bad:
+        raise AssertionError(f"a world of one rank differs from the run without it: {bad}")
+    dp_launches = {n: sum(st["launches"].get(n, 0) for st in dp["steps"].values())
+                   for n in KERNELS}
+
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded
     from asvgp_tpu_torch.banded import block, lower_band_to_dense, single
@@ -3926,6 +4249,8 @@ def main() -> None:
             "launches_protocol": lr_launches.get(name, 0),
             "launches_enatl_leg": leg_launches[name],
             "launches_kron_nd_step": nd_launches[name],
+            "launches_f32_trainers": f32t_launches[name],
+            "launches_dp_step": dp_launches[name],
         })
     emit("8_done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

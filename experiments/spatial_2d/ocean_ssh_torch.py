@@ -11,14 +11,22 @@ bits); ``--data`` points at an (N, 3) [lon, lat, ssh] .npy file instead.
 
 The flags, defaults and artifact keys are the JAX script's, except:
 ``--device`` is new and defaults to the CUDA device (raising without one;
-``--device cpu`` runs the plain versions of the kernels on the CPU);
-``--mesh`` (data parallelism) is not ported yet; the artifact has no
-``relay_wait_s``, and the CPU baseline's ``tpu_exec_per_iter_s`` is
-``gpu_exec_per_iter_s``.  ``--cpu-baseline-steps K`` times K value-and-grad
-steps of the port's own plain versions on the CPU at the same shape.
+``--device cpu`` runs the plain versions of the kernels on the CPU); the
+artifact has no ``relay_wait_s``, and the CPU baseline's
+``tpu_exec_per_iter_s`` is ``gpu_exec_per_iter_s``.  ``--cpu-baseline-steps
+K`` times K value-and-grad steps of the port's own plain versions on the
+CPU at the same shape.
+
+``--mesh N`` has the JAX flag's meaning, data-parallel statistics over N
+devices (0: none): the script starts N ranks (``parallel.run_ranks``), on
+the first N CUDA devices over NCCL (raising when there are fewer), or with
+``--device cpu`` on the CPU over gloo.  Rank r builds the statistics of its
+block of the training rows, one ``all_reduce`` sums them, and each rank
+then fits and predicts on the summed statistics, as the JAX script does on
+its mesh; rank 0 writes the artifact.  The training rows must divide by N.
 
 Run:  python experiments/spatial_2d/ocean_ssh_torch.py [--n 2000000] [--m 100]
-          [--n-test 100000] [--iters 100] [--device cpu] [--out run.json]
+          [--n-test 100000] [--iters 100] [--mesh N] [--device cpu] [--out run.json]
 """
 
 import argparse
@@ -36,6 +44,8 @@ import torch  # noqa: E402
 from asvgp_tpu_torch.basis import BSplineBasis  # noqa: E402
 from asvgp_tpu_torch.models import GPRKron, Matern32  # noqa: E402
 from asvgp_tpu_torch.models.gpr1d import resolve_device  # noqa: E402
+from asvgp_tpu_torch.parallel import run_ranks, shard_data  # noqa: E402
+from asvgp_tpu_torch.parallel.launch import file_function_rank  # noqa: E402
 from asvgp_tpu_torch.train import fit_lbfgs, mse, nlpd  # noqa: E402
 from asvgp_tpu_torch.train.logging import WallClock  # noqa: E402
 
@@ -70,14 +80,17 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run(args, stage=None, record=None) -> dict:
+def run(args, stage=None, record=None, group=None, rank=0, world=1, device=None) -> dict:
     """The protocol once: the artifact of the JAX script (without
     ``relay_wait_s``).
 
     For a caller that checks the run: ``stage(name)``, a context manager,
     wraps each stage ("precompute", "optimize", "predict"); ``record`` (a
-    dict) gets the model, the fitted parameters and the posterior."""
-    device = resolve_device(args.device)
+    dict) gets the model, the fitted parameters and the posterior.  With a
+    process ``group`` (``run_mesh``), this is rank ``rank`` of ``world`` on
+    ``device``: its model takes its block of the training rows and sums the
+    statistics over the group."""
+    device = resolve_device(args.device) if device is None else device
     stage = stage or (lambda name: contextlib.nullcontext())
     record = {} if record is None else record
     X, y = load_data(args)
@@ -86,10 +99,13 @@ def run(args, stage=None, record=None) -> dict:
 
     bases = [BSplineBasis(0.0, 1.0, args.m, args.order)] * 2
     kernels = [Matern32(lengthscales=ELL), Matern32(lengthscales=ELL)]
+    train = (Xtr, ytr)
+    if group is not None:
+        train = tuple(a.numpy() for a in shard_data(Xtr, ytr, rank, world))
 
     clock = WallClock(device)
     with stage("precompute"), clock.section("precompute"):
-        model = GPRKron((Xtr, ytr), kernels, bases, noise_variance=NOISE, device=device)
+        model = GPRKron(train, kernels, bases, noise_variance=NOISE, device=device, group=group)
     stats_phases = {"exec_s": round(clock.times["precompute"], 2)}
     print(f"precompute: {clock.times['precompute']:.1f}s "
           f"(N={len(ytr)}, features={args.m ** 2}, device={device})", flush=True)
@@ -158,6 +174,32 @@ def run(args, stage=None, record=None) -> dict:
     }
 
 
+def mesh_rank(rank, world, group, device, args) -> dict:
+    """``run`` on one rank of ``run_mesh``'s group; rank 0 writes the
+    artifact to ``--out``."""
+    artifact = run(args, group=group, rank=rank, world=world, device=device)
+    if rank == 0 and args.out:
+        with open(args.out, "w") as f:
+            json.dump(artifact, f, indent=1)
+    return artifact
+
+
+def run_mesh(args, timeout: float = 3600.0) -> dict:
+    """The protocol on ``args.mesh`` ranks (``--mesh``): on the first
+    ``args.mesh`` CUDA devices over NCCL, or with ``--device cpu`` on the
+    CPU over gloo.  Returns rank 0's artifact."""
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if backend == "nccl" and args.device not in (None, "cuda"):
+        raise ValueError("--mesh places rank r on cuda:r: pass no --device, or --device cpu")
+    if args.data is None and args.n % args.mesh:
+        raise ValueError(f"--n {args.n} training rows do not divide into --mesh {args.mesh} "
+                         "shards")
+    out = run_ranks(file_function_rank, args.mesh, args=(os.path.abspath(__file__),
+                                                           "mesh_rank", args),
+                    backend=backend, timeout=timeout)
+    return out[0]
+
+
 def cpu_baseline_steps(args, train, bases, kernels, exec_per_iter_s) -> dict:
     """The port's plain versions on the CPU at the same shape: the model's
     construction, a first value-and-grad step, then ``--cpu-baseline-steps``
@@ -199,6 +241,7 @@ def parser():
     ap.add_argument("--m", type=int, default=100)
     ap.add_argument("--order", type=int, default=4)
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--mesh", type=int, default=0, help="data-parallel devices")
     ap.add_argument("--data", type=str, default=None)
     ap.add_argument("--out", type=str, default=None,
                     help="write a JSON metrics artifact here")
@@ -212,6 +255,9 @@ def parser():
 
 def main():
     args = parser().parse_args()
+    if args.mesh:
+        run_mesh(args)  # rank 0 writes --out
+        return
     artifact = run(args)
     if args.out:
         with open(args.out, "w") as f:

@@ -6,7 +6,7 @@ with the same ``split``/``randint`` calls as the JAX loop and hands them to
 the port as ``indices``.  Losses must agree per step to 1e-10 relative and
 the final parameters to 1e-9: the same float64 steps, with the banded core
 by explicit adjoints in the port and by autodiff through scans in the JAX
-package, and Adam's update in two orders of rounding.  On the CPU the
+package, and Adam's update in optax's order (``train.Adam``).  On the CPU the
 core's kernels run their plain versions.
 """
 

@@ -27,6 +27,7 @@ from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded import core, single
 from asvgp_tpu_torch.basis import B3Spline
 from asvgp_tpu_torch.models import GPR1D, SVGP1D, Matern32, fit_svgp
+from asvgp_tpu_torch.train import Adam
 from test_torch_adam import jax_indices
 
 N, M, BATCH, STEPS = 512, 24, 64, 10
@@ -270,10 +271,10 @@ def test_adam_turns_rounding_level_gradients_into_lr_sized_steps():
     1.6e5.  Adam normalises each entry by its own running magnitude, so the
     two take steps of opposite sign and up to the learning rate in size.
 
-    Here the port's Adam (``adam_loop``'s ``torch.optim.Adam``) and the JAX
-    loop's ``optax.adam`` agree on one gradient history to rounding, and two
-    histories that differ only at a rounding-level entry (±3e-11 of the
-    largest one) part there by about twice the learning rate per step."""
+    Here the port's Adam (``train.Adam``, which ``adam_loop`` steps with)
+    and the JAX loop's ``optax.adam`` agree on one gradient history to
+    rounding, and two histories that differ only at a rounding-level entry
+    (±3e-11 of the largest one) part there by about twice the learning rate per step."""
     import optax
 
     lr, steps = 1e-3, 3
@@ -282,12 +283,13 @@ def test_adam_turns_rounding_level_gradients_into_lr_sized_steps():
                for sign in (1.0, -1.0)}
 
     def torch_adam(grads):
-        p = torch.zeros(2, dtype=torch.float64, requires_grad=True)
-        opt = torch.optim.Adam([p], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        p = torch.zeros(2, dtype=torch.float64)
+        opt = Adam(lr)
+        state = opt.init(p)
         for g in grads:
-            p.grad = torch.from_numpy(g)
-            opt.step()
-        return p.detach().numpy()
+            updates, state = opt.update(torch.from_numpy(g), state)
+            p = opt.apply(p, updates)
+        return p.numpy()
 
     def optax_adam(grads):
         opt = optax.adam(lr)

@@ -8,7 +8,7 @@ indices ``RandomState(3).randint(0, N, (20, 100))``, from ``init_params()``
 with the C* seeding.  Both sides run on a CPU in float64:
 
   * the port's ``fit_svgp`` (the plain versions of K9–K12), its parameters
-    and gradients read after every Adam step through a step hook;
+    and gradients read after every Adam step through its ``on_step``;
   * the JAX package's SVGP1D on the scan route (``set_impl("scan")``), the
     seeding of ``asvgp_tpu.models.svgp.fit_svgp`` and its step (one
     ``jax.value_and_grad`` of ``training_loss``, ``optax.adam``) on the same
@@ -72,7 +72,9 @@ def leaves(tree, prefix=()):
         for key in sorted(tree):
             yield from leaves(tree[key], prefix + (key,))
     else:
-        yield "/".join(prefix), np.asarray(tree, dtype=np.float64)
+        if hasattr(tree, "detach"):
+            tree = tree.detach().cpu().numpy()
+        yield "/".join(prefix), np.array(tree, dtype=np.float64)
 
 
 def jax_trace(x, y, m, idx):
@@ -108,31 +110,20 @@ def jax_trace(x, y, m, idx):
 
 def port_trace(x, y, m, idx):
     """The port's ``fit_svgp`` on ``idx`` on the CPU: per step (loss, params,
-    grads), read by a hook after every optimizer step."""
-    import torch
-    from torch.optim.optimizer import register_optimizer_step_post_hook
-
+    grads), as ``adam_loop`` hands them to ``on_step``."""
     from asvgp_tpu_torch.basis import B3Spline
     from asvgp_tpu_torch.models import SVGP1D, Matern32, fit_svgp
-    from asvgp_tpu_torch.train.lbfgs import _unflatten
 
     model = SVGP1D(Matern32(1.0, 1e-3), B3Spline(0.0, 1.0, m), noise_variance=0.1,
                    num_data=x.shape[0], device="cpu")
-    template = model.init_params()
     seen = []
 
-    def hook(opt, args, kwargs):
-        ps = opt.param_groups[0]["params"]
-        seen.append((dict(leaves(_unflatten(template, (p.detach().clone() for p in ps)))),
-                     dict(leaves(_unflatten(template, (p.grad.detach().clone() for p in ps))))))
+    def on_step(step, loss, params, grads):
+        seen.append((float(loss), dict(leaves(params)), dict(leaves(grads))))
 
-    handle = register_optimizer_step_post_hook(hook)
-    try:
-        _, losses = fit_svgp(model, x, y, template, batch_size=BATCH, steps=idx.shape[0],
-                             learning_rate=LR, device="cpu", indices=idx)
-    finally:
-        handle.remove()
-    return [(float(loss), p, g) for loss, (p, g) in zip(losses.tolist(), seen)]
+    fit_svgp(model, x, y, model.init_params(), batch_size=BATCH, steps=idx.shape[0],
+             learning_rate=LR, device="cpu", indices=idx, on_step=on_step)
+    return seen
 
 
 def touched_features(x, m, idx_so_far):
