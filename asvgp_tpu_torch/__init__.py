@@ -9,9 +9,12 @@ the JAX package's layout:
   basis/     B-spline basis engine (orders 1-6) on a uniform mesh
   features/  RKHS Gram (Kuu) assembly + sparse design (Kuf) features
   stats/     sufficient-statistic assembly on the data's device
-  models/    GPR1D, GPRKron (2-D), GPRAdditive, SVGP1D, the exact GP,
+  models/    GPR1D, GPRKron (D ≥ 2), GPRAdditive, SVGP1D, the exact GP,
              Matérn kernels, Gaussian likelihood
-  train/     L-BFGS, minibatch Adam, metrics (NLPD, MSE)
+  train/     L-BFGS, minibatch Adam, metrics (NLPD, MSE), checkpoints
+  parallel/  data parallelism over a torch.distributed group
+  utils/     profiling (a synchronised timer, torch.profiler traces) and
+             scipy interop
 
 Everything is float64, except GPR1D with ``dtype=torch.float32`` (the JAX
 package's float32 route, with the float32 kernels K17–K22).  Tensors on
@@ -19,7 +22,7 @@ the CPU run the plain versions of the kernels; tensors on a CUDA device run
 the kernels, built with nvcc at first use.  The package imports torch and numpy, never jax.
 """
 
-from asvgp_tpu_torch import banded, basis, features, models, stats, train
+from asvgp_tpu_torch import banded, basis, features, models, stats, train, utils
 
 __version__ = "0.1.0"
 
@@ -30,4 +33,5 @@ __all__ = [
     "models",
     "stats",
     "train",
+    "utils",
 ]

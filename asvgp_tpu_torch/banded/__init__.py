@@ -17,6 +17,8 @@ kernels on the GPU; ``twisted`` the float64 oracle of the two-ended
 factorization.  ``block`` holds the block-banded algebra of the Kronecker
 model and of the additive model's dense coupling (a block-banded matrix of
 full block bandwidth), whose diagonal-block step is K16 (``dense_block``).
+``cyclic`` holds block cyclic reduction, the log-depth route that
+``cr_scope(True)`` selects for the collapsed core and the posterior.
 """
 
 from asvgp_tpu_torch.banded.layout import (
@@ -45,6 +47,7 @@ from asvgp_tpu_torch.banded.ops import (
     product_band_band,
     solve_lower_band,
     solve_upper_band_transpose,
+    cr_scope,
     takahashi_inverse_band,
     twist_scope,
 )
@@ -61,6 +64,7 @@ from asvgp_tpu_torch.banded.block import (
 )
 from asvgp_tpu_torch.banded.tan import factor_takahashi_solve_tan
 from asvgp_tpu_torch.banded.twist import factor_takahashi_solve_tan_twist, twist_applicable
+from asvgp_tpu_torch.banded import cyclic
 
 __all__ = [
     "band_to_dense",
@@ -88,6 +92,8 @@ __all__ = [
     "solve_upper_band_transpose",
     "takahashi_inverse_band",
     "twist_scope",
+    "cr_scope",
+    "cyclic",
     "factor_takahashi_solve",
     "factor_takahashi_solve_tan",
     "factor_takahashi_solve_tan_twist",

@@ -32,6 +32,10 @@ PyTorch counterpart of ``asvgp_tpu/banded/ops.py``.  Two layers:
   ``collapsed_core_matern`` and ``banded_posterior`` take the composed
   route of single-matrix ops; no float64-only kernel (K1–K8, K15, K16,
   K23) takes a float32 tensor.
+* Block cyclic reduction (banded/cyclic.py), the JAX package's "cr"
+  backend: inside ``cr_scope(True)`` the collapsed core and the posterior
+  run it on either device and in either dtype, batched library calls on
+  k×k blocks in ⌈log₂(m/k)⌉ levels, and launch no kernel.
 
 Band products and matvecs are parallel diagonal convolutions over static
 offsets: plain tensor ops on any device, as in the JAX package.
@@ -452,9 +456,18 @@ def collapsed_core(kuu_band, p_band, b, big_band):
     in float32 composed of the differentiable single-matrix ops, as the
     JAX package composes them outside its double-single route (ops.py
     ``collapsed_core``): the two Choleskys, the Takahashi band of Kuu⁻¹ and
-    the lower solve (K17 ×2, K19, K21; backward K18 ×2, K20, K22)."""
+    the lower solve (K17 ×2, K19, K21; backward K18 ×2, K20, K22).  Inside
+    ``cr_scope(True)``, for bands of one shape and a vector ``b``, block
+    cyclic reduction (banded/cyclic.py) in either dtype, no kernel."""
     from asvgp_tpu_torch.banded import core
 
+    if kuu_band.shape == p_band.shape == big_band.shape and b.ndim == 1 and _cr_enabled():
+        from asvgp_tpu_torch.banded import cyclic
+
+        ld_p, u = cyclic.cr_logdet_solve(p_band, b)
+        # tr(Kuu⁻¹B) = ⟨∇log|Kuu|, B⟩ from the same reduction as log|Kuu|
+        ld_kuu, trace = cyclic.cr_logdet_trace(kuu_band, big_band)
+        return ld_kuu, ld_p, torch.dot(b, u), trace
     if kuu_band.dtype == torch.float32:
         l_kuu, l_p = cholesky_band_pair(kuu_band, p_band)
         s_kuu = takahashi_inverse_band(l_kuu)
@@ -496,6 +509,36 @@ def _twist_enabled() -> bool:
     return _TWIST_SCOPE[-1] if _TWIST_SCOPE else True
 
 
+# block cyclic reduction (banded/cyclic.py) for the collapsed core and the
+# posterior: off by default, as in the JAX package, where it is the "cr"
+# backend; scoped like the twisted dispatch
+_CR_SCOPE: list = []
+
+
+class cr_scope:
+    """Context manager: route ``collapsed_core``, ``collapsed_core_matern``
+    and ``banded_posterior`` through block cyclic reduction inside the
+    block (``True``) or not (``False``).  ``enabled=None`` is a no-op (the
+    default: off)."""
+
+    def __init__(self, enabled):
+        self.enabled = enabled
+
+    def __enter__(self):
+        if self.enabled is not None:
+            _CR_SCOPE.append(bool(self.enabled))
+        return self
+
+    def __exit__(self, *exc):
+        if self.enabled is not None:
+            _CR_SCOPE.pop()
+        return False
+
+
+def _cr_enabled() -> bool:
+    return _CR_SCOPE[-1] if _CR_SCOPE else False
+
+
 def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
     """``collapsed_core`` with the Matérn hyperparameter structure exposed:
     Kuu = kuu_fn(var, ell), and kuu_fn(var, ell) = var⁻¹·G(ell) (true of
@@ -506,6 +549,8 @@ def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
     ``twist_applicable`` holds and ``twist_scope`` is on, the single-ended
     K3 + K4 (banded/tan.py) otherwise.  Without a gradient it is the value
     path of ``collapsed_core`` (K1 + K2), as in the JAX package's primal.
+    Inside ``cr_scope(True)`` it is ``collapsed_core`` on the assembled
+    band, by cyclic reduction, as the JAX package steps aside for "cr".
     """
     from asvgp_tpu_torch.banded import tan, twist
 
@@ -513,7 +558,7 @@ def collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band):
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (var, ell, p_band, b, big_band)
     )
-    if not needs_grad or k < 1 or p_band.dtype == torch.float32:
+    if not needs_grad or k < 1 or p_band.dtype == torch.float32 or _cr_enabled():
         return collapsed_core(kuu_fn(var, ell), p_band, b, big_band)
     if _twist_enabled() and twist.twist_applicable(k, p_band.shape[1]):
         return twist.collapsed_core_matern(kuu_fn, var, ell, p_band, b, big_band)
@@ -524,9 +569,16 @@ def banded_posterior(kuu_band, p_band, b):
     """(band of Kuu⁻¹, band of P⁻¹, P⁻¹ b) — the prediction-time posterior
     quantities: in float64 from the same two sweeps (K1 + K2); in float32
     composed as in the JAX package: the two Choleskys, both Takahashi bands
-    and ``cholesky_solve_band`` (K17 ×2, K19 ×2, K21, K22)."""
+    and ``cholesky_solve_band`` (K17 ×2, K19 ×2, K21, K22).  Inside
+    ``cr_scope(True)``, for bands of one shape and a vector ``b``, block
+    cyclic reduction: both bands as gradients of the log-determinants."""
     from asvgp_tpu_torch.banded import core
 
+    if kuu_band.shape == p_band.shape and b.ndim == 1 and _cr_enabled():
+        from asvgp_tpu_torch.banded import cyclic
+
+        s_p, u = cyclic.cr_inverse_band_solve(p_band, b)
+        return cyclic.cr_inverse_band(kuu_band), s_p, u
     if kuu_band.dtype == torch.float32:
         l_kuu, l_p = cholesky_band_pair(kuu_band, p_band)
         return (takahashi_inverse_band(l_kuu), takahashi_inverse_band(l_p),

@@ -31,8 +31,9 @@ import torch.nn.functional as F
 
 from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded import block
+from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.spline_features import make_kuf, make_kuu, validate_kernel_basis
-from asvgp_tpu_torch.models.gpr1d import resolve_device, window_quadratic_form
+from asvgp_tpu_torch.models.gpr1d import window_quadratic_form
 from asvgp_tpu_torch.models.parameters import positive
 from asvgp_tpu_torch.models.per_dimension import (
     PerDimensionGP,

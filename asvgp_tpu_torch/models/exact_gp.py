@@ -13,7 +13,8 @@ import math
 
 import torch
 
-from asvgp_tpu_torch.models.gpr1d import MaternGaussianModel, resolve_device
+from asvgp_tpu_torch.device import resolve_device
+from asvgp_tpu_torch.models.gpr1d import MaternGaussianModel
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64

@@ -25,6 +25,11 @@ Kuu, P, the loss, its gradient, the posterior and the predictions are all
 float32.  Its banded work goes through the composed single-matrix ops and
 their float32 kernels (K17–K22): two Choleskys, the Takahashi band of
 Kuu⁻¹ and the lower solve for the loss, their adjoints for the gradient.
+
+``GPR1D(..., backend="cr")`` is the JAX package's "cr" backend: the ELBO,
+its gradient and the posterior go through block cyclic reduction
+(banded/cyclic.py, ``banded.cr_scope``) on either device and in either
+dtype, and launch no kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch import nn
 
 from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.basis.splines import BSplineBasis
+from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.spline_features import (
     make_kuf,
     make_kuu,
@@ -53,6 +59,7 @@ from asvgp_tpu_torch.stats.sufficient import (
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
+BACKENDS = (None, "cr")
 
 
 def default_params(kernel: Matern, noise_variance=1.0) -> dict:
@@ -186,19 +193,6 @@ class Posterior1D:
         return self.likelihood.predict_log_density(mean, var, y)
 
 
-def resolve_device(device) -> torch.device:
-    """A model's device: ``None`` means the current CUDA device, and raises
-    when there is none (no silent fall back to the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "models run on the CUDA device unless told otherwise, and there "
-                'is none: pass device="cpu" to run on the CPU'
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 class MaternGaussianModel(nn.Module):
     """The hyperparameters of a Matérn kernel with a Gaussian likelihood, as
     unconstrained ``nn.Parameter``s (``raw_variance``, ``raw_lengthscales``,
@@ -302,11 +296,22 @@ class GPR1D(MaternGaussianModel):
     ``mesh``): ``data`` is this rank's shard (``parallel.shard_data``), and
     the statistics are the sum over the group's ranks
     (``compute_stats_sharded``); everything after them is as without it.
+
+    ``backend``: ``None`` (the route by device: the kernels on a CUDA
+    device, their plain versions on the CPU) or ``"cr"`` (block cyclic
+    reduction for the ELBO and the posterior, ``banded.cr_scope``).
     """
 
     def __init__(self, data, kernel: Matern, basis: BSplineBasis, *,
-                 noise_variance=1.0, device=None, dtype=None, group=None):
+                 noise_variance=1.0, device=None, dtype=None, group=None, backend=None):
         super().__init__()
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}: the port takes None or 'cr' (block cyclic "
+                "reduction); 'auto', 'scan', 'pallas' and 'pallas_ds' are the JAX package's "
+                "TPU selections, and the port picks its route by device"
+            )
+        self.backend = backend
         device = resolve_device(device)
         X_in, y_in = data
         X = torch.as_tensor(X_in, dtype=_F64, device=device)
@@ -350,10 +355,15 @@ class GPR1D(MaternGaussianModel):
         parameters); differentiable on the CPU and on the GPU."""
         kernel, lik = self._build(params)
         kdiag_sum = self.n * kernel.variance  # Σ K_diag for Matérn
-        return collapsed_elbo_matern(
-            self.stats, self.basis, self.nu2,
-            kernel.variance, kernel.lengthscales, lik.variance, kdiag_sum,
-        )
+        with self._scope():
+            return collapsed_elbo_matern(
+                self.stats, self.basis, self.nu2,
+                kernel.variance, kernel.lengthscales, lik.variance, kdiag_sum,
+            )
+
+    def _scope(self):
+        """The banded route that ``backend`` selects, as a context."""
+        return banded.cr_scope(True if self.backend == "cr" else None)
 
     def maximum_log_likelihood_objective(self, params=None) -> torch.Tensor:
         return self.elbo(params)
@@ -369,7 +379,10 @@ class GPR1D(MaternGaussianModel):
         kuu = make_kuu(kernel, self.basis)
         sigma2 = lik.variance
         p_band = self.kufkfu_band / sigma2 + kuu
-        s_kuu, s_p, u = banded.banded_posterior(kuu, p_band, self.kuf_y)
+        with self._scope():
+            # cyclic reduction's bands of the inverses are gradients: it
+            # takes them under enable_grad itself
+            s_kuu, s_p, u = banded.banded_posterior(kuu, p_band, self.kuf_y)
         return Posterior1D(kernel, lik, self.basis, u / sigma2, s_p - s_kuu)
 
     def predict_f(self, Xnew, full_cov: bool = False, batch: int | None = None):

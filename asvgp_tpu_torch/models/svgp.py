@@ -37,10 +37,10 @@ from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded.layout import mask_lower_band, transpose_lower_band
 from asvgp_tpu_torch.banded.ops import matvec_symmetric_band, product_band_band
 from asvgp_tpu_torch.basis.splines import BSplineBasis
+from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.spline_features import make_kuf, make_kuu
 from asvgp_tpu_torch.models.gpr1d import (
     MaternGaussianModel,
-    resolve_device,
     window_dot,
     window_quadratic_form,
 )

@@ -20,8 +20,9 @@ import math
 import numpy as np
 import torch
 
+from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.fourier import FourierBasis1D, make_kuu_vff
-from asvgp_tpu_torch.models.gpr1d import MaternGaussianModel, resolve_device
+from asvgp_tpu_torch.models.gpr1d import MaternGaussianModel
 from asvgp_tpu_torch.models.kernels import Matern
 
 _LOG2PI = math.log(2.0 * math.pi)

@@ -22,8 +22,9 @@ from __future__ import annotations
 
 import torch
 
+from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.spline_features import make_kuu
-from asvgp_tpu_torch.models.gpr1d import collapsed_elbo_banded, resolve_device
+from asvgp_tpu_torch.models.gpr1d import collapsed_elbo_banded
 from asvgp_tpu_torch.models.kernels import Matern
 from asvgp_tpu_torch.models.parameters import positive
 from asvgp_tpu_torch.stats.sufficient import SufficientStats, compute_stats, rescale_stats

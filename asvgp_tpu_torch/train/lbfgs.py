@@ -22,7 +22,10 @@ from asvgp_tpu_torch.train.fused_lbfgs import make_fused_run
 def _leaves(tree):
     """The leaves of a pytree of dicts, lists and tuples in the order in
     which JAX flattens it (dict keys sorted, list and tuple items in index
-    order), so that dot products over the flat vector sum alike."""
+    order, ``None`` a node without leaves), so that dot products over the
+    flat vector sum alike."""
+    if tree is None:
+        return
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _leaves(tree[key])
@@ -36,7 +39,9 @@ def _leaves(tree):
 def _unflatten(tree, values):
     """A pytree shaped like ``tree`` whose leaves are taken from the
     iterator ``values`` in ``_leaves`` order; dicts come back with sorted
-    keys, lists and tuples as lists and tuples."""
+    keys, lists and tuples as lists and tuples, ``None`` as ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {key: _unflatten(tree[key], values) for key in sorted(tree)}
     if isinstance(tree, (list, tuple)):

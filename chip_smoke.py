@@ -164,6 +164,28 @@ entry points, on the card:
      (K1, K2, K7, K8; K9–K12 ×2 and K16 × 100; K9–K12 ×4 and K16 × 8) and
      its ms; the eNATL60 leg with --mesh 1 (a rank process of its own), its
      ELBO, MSE and NLL equal to phase 6q's
+  6v. block cyclic reduction at the north star (GPR1D(..., backend="cr"),
+     banded/cyclic.py: batched library calls on 3×3 blocks, no kernel of
+     its own): the loss and its gradient by backward() within 1e-9 and
+     1e-8 of the anchors and the loss within 1e-9 of the twisted route's;
+     S_Kuu, S_P and u within 1e-9 of banded_posterior's K1 + K2 results
+     and the predictions on the 10⁵ held-out points of the default
+     route's; fit_lbfgs (10 iterations, curv_rtol 10) within 1e-8 of the
+     anchor; the step, the posterior and the fit each on fresh counters
+     launch none of K1–K23; a step and a posterior under
+     set_sync_debug_mode("error"); a step traced by utils.trace_to (its
+     Chrome trace must hold CUDA kernel events); the fitted parameters
+     through save_pytree / load_pytree on the card, the loss equal bit for
+     bit; kuf_to_scipy of 10⁴ points from the card with the CPU's pattern
+     and its values within 1e-15 (the card divides by a scalar as a
+     product with its reciprocal, so the values differ in the last bits).
+     Printed, not held: the A/B of cyclic reduction against the serial
+     walks on the same inputs (host-clock median of utils.timed, wall and
+     device ms, busy share and device operations of each): the CR step
+     against the twisted (K5 + mid + K6) and single-ended (K3 + K4) steps,
+     the CR posterior against K1 + K2's, cr_inverse_band(Kuu) against
+     K9 + K11 and
+     cr_logdet_solve(P, b) against K9 + K13 + K14
   7. times on the card (CUDA events, median of REPS; each plain version
      once after a warm-up, with no kernel launched by any of them; each fit
      REPS times on the host clock), the device time of K1, K2, K13, K14,
@@ -253,6 +275,11 @@ TOL_PREDICT = 1e-9   # max |card - cpu| / max |cpu|, mean and variance
 TOL_GRAD = 1e-8      # relative, each component against ANCHOR_GRAD
 TOL_ROUTES = 1e-9    # relative, twisted vs single-ended loss and gradient
 TOL_FIT = 1e-8       # relative, fitted losses against the JAX package's
+TOL_KUF = 1e-15      # absolute, Kuf's values (≤ 1) from the card against the CPU's: the
+                     # card divides by a scalar as a product with its reciprocal
+TOL_CR = 1e-9        # relative, the CR loss against ANCHOR_LOSS (the JAX CR route lies
+                     # 3.9e-12 from it) and its posterior and predictions against the
+                     # default route's (largest value)
 # the new kernels (K7-K12) against their plain versions at m = PARITY_M on
 # random bands: relative to the largest value of each output
 TOL_PARITY_ADJOINT = 1e-13
@@ -744,13 +771,13 @@ def cuda_ms(fn, reps: int = REPS) -> dict:
     return {"median_ms": float(np.median(ts)), "ms": ts}
 
 
-def make_model(x, y, m: int, device, dtype=None):
+def make_model(x, y, m: int, device, dtype=None, backend=None):
     from asvgp_tpu_torch.basis import B3Spline
     from asvgp_tpu_torch.models import GPR1D, Matern32
 
     return GPR1D(
         (x, y), Matern32(variance=1.0, lengthscales=1e-3), B3Spline(0.0, 1.0, m),
-        noise_variance=0.1, device=device, dtype=dtype,
+        noise_variance=0.1, device=device, dtype=dtype, backend=backend,
     )
 
 
@@ -3231,6 +3258,178 @@ def kernel_device_ms(fn, reps: int = REPS) -> dict:
     return {"device_ms": sum(per.values()) if per else "not measured", "by_kernel": per}
 
 
+CR_REPS = 3  # timed calls of each side of phase 6v's A/B (a CR step takes ~0.1 s)
+
+
+def cr_ab(fn) -> dict:
+    """One side of phase 6v's A/B: the host-clock median of
+    ``utils.profiling.timed`` and ``device_profile``'s wall and device ms,
+    busy share and device operations, all in this call."""
+    from asvgp_tpu_torch.utils import timed
+
+    seconds, _ = timed(fn, reps=CR_REPS)
+    return {"timed_ms": seconds * 1e3, **device_profile(fn, reps=CR_REPS)}
+
+
+def cr_phase(device, x, x_d, y_d, run, tr, bands) -> dict:
+    """Phase 6v: GPR1D(..., backend="cr") at the north star.  On fresh
+    counters, each held to launch none of K1–K23: the loss and its gradient
+    by backward(), the posterior (S_Kuu, S_P, u beside banded_posterior's
+    K1 + K2 results; predictions on the 10⁵ test points beside the default
+    route's), fit_lbfgs (10 iterations, curv_rtol 10).  A step and a
+    posterior under ``set_sync_debug_mode("error")``; a step traced by
+    ``utils.trace_to``; the fitted parameters through ``save_pytree`` /
+    ``load_pytree``; Kuf of 10⁴ points by ``kuf_to_scipy`` from the card
+    and from the CPU.  Then the A/B against the serial walks on the same
+    inputs: the CR step against the twisted (K5 + mid + K6) and the
+    single-ended (K3 + K4) steps, the CR posterior against K1 + K2's,
+    ``cr_inverse_band(Kuu)`` against K9 + K11 and ``cr_logdet_solve(P, b)``
+    against K9 + K13 + K14.  ``seconds`` times each part on the host
+    clock."""
+    import tempfile
+
+    from asvgp_tpu_torch import banded
+    from asvgp_tpu_torch.banded import core, cyclic
+    from asvgp_tpu_torch.train import fit_lbfgs, load_pytree, save_pytree
+    from asvgp_tpu_torch.utils import kuf_to_scipy, trace_to
+
+    kuu, _, p_band, b = bands
+    seconds = {}
+    t_part = time.perf_counter()
+    model = make_model(x_d, y_d, M, device, backend="cr")
+    init = model.params()
+    # one warm-up step and posterior: the basis tables reach the card once
+    value_and_grad(model)
+    model.posterior()
+
+    core.reset_counters()
+    loss, grad = value_and_grad(model)
+    step_launches = read_launches(device, "CR step", {})
+
+    with torch.no_grad():
+        ref = banded.banded_posterior(kuu, p_band, b)
+        core.reset_counters()
+        with banded.cr_scope(True):
+            got = banded.banded_posterior(kuu, p_band, b)
+    post_launches = read_launches(device, "CR posterior", {})
+    posterior_rel = {name: rel_err(g, r) for name, g, r in zip(("s_kuu", "s_p", "u"), got, ref)}
+    core.reset_counters()
+    post = model.posterior()
+    mean, var = post.predict_f(run["x_test"], batch=PREDICT_BATCH)
+    predict_launches = read_launches(device, "CR posterior and predict", {})
+    mean_ref, var_ref = run["posterior"].predict_f(run["x_test"], batch=PREDICT_BATCH)
+    predict_rel = {"mean": rel_err(mean, mean_ref), "var": rel_err(var, var_ref)}
+
+    # no host synchronisation in a step or a posterior
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.zero_grad(set_to_none=True)
+        model.training_loss().backward()
+        model.posterior()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(device)
+    seconds["checks"] = time.perf_counter() - t_part
+
+    # the A/B against the serial walks, on the same inputs, in this call
+    t_part = time.perf_counter()
+    tmodel = tr["model"]
+
+    def single_step():
+        with banded.twist_scope(False):
+            return value_and_grad(tmodel)
+
+    def k9_k11():
+        with torch.no_grad():
+            return banded.takahashi_inverse_band(banded.cholesky_band(kuu))
+
+    def k9_k13_k14():
+        with torch.no_grad():
+            l_p = banded.cholesky_band(p_band)
+            return banded.log_det_from_cholesky(l_p), banded.cholesky_solve_band(l_p, b)
+
+    def cr_logdet_solve():
+        with torch.no_grad():
+            return cyclic.cr_logdet_solve(p_band, b)
+
+    pairs = {
+        "step": {"cr": lambda: value_and_grad(model),
+                 "twisted_k5_mid_k6": lambda: value_and_grad(tmodel),
+                 "single_ended_k3_k4": single_step},
+        "posterior": {"cr": model.posterior, "k1_k2": tmodel.posterior},
+        "inverse_band_kuu": {"cr": lambda: cyclic.cr_inverse_band(kuu), "k9_k11": k9_k11},
+        "logdet_solve_p": {"cr": cr_logdet_solve, "k9_k13_k14": k9_k13_k14},
+    }
+    ab = {what: {side: cr_ab(fn) for side, fn in sides.items()} for what, sides in pairs.items()}
+    inv_cr, inv_k = cyclic.cr_inverse_band(kuu), k9_k11()
+    (ld_cr, u_cr), (ld_k, u_k) = cr_logdet_solve(), k9_k13_k14()
+    ab_rel = {"inverse_band_kuu": rel_err(inv_cr, inv_k),
+              "logdet_solve_p": {"logdet": rel(float(ld_cr), float(ld_k)),
+                                 "solve": rel_err(u_cr, u_k)}}
+    seconds["ab"] = time.perf_counter() - t_part
+
+    # trace one step
+    t_part = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        with trace_to(tmp):
+            value_and_grad(model)
+        files = sorted(Path(tmp).glob("*.json"))
+        events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    trace = {"files": len(files), "events": len(events),
+             "kernel_events": sum(1 for e in events if e.get("cat") == "kernel")}
+    seconds["trace"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the fit, on fresh counters
+    info = {}
+    core.reset_counters()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    params, fit_loss, iters = fit_lbfgs(model.training_loss, init, max_iters=10, curv_rtol=10.0,
+                                        info=info)
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_launches(device, "CR fit", {})
+
+    # checkpoint the fitted parameters and load them back on the card
+    model.load_jax_params(params)
+    with torch.no_grad():
+        saved_loss = model.training_loss()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = str(Path(tmp) / "cr_fit.pkl")
+        save_pytree(path, model.params())
+        model.load_jax_params(init)
+        loaded = load_pytree(path, model.params())
+    model.load_jax_params(loaded)
+    with torch.no_grad():
+        loaded_loss = model.training_loss()
+    ckpt = {"saved_loss": float(saved_loss), "loaded_loss": float(loaded_loss),
+            "bit_equal": bool(torch.equal(saved_loss, loaded_loss)),
+            "on_card": all(v.is_cuda for d in loaded.values() for v in d.values())}
+    model.load_jax_params(init)
+
+    # Kuf of the first 10⁴ points from the card and from the CPU: the same
+    # sparsity pattern; the values as the two devices' arithmetic gives them
+    kuf_card = kuf_to_scipy(model.basis, x_d[:10_000])
+    kuf_cpu = kuf_to_scipy(model.basis, x[:10_000], device="cpu")
+    diff = abs(kuf_card - kuf_cpu)
+    kuf = {"shape": list(kuf_card.shape), "nnz": kuf_card.nnz,
+           "pattern_equal": bool(kuf_card.shape == kuf_cpu.shape
+                                 and np.array_equal(kuf_card.indptr, kuf_cpu.indptr)
+                                 and np.array_equal(kuf_card.indices, kuf_cpu.indices)),
+           "values_differing": int((kuf_card != kuf_cpu).nnz),
+           "max_abs_diff": float(diff.max()) if diff.nnz else 0.0}
+    seconds["fit_checkpoint_kuf"] = time.perf_counter() - t_part
+    return {"loss": loss, "grad": grad, "posterior_rel": posterior_rel,
+            "predict_rel": predict_rel, "fit_loss": fit_loss, "fit_iters": iters,
+            "fit_evals": info["ls_evals"], "fit_s": fit_s, "ab": ab, "ab_rel": ab_rel,
+            "trace": trace, "checkpoint": ckpt, "kuf": kuf, "seconds": seconds,
+            "launches": {"step": step_launches, "posterior": post_launches,
+                         "posterior_and_predict": predict_launches, "fit": fit_launches}}
+
+
 def main() -> None:
     # ---- phase 0: card check ------------------------------------------------
     if not torch.cuda.is_available():
@@ -3846,6 +4045,42 @@ def main() -> None:
         raise AssertionError(f"a world of one rank differs from the run without it: {bad}")
     dp_launches = {n: sum(st["launches"].get(n, 0) for st in dp["steps"].values())
                    for n in KERNELS}
+
+    # ---- phase 6v: block cyclic reduction (GPR1D(..., backend="cr")) --------
+    cr = cr_phase(device, x, x_d, y_d, run, tr, main_bands)
+    cr_rel = {"loss_vs_anchor": rel(cr["loss"], ANCHOR_LOSS),
+              "loss_vs_twisted": rel(cr["loss"], tr["loss_twist"]),
+              "grad_vs_anchor": {n: rel(cr["grad"][n], ANCHOR_GRAD[n]) for n in PARAM_NAMES},
+              "fit_vs_anchor": rel(cr["fit_loss"], ANCHOR_FIT_LOSS)}
+    emit("6v_cr", card=smi, n=N, m=M, loss=cr["loss"], grad=cr["grad"], rel_err=cr_rel,
+         posterior_rel=cr["posterior_rel"], predict_rel=cr["predict_rel"],
+         fit_loss=cr["fit_loss"], fit_iters=cr["fit_iters"], fit_evals=cr["fit_evals"],
+         fit_s=cr["fit_s"], trace=cr["trace"], checkpoint=cr["checkpoint"],
+         kuf_card_vs_cpu=cr["kuf"], launches=cr["launches"], sync_free=True,
+         seconds=cr["seconds"],
+         tol={"loss": TOL_CR, "grad": TOL_GRAD, "routes": TOL_ROUTES, "posterior": TOL_CR,
+              "fit": TOL_FIT})
+    for what, sides in cr["ab"].items():
+        emit("6v_cr_ab", card=smi, what=what, **sides, cr_vs_walks_rel=cr["ab_rel"].get(what))
+    bad = []
+    if not cr_rel["loss_vs_anchor"] <= TOL_CR:
+        bad.append("loss vs ANCHOR_LOSS")
+    if not max(cr_rel["grad_vs_anchor"].values()) <= TOL_GRAD:
+        bad.append("gradient vs ANCHOR_GRAD")
+    if not cr_rel["loss_vs_twisted"] <= TOL_ROUTES:
+        bad.append("loss vs the twisted route")
+    if not max(*cr["posterior_rel"].values(), *cr["predict_rel"].values()) <= TOL_CR:
+        bad.append("posterior or predictions vs the default route")
+    if not (cr_rel["fit_vs_anchor"] <= TOL_FIT and cr["fit_iters"] == ANCHOR_FIT_ITERS):
+        bad.append("fit vs ANCHOR_FIT_LOSS")
+    if not (cr["trace"]["files"] == 1 and cr["trace"]["kernel_events"] > 0):
+        bad.append("trace_to wrote no trace with CUDA kernel events")
+    if not (cr["checkpoint"]["bit_equal"] and cr["checkpoint"]["on_card"]):
+        bad.append("checkpoint round trip")
+    if not (cr["kuf"]["pattern_equal"] and cr["kuf"]["max_abs_diff"] <= TOL_KUF):
+        bad.append("kuf_to_scipy from the card vs the CPU")
+    if bad:
+        raise AssertionError(f"phase 6v (cyclic reduction): {bad}; {cr_rel}")
 
     # ---- phase 7: times on the card ---------------------------------------
     from asvgp_tpu_torch import banded

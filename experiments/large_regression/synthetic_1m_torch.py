@@ -28,9 +28,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from asvgp_tpu_torch.basis import BSplineBasis  # noqa: E402
+from asvgp_tpu_torch.device import resolve_device  # noqa: E402
 from asvgp_tpu_torch.features import FourierBasis1D  # noqa: E402
 from asvgp_tpu_torch.models import GPR1D, GPRVFF, SVGP1D, Matern52, fit_svgp  # noqa: E402
-from asvgp_tpu_torch.models.gpr1d import resolve_device  # noqa: E402
 from asvgp_tpu_torch.models.parameters import positive  # noqa: E402
 from asvgp_tpu_torch.train import fit_adam_minibatch, fit_lbfgs, mse, nlpd  # noqa: E402
 

@@ -21,8 +21,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from asvgp_tpu_torch.basis import BSplineBasis  # noqa: E402
+from asvgp_tpu_torch.device import resolve_device  # noqa: E402
 from asvgp_tpu_torch.models import GPR1D, ExactGPR, Matern32  # noqa: E402
-from asvgp_tpu_torch.models.gpr1d import resolve_device  # noqa: E402
 from asvgp_tpu_torch.train import fit_lbfgs  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data", "snelson")

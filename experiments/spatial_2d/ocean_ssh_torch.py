@@ -42,8 +42,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from asvgp_tpu_torch.basis import BSplineBasis  # noqa: E402
+from asvgp_tpu_torch.device import resolve_device  # noqa: E402
 from asvgp_tpu_torch.models import GPRKron, Matern32  # noqa: E402
-from asvgp_tpu_torch.models.gpr1d import resolve_device  # noqa: E402
 from asvgp_tpu_torch.parallel import run_ranks, shard_data  # noqa: E402
 from asvgp_tpu_torch.parallel.launch import file_function_rank  # noqa: E402
 from asvgp_tpu_torch.train import fit_lbfgs, mse, nlpd  # noqa: E402
