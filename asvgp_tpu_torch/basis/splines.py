@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from asvgp_tpu_torch.basis import bsplines
+from asvgp_tpu_torch.utils.profiling import to_device
 
 
 def _banded_from_cells(cells_desc, m: int, scale: float) -> np.ndarray:
@@ -201,7 +202,7 @@ class BSplineBasis:
         t = (x - (self.a + c.to(x.dtype) * delta)) / delta
         # coeffs[s, q]: coefficient of t^q for basis function (cell + s)
         coeffs = bsplines.piece_coeff_matrix(self.order, dx) * delta ** (-dx)
-        coeffs = torch.as_tensor(coeffs, dtype=x.dtype, device=x.device)
+        coeffs = to_device(coeffs, x.dtype, x.device)
         deg = coeffs.shape[1]
         vals = coeffs[None, :, deg - 1].expand(x.shape[0], self.order + 1)
         for q in range(deg - 2, -1, -1):

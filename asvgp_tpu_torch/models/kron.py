@@ -53,6 +53,7 @@ from asvgp_tpu_torch.stats.kron_nd import (
     t_band_to_blocks_nd,
     t_band_trace_against_kron_nd,
 )
+from asvgp_tpu_torch.utils.profiling import span, to_device
 
 _LOG2PI = math.log(2.0 * math.pi)
 _F64 = torch.float64
@@ -125,35 +126,39 @@ class PosteriorKron(PerDimensionPosterior):
     def _predict_chunk(self, x):
         bases = self.bases
         k1 = bases[0].order
-        v1, c1 = make_kuf(bases[0], x[:, 0])
-        n = v1.shape[0]
-        r1 = c1[:, None] + torch.arange(k1 + 1, device=c1.device)[None, :]
-        # kusᵀ Kuu⁻¹ kus = Π_d (per-dimension window quadratic forms); with
-        # it the flattened trailing window: indices r_t (n, T) into the
-        # row-major Π_{d≥2} m_d axis and weights v_t (n, T), T = Π_{d≥2} (k_d+1)
-        q_prod = window_quadratic_form(self.s_bands[0], v1, c1)
-        v_t = r_t = None
-        for d in range(1, len(bases)):
-            vd, cd = make_kuf(bases[d], x[:, d])
-            rd = cd[:, None] + torch.arange(bases[d].order + 1, device=cd.device)[None, :]
-            q_prod = q_prod * window_quadratic_form(self.s_bands[d], vd, cd)
-            if v_t is None:
-                v_t, r_t = vd, rd
-            else:
-                r_t = (r_t[:, :, None] * bases[d].m + rd[:, None, :]).reshape(n, -1)
-                v_t = (v_t[:, :, None] * vd[:, None, :]).reshape(n, -1)
-        # mean = Σ v1[s1] v_t[t] w[c1+s1, r_t[t]]
-        w_win = self.w_flat[r1[:, :, None], r_t[:, None, :]]
-        mean = torch.einsum("na,nat,nt->n", v1, w_win, v_t)
-        # kusᵀ P⁻¹ kus through the windows of the block Takahashi band
-        quad_p = torch.zeros_like(mean)
-        for d in range(k1 + 1):
-            mult = 1.0 if d == 0 else 2.0
-            for s1 in range(k1 + 1 - d):
-                win = self.sp[d][(c1 + s1)[:, None, None], r_t[:, :, None], r_t[:, None, :]]
-                val = torch.einsum("nt,ntu,nu->n", v_t, win, v_t)
-                quad_p = quad_p + mult * v1[:, s1 + d] * v1[:, s1] * val
-        return mean, self.kdiag + quad_p - q_prod
+        with span("predict.basis"):
+            v1, c1 = make_kuf(bases[0], x[:, 0])
+            n = v1.shape[0]
+            r1 = c1[:, None] + torch.arange(k1 + 1, device=c1.device)[None, :]
+            # kusᵀ Kuu⁻¹ kus = Π_d (per-dimension window quadratic forms); with
+            # it the flattened trailing window: indices r_t (n, T) into the
+            # row-major Π_{d≥2} m_d axis and weights v_t (n, T), T = Π_{d≥2} (k_d+1)
+            q_prod = window_quadratic_form(self.s_bands[0], v1, c1)
+            v_t = r_t = None
+            for d in range(1, len(bases)):
+                vd, cd = make_kuf(bases[d], x[:, d])
+                rd = cd[:, None] + torch.arange(bases[d].order + 1, device=cd.device)[None, :]
+                q_prod = q_prod * window_quadratic_form(self.s_bands[d], vd, cd)
+                if v_t is None:
+                    v_t, r_t = vd, rd
+                else:
+                    r_t = (r_t[:, :, None] * bases[d].m + rd[:, None, :]).reshape(n, -1)
+                    v_t = (v_t[:, :, None] * vd[:, None, :]).reshape(n, -1)
+        with span("predict.mean"):
+            # mean = Σ v1[s1] v_t[t] w[c1+s1, r_t[t]]
+            w_win = self.w_flat[r1[:, :, None], r_t[:, None, :]]
+            mean = torch.einsum("na,nat,nt->n", v1, w_win, v_t)
+        with span("predict.var"):
+            # kusᵀ P⁻¹ kus through the windows of the block Takahashi band
+            quad_p = torch.zeros_like(mean)
+            for d in range(k1 + 1):
+                mult = 1.0 if d == 0 else 2.0
+                for s1 in range(k1 + 1 - d):
+                    win = self.sp[d][(c1 + s1)[:, None, None], r_t[:, :, None], r_t[:, None, :]]
+                    val = torch.einsum("nt,ntu,nu->n", v_t, win, v_t)
+                    quad_p = quad_p + mult * v1[:, s1 + d] * v1[:, s1] * val
+            var = self.kdiag + quad_p - q_prod
+        return mean, var
 
 
 class GPRKron(PerDimensionGP):
@@ -170,35 +175,36 @@ class GPRKron(PerDimensionGP):
 
     def __init__(self, data, kernels, bases, *, noise_variance=1.0, device=None, group=None):
         super().__init__()
-        X_in, y_in = data
-        xv = X_in if isinstance(X_in, np.ndarray) else torch.as_tensor(X_in)
-        if xv.ndim != 2 or xv.shape[1] < 2:
-            raise ValueError("GPRKron requires inputs of shape (n, D) with D >= 2")
-        D = xv.shape[1]
-        if len(kernels) != D or len(bases) != D:
-            raise ValueError("need one kernel and one basis per input dimension")
-        check_domain(xv, bases)
-        for k, b in zip(kernels, bases):
-            validate_kernel_basis(k, b)
-        device = resolve_device(device)
-        self.bases = list(bases)
-        self.D = D
-        self._init_parameters(kernels, noise_variance, device)
-
-        X = torch.as_tensor(X_in, dtype=_F64, device=device)
-        yf = torch.as_tensor(y_in, dtype=_F64, device=device).reshape(-1)
-        if X.shape[0] != yf.shape[0]:
-            raise ValueError("X and y must have the same number of points")
-        if group is None:
-            build = compute_kron_stats if D == 2 else compute_kron_stats_nd
-            stats = build(self.bases, X, yf)
-        else:
-            build = compute_kron_stats_sharded if D == 2 else compute_kron_stats_nd_sharded
-            stats = build(self.bases, X, yf, group)
-        self.register_buffer("kuf_y", stats.kuf_y)
-        self.register_buffer("t_band", stats.t_band)
-        self.register_buffer("yty", stats.yty)
-        self.register_buffer("n", stats.n)
+        with span("kron.init", device):
+            with span("model.check"):
+                X_in, y_in = data
+                xv = X_in if isinstance(X_in, np.ndarray) else torch.as_tensor(X_in)
+                if xv.ndim != 2 or xv.shape[1] < 2:
+                    raise ValueError("GPRKron requires inputs of shape (n, D) with D >= 2")
+                D = xv.shape[1]
+                if len(kernels) != D or len(bases) != D:
+                    raise ValueError("need one kernel and one basis per input dimension")
+                check_domain(xv, bases)
+                for k, b in zip(kernels, bases):
+                    validate_kernel_basis(k, b)
+                device = resolve_device(device)
+                self.bases = list(bases)
+                self.D = D
+                self._init_parameters(kernels, noise_variance, device)
+                X = to_device(X_in, _F64, device)
+                yf = to_device(y_in, _F64, device).reshape(-1)
+                if X.shape[0] != yf.shape[0]:
+                    raise ValueError("X and y must have the same number of points")
+            if group is None:
+                build = compute_kron_stats if D == 2 else compute_kron_stats_nd
+                stats = build(self.bases, X, yf)
+            else:
+                build = compute_kron_stats_sharded if D == 2 else compute_kron_stats_nd_sharded
+                stats = build(self.bases, X, yf, group)
+            self.register_buffer("kuf_y", stats.kuf_y)
+            self.register_buffer("t_band", stats.t_band)
+            self.register_buffer("yty", stats.yty)
+            self.register_buffer("n", stats.n)
 
     @property
     def stats(self) -> KronStats:

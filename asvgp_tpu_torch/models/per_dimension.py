@@ -16,6 +16,7 @@ from torch import nn
 from asvgp_tpu_torch.models.kernels import Matern
 from asvgp_tpu_torch.models.likelihoods import Gaussian
 from asvgp_tpu_torch.models.parameters import positive, positive_inverse
+from asvgp_tpu_torch.utils.profiling import host_value, span, to_device
 
 _F64 = torch.float64
 
@@ -33,7 +34,7 @@ def check_domain(xv, bases) -> None:
     """Raise unless every input lies strictly inside its basis' domain (on
     the host when the caller passed host data)."""
     for d, basis in enumerate(bases):
-        lo, hi = float(xv[:, d].min()), float(xv[:, d].max())
+        lo, hi = host_value(xv[:, d].min()), host_value(xv[:, d].max())
         if not (lo > basis.a and hi < basis.b):
             raise ValueError(f"dim {d}: inputs must lie strictly inside "
                              f"[{basis.a}, {basis.b}], got [{lo}, {hi}]")
@@ -62,21 +63,22 @@ class PerDimensionPosterior:
         dropped."""
         if full_cov:
             raise NotImplementedError("full_cov prediction is not implemented")
-        D = len(self.bases)
-        x = torch.as_tensor(Xnew, dtype=_F64, device=self.device).reshape(-1, D)
-        n = x.shape[0]
-        if not batch or n <= batch:
-            mean, var = self._predict_chunk(x)
-            return mean[:, None], var[:, None]
-        n_pad = (-n) % batch
-        centre = x.new_tensor([0.5 * (b.a + b.b) for b in self.bases])
-        xp = torch.cat([x, centre.expand(n_pad, D)])
-        means, vars_ = [], []
-        for lo in range(0, n + n_pad, batch):
-            mc, vc = self._predict_chunk(xp[lo:lo + batch])
-            means.append(mc)
-            vars_.append(vc)
-        return torch.cat(means)[:n, None], torch.cat(vars_)[:n, None]
+        with span("predict_f", self.device):
+            D = len(self.bases)
+            x = to_device(Xnew, _F64, self.device).reshape(-1, D)
+            n = x.shape[0]
+            if not batch or n <= batch:
+                mean, var = self._predict_chunk(x)
+                return mean[:, None], var[:, None]
+            n_pad = (-n) % batch
+            centre = to_device([0.5 * (b.a + b.b) for b in self.bases], x.dtype, x.device)
+            xp = torch.cat([x, centre.expand(n_pad, D)])
+            means, vars_ = [], []
+            for lo in range(0, n + n_pad, batch):
+                mc, vc = self._predict_chunk(xp[lo:lo + batch])
+                means.append(mc)
+                vars_.append(vc)
+            return torch.cat(means)[:n, None], torch.cat(vars_)[:n, None]
 
     def predict_y(self, Xnew, batch: int | None = None):
         mean, var = self.predict_f(Xnew, batch=batch)
@@ -109,7 +111,7 @@ class PerDimensionGP(nn.Module):
         init = self.init_params()
 
         def param(value):
-            return nn.Parameter(torch.as_tensor(value, dtype=_F64, device=device))
+            return nn.Parameter(to_device(value, _F64, device))
 
         self.raw_variances = nn.ParameterList(
             [param(p["raw_variance"]) for p in init["kernels"]])

@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from asvgp_tpu_torch.stats.sufficient import _prefix_sums, _totals, all_reduce_stats
+from asvgp_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -52,55 +53,69 @@ def compute_kron_stats(bases, X: torch.Tensor, y: torch.Tensor, w=None) -> KronS
     yf = y.reshape(-1)
     n = yf.shape[0]
 
-    v1, c1 = b1.evaluate_basis(X[:, 0], dx=0)
-    v2, c2 = b2.evaluate_basis(X[:, 1], dx=0)
-    if w is not None:
-        v1 = v1 * w[:, None]
-    yty, n_t = _totals(yf, w)
+    with span("stats.basis"):
+        v1, c1 = b1.evaluate_basis(X[:, 0], dx=0)
+        v2, c2 = b2.evaluate_basis(X[:, 1], dx=0)
+        if w is not None:
+            v1 = v1 * w[:, None]
+        yty, n_t = _totals(yf, w)
 
-    # sort once by joint cell
-    joint = c1 * nc2 + c2
-    order = torch.argsort(joint, stable=True)
-    v1, v2, ys, joint_s = v1[order], v2[order], yf[order], joint[order]
-    ncells = nc1 * nc2
-    bounds = torch.searchsorted(
-        joint_s, torch.arange(ncells + 1, dtype=joint_s.dtype, device=joint_s.device))
+    with span("stats.sort"):
+        # sort once by joint cell
+        joint = c1 * nc2 + c2
+        order = torch.argsort(joint, stable=True)
+        v1, v2, ys, joint_s = v1[order], v2[order], yf[order], joint[order]
+        ncells = nc1 * nc2
+        bounds = torch.searchsorted(
+            joint_s, torch.arange(ncells + 1, dtype=joint_s.dtype, device=joint_s.device))
 
     pairs1, pairs2 = _pairs(k1), _pairs(k2)
     p1idx = {p: i for i, p in enumerate(pairs1)}
     p2idx = {p: i for i, p in enumerate(pairs2)}
     np1, np2 = len(pairs1), len(pairs2)
 
-    p1 = torch.stack([v1[:, a] * v1[:, b] for a, b in pairs1], dim=0)  # (np1, n)
-    p2 = torch.stack([v2[:, a] * v2[:, b] for a, b in pairs2], dim=0)  # (np2, n)
-    y1 = v1.T * ys  # (k1+1, n)
+    with span("stats.series"):
+        p1 = torch.stack([v1[:, a] * v1[:, b] for a, b in pairs1], dim=0)  # (np1, n)
+        p2 = torch.stack([v2[:, a] * v2[:, b] for a, b in pairs2], dim=0)  # (np2, n)
+        y1 = v1.T * ys  # (k1+1, n)
 
     def cell_block(rows):
         """(c, n) series -> (c, nc1, nc2) per-cell sums."""
-        c = _prefix_sums(rows)
-        return (c[:, bounds[1:]] - c[:, bounds[:-1]]).reshape(rows.shape[0], nc1, nc2)
+        with span("stats.scan"):
+            c = _prefix_sums(rows)
+            return (c[:, bounds[1:]] - c[:, bounds[:-1]]).reshape(rows.shape[0], nc1, nc2)
 
+    # a block of about 128 series at a time; each block's series are freed
+    # before the next block's are made
     g = max(1, 128 // np2)
-    grid = torch.cat([
-        cell_block((p1[i0:i0 + g, None, :] * p2[None, :, :]).reshape(-1, n))
-        for i0 in range(0, np1, g)
-    ])  # (np1*np2, nc1, nc2), series i*np2 + j
-    gy = cell_block((y1[:, None, :] * v2.T[None, :, :]).reshape(-1, n))  # s1*(k2+1) + s2
+    blocks = []
+    for i0 in range(0, np1, g):
+        with span("stats.series"):
+            rows = (p1[i0:i0 + g, None, :] * p2[None, :, :]).reshape(-1, n)
+        blocks.append(cell_block(rows))
+        del rows
+    with span("stats.series"):
+        grid = torch.cat(blocks)  # (np1*np2, nc1, nc2), series i*np2 + j
+        del blocks
+        rows = (y1[:, None, :] * v2.T[None, :, :]).reshape(-1, n)
+    gy = cell_block(rows)  # s1*(k2+1) + s2
+    del rows
 
-    kuf_y = v1.new_zeros((m1, m2))
-    for s1 in range(k1 + 1):
-        for s2 in range(k2 + 1):
-            kuf_y[s1:s1 + nc1, s2:s2 + nc2] += gy[s1 * (k2 + 1) + s2]
+    with span("stats.scatter"):
+        kuf_y = v1.new_zeros((m1, m2))
+        for s1 in range(k1 + 1):
+            for s2 in range(k2 + 1):
+                kuf_y[s1:s1 + nc1, s2:s2 + nc2] += gy[s1 * (k2 + 1) + s2]
 
-    t_band = v1.new_zeros((k1 + 1, 2 * k2 + 1, m1, m2))
-    for p in range(k1 + 1):
-        for o2 in range(-k2, k2 + 1):
-            acc = t_band[p, o2 + k2]
-            for s1 in range(k1 + 1 - p):
-                i = p1idx[(s1, s1 + p)]
-                for s2 in range(max(0, -o2), min(k2, k2 - o2) + 1):
-                    j = p2idx[(min(s2, s2 + o2), max(s2, s2 + o2))]
-                    acc[s1:s1 + nc1, s2:s2 + nc2] += grid[i * np2 + j]
+        t_band = v1.new_zeros((k1 + 1, 2 * k2 + 1, m1, m2))
+        for p in range(k1 + 1):
+            for o2 in range(-k2, k2 + 1):
+                acc = t_band[p, o2 + k2]
+                for s1 in range(k1 + 1 - p):
+                    i = p1idx[(s1, s1 + p)]
+                    for s2 in range(max(0, -o2), min(k2, k2 - o2) + 1):
+                        j = p2idx[(min(s2, s2 + o2), max(s2, s2 + o2))]
+                        acc[s1:s1 + nc1, s2:s2 + nc2] += grid[i * np2 + j]
     return KronStats(kuf_y=kuf_y.reshape(-1), t_band=t_band, yty=yty, n=n_t)
 
 

@@ -22,6 +22,8 @@ import dataclasses
 
 import torch
 
+from asvgp_tpu_torch.utils.profiling import to_device
+
 
 @dataclasses.dataclass
 class SufficientStats:
@@ -87,8 +89,7 @@ def _stats_sorted(m: int, vals, start, yf) -> tuple:
 def _totals(yf, w):
     """yᵀy and n of the points (y flat), weighted by ``w`` when given."""
     if w is None:
-        return (torch.sum(torch.square(yf)),
-                torch.tensor(float(yf.shape[0]), dtype=yf.dtype, device=yf.device))
+        return (torch.sum(torch.square(yf)), to_device(float(yf.shape[0]), yf.dtype, yf.device))
     return torch.sum(w * torch.square(yf)), torch.sum(w)
 
 

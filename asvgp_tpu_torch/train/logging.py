@@ -1,7 +1,9 @@
-"""Structured metrics logging: step metrics as JSONL and the wall-time split
-of precompute, optimize and predict that the reference reports.
+"""The wall-time split of precompute, optimize and predict that the
+reference reports.
 
-PyTorch counterpart of ``asvgp_tpu/train/logging.py``.  ``WallClock``
+PyTorch counterpart of ``asvgp_tpu/train/logging.py``'s ``WallClock`` (its
+``MetricsLogger`` of step rows has no counterpart: nothing of the port
+reads one; the port's phases are spans, utils/profiling.py).  ``WallClock``
 takes a device: on a CUDA device each section synchronises the device
 where it starts and ends, so the host clock covers the work the section
 queued there and nothing queued before it.
@@ -9,34 +11,9 @@ queued there and nothing queued before it.
 
 from __future__ import annotations
 
-import json
 import time
 
 import torch
-
-
-class MetricsLogger:
-    """Append step metric dicts to a JSONL file (or collect them in memory)."""
-
-    def __init__(self, path: str | None = None):
-        self.path = path
-        self.rows = []
-        self._fh = open(path, "a") if path else None
-
-    def log(self, step: int, **metrics):
-        row = {"step": step, "time": time.time(), **{
-            k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()
-        }}
-        self.rows.append(row)
-        if self._fh:
-            self._fh.write(json.dumps(row) + "\n")
-            self._fh.flush()
-        return row
-
-    def close(self):
-        if self._fh:
-            self._fh.close()
-            self._fh = None
 
 
 class WallClock:

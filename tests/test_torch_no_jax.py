@@ -87,6 +87,9 @@ NOT_PORTED_NAMES = {
     # per_dimension.params_to_kernels and parameters.positive_inverse
     "params_to_kernel", "params_to_likelihood", "kron_params_to_kernels",
     "positive_inverse_host",
+    # step rows in JSONL, which nothing of the port reads: the port's
+    # phases are the spans of utils/profiling.py
+    "MetricsLogger",
 }
 
 
