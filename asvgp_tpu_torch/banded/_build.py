@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("banded_core.cu", "banded_tan.cu", "banded_adjoint.cu",
-                 "banded_solve.cu", "block_chol_inv.cu"))
+                 "banded_solve.cu", "block_chol_inv.cu", "block_window.cu"))
 # included by the sources: part of the library's hash
 HEADERS = tuple(_PKG / "csrc" / name
                 for name in ("chunk_scan.cuh", "schur_walk.cuh", "forward_sweeps.cuh"))
@@ -59,6 +59,7 @@ ENTRY_POINTS = {
     "asvgp_solve_lower_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_solve_upper_t_f32": (_I, _I, _I) + (_VP,) * 5,
     "asvgp_chol_inv_dense": (_I, _I) + (_VP,) * 5,
+    "asvgp_block_window_quad": (_I,) * 5 + (_VP,) * 7,
     # not launches either: the chunk length a linear sweep's rule chooses
     # (the adjoints and K11 / K19; K2; K4; K6), read back for reporting
     "asvgp_linear_chunk_cols": (_I, _I, _I, _VP, _I, _VP, _VP),

@@ -50,9 +50,10 @@ from asvgp_tpu_torch.banded import _build, ops
 # one count per kernel: K1, K2, K7, K8, K23 here; K3, K4 in banded/tan.py;
 # K5, K6 in banded/twist.py; K9-K12, K15 and their float32 forms K17-K20 in
 # banded/single.py; K13, K14 and their float32 forms K21, K22 in
-# banded/solve.py; K16 in banded/dense_block.py.  K7, K12 and K23 share one
-# CUDA kernel, K8 and K10 another, K9 and K15 a third: each wrapper keeps
-# its own count, and each dtype route its own
+# banded/solve.py; K16 in banded/dense_block.py; K24 in
+# banded/block_window.py.  K7, K12 and K23 share one CUDA kernel, K8 and
+# K10 another, K9 and K15 a third: each wrapper keeps its own count, and
+# each dtype route its own
 LAUNCHES = {
     "chol_pair_solve": 0,
     "tak_pair_solve": 0,
@@ -77,6 +78,7 @@ LAUNCHES = {
     "tak_bwd_f32": 0,
     "solve_lower_f32": 0,
     "solve_upper_t_f32": 0,
+    "block_window_quad": 0,
 }
 PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 

@@ -11,8 +11,8 @@ factorized or banded:
              of side M₂ = Π_{d≥2} m_d, the trailing dimensions flattened
              row-major): the blocked Cholesky of banded/block.py, whose
              diagonal-block step is K16
-  predict    the block Takahashi band of P⁻¹ and per-point window gathers,
-             O(Π_d (k_d+1)²) per test point
+  predict    the block Takahashi band of P⁻¹ and its per-point window
+             quadratic form (K24), O(Π_d (k_d+1)²) per test point
 
 D = 2 takes the statistics of stats/kron.py, D ≥ 3 those of
 stats/kron_nd.py.  The data enter through the sufficient statistics,
@@ -30,6 +30,7 @@ import torch
 
 from asvgp_tpu_torch import banded
 from asvgp_tpu_torch.banded import block
+from asvgp_tpu_torch.banded.block_window import block_window_quad
 from asvgp_tpu_torch.device import resolve_device
 from asvgp_tpu_torch.features.spline_features import make_kuf, make_kuu, validate_kernel_basis
 from asvgp_tpu_torch.models.gpr1d import window_quadratic_form
@@ -113,8 +114,12 @@ def kron_collapsed_elbo(bases, nu2s, params, stats: KronStats):
 
 class PosteriorKron(PerDimensionPosterior):
     """Cached GPRKron posterior: the block factorization is done once at
-    construction; each prediction is window gathers, O(Π_d (k_d+1)²) per
-    point, on the device of the posterior arrays."""
+    construction; each prediction is window gathers and the variance's
+    window quadratic form in P⁻¹'s block band (K24), O(Π_d (k_d+1)²) per
+    point, on the device of the posterior arrays.  On the GPU a prediction
+    is not differentiable (K24 has no backward) and raises
+    NotImplementedError for test points that require grad; on the CPU it
+    is."""
 
     def __init__(self, kernels, lik, bases, w_flat, sp, s_bands):
         super().__init__(kernels, lik, bases, w_flat.device)
@@ -149,14 +154,8 @@ class PosteriorKron(PerDimensionPosterior):
             w_win = self.w_flat[r1[:, :, None], r_t[:, None, :]]
             mean = torch.einsum("na,nat,nt->n", v1, w_win, v_t)
         with span("predict.var"):
-            # kusᵀ P⁻¹ kus through the windows of the block Takahashi band
-            quad_p = torch.zeros_like(mean)
-            for d in range(k1 + 1):
-                mult = 1.0 if d == 0 else 2.0
-                for s1 in range(k1 + 1 - d):
-                    win = self.sp[d][(c1 + s1)[:, None, None], r_t[:, :, None], r_t[:, None, :]]
-                    val = torch.einsum("nt,ntu,nu->n", v_t, win, v_t)
-                    quad_p = quad_p + mult * v1[:, s1 + d] * v1[:, s1] * val
+            # kusᵀ P⁻¹ kus through the windows of the block Takahashi band (K24)
+            quad_p = block_window_quad(self.sp, v1, c1, v_t, r_t)
             var = self.kdiag + quad_p - q_prod
         return mean, var
 

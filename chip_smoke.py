@@ -78,10 +78,17 @@ entry points, on the card:
      the posterior, predictions on 10⁵ held-out points, MSE and NLPD, all
      held to tools/kron_anchors.py's values; predictions against a
      posterior built by the plain versions on a CPU copy
-  6i. its proof: construction and prediction launch nothing, a step K9,
-     K10, K11, K12 twice each and K16 once per block column (100), the fit
-     that per evaluation, the posterior K9 = K11 = 2 and K16 = 100; K16
-     against its plain version on the 100 diagonal blocks the step gave it
+  6i. its proof: construction launches nothing, a step K9, K10, K11, K12
+     twice each and K16 once per block column (100), the fit that per
+     evaluation, the posterior K9 = K11 = 2 and K16 = 100, the predictions
+     K24 once a chunk; K16 against its plain version on the 100 diagonal
+     blocks the step gave it; K24 at the map cell's shape
+     (benchmark/traffic/map.json: one 1000 × 1000 map over (0.02, 0.98)²,
+     10⁶ points, k₁ = 4, T = 5) on the posterior's band of P⁻¹, its
+     windows taken from predict_f (one launch a request) in the map's
+     row-major order and in a shuffled order: against its plain version on
+     the card within 1e-13, two launches bit-equal, the shuffled result the
+     ordered one permuted bit for bit
   6j. the solves and the float32 kernels: K13/K14 (float64) and K17–K22
      (float32) against their plain versions for k = 1..6 on random SPD
      bands, the solves with a vector and a matrix right-hand side; at the
@@ -131,7 +138,8 @@ entry points, on the card:
      ocean_ssh_torch.py, ``run``) at its full width with 10 iterations: its
      ELBO, MSE and NLL held to tools/kron_anchors.py's values at GPRKron's
      bars in 10 iterations and 12 evaluations, its artifact's keys the JAX
-     script's without relay_wait_s, each stage's launches exact
+     script's without relay_wait_s, each stage's launches exact (the
+     predict stage's three predictions one K24 launch each)
   6r. GPRKron at D = 3 (tools/kron_nd_anchors.py's shape: 10⁶ points of a
      3-D field, 3 × B3 of m = 20, so P has 20 block columns of dense 400 ×
      400 blocks): the statistics (built twice: the same bits), the loss and
@@ -139,9 +147,10 @@ entry points, on the card:
      three times), the posterior, predictions on 10⁵ held-out points, MSE
      and NLPD, all held to that script's values; predictions against a
      posterior built by the plain versions on a CPU copy
-  6s. its proof: construction and prediction launch nothing, a step K9,
-     K10, K11, K12 three times each and K16 20 times, the fit that per
-     evaluation, the posterior K9 = K11 = 3 and K16 = 20; K16 at B = 400
+  6s. its proof: construction launches nothing, a step K9, K10, K11, K12
+     three times each and K16 20 times, the fit that per evaluation, the
+     posterior K9 = K11 = 3 and K16 = 20, the predictions K24 (T = 16, the
+     kernel's run-time T) once a chunk; K16 at B = 400
      equal bit for bit to its plain version on the step's 20 diagonal
      blocks, K9–K12 within 1e-13 of theirs on the step's arguments
   6t. the float32 trainers: fit_lbfgs of the float32 GPR1D on Snelson
@@ -192,7 +201,8 @@ entry points, on the card:
      K21, K22,
      the adjoints K7, K8, K10, K12, K18, K20, K23, the forward sweeps K9,
      K11, K15, K17, K19, the twisted sweeps K5, K6, the single-ended
-     sweeps K3, K4, and K16 alone
+     sweeps K3, K4, K16 alone, and K24 on the map's windows in its order
+     and shuffled
      (torch.profiler), of K1 + K2, the float64 posterior and the value-only
      ELBO, of the mid step, of K5 + mid + K6, of K3 + K4 and of the twisted
      and single-ended value-and-grad steps, and the partitioned kernels' and those steps'
@@ -372,6 +382,9 @@ KERNELS = {
                         "asvgp_tpu/banded/pallas_kernels.py:486"),
     "solve_upper_t_f32": ("asvgp_tpu_torch/csrc/banded_solve.cu",
                           "asvgp_tpu/banded/pallas_kernels.py:527"),
+    # K24 replaces no TPU kernel: the JAX package gathers the windows with
+    # XLA (asvgp_tpu/models/kron.py:448-465)
+    "block_window_quad": ("asvgp_tpu_torch/csrc/block_window.cu", None),
 }
 SERVING_KERNELS = ("chol_pair_solve", "tak_pair_solve")
 TRAINING_KERNELS = ("chol_pair_solve_tan", "tak_pair_solve_tan",
@@ -434,6 +447,16 @@ K16_KAPPAS = (1.0, 1e4, 1e10)
 KRON_STEP = {"chol_fwd": 2, "chol_bwd": 2, "tak_fwd": 2, "tak_bwd": 2,
              "chol_inv_dense": KRON_M}
 KRON_POSTERIOR = {"chol_fwd": 2, "tak_fwd": 2, "chol_inv_dense": KRON_M}
+# the eNATL60 leg's predict stage: the posterior, then predict_f,
+# predict_log_density and a warm predict_f, each one chunk and one K24
+ENATL_PREDICT = KRON_POSTERIOR | {"block_window_quad": 3}
+# K24 at the map cell's request (benchmark/traffic/map.json): a MAP_GRID ×
+# MAP_GRID map over (MAP_LO, MAP_HI)², shifted by MAP_SHIFT of a grid step,
+# in the map's row-major order and permuted from MAP_SHUFFLE_SEED
+MAP_GRID, MAP_LO, MAP_HI, MAP_SHIFT, MAP_SHUFFLE_SEED = 1000, 0.02, 0.98, (0.37, 0.61), 5
+# K24 against its plain version on the card, relative to the largest value:
+# one FP64 sum in another order (7.1e-16 measured at this shape)
+TOL_K24 = 1e-13
 
 # GPRAdditive at ADDITIVE_PROBE.json's shape (tools/additive_probe.py):
 # N_ADD points in ADD_D dimensions from RandomState(ADD_SEED), y = Σ_d
@@ -1343,6 +1366,65 @@ def k16_parity(device) -> dict:
             "upper_zero": all(r["upper_zero"] for r in rows)}
 
 
+def map_request(device) -> torch.Tensor:
+    """The map cell's request (benchmark/entries/map.py's ``request`` at
+    D = 2): MAP_GRID² points in the map's row-major order."""
+    step = (MAP_HI - MAP_LO) / MAP_GRID
+    base = torch.arange(MAP_GRID, dtype=torch.float64, device=device)
+    u, v = (MAP_LO + (base + shift) * step for shift in MAP_SHIFT)
+    return torch.stack([u[:, None].expand(MAP_GRID, MAP_GRID).reshape(-1),
+                        v[None, :].expand(MAP_GRID, MAP_GRID).reshape(-1)], dim=1)
+
+
+def block_window_phase(device, post) -> dict:
+    """Phase 6i's K24 rows: the windows of one map request, taken from
+    ``post.predict_f`` (one launch a request) in the map's order and in a
+    shuffled order; K24 on them against its plain version on the card, two
+    launches bit-equal, the shuffled result the ordered one permuted bit
+    for bit.  Returns the errors and both sets of windows."""
+    from asvgp_tpu_torch.banded import core
+    from asvgp_tpu_torch.banded.block_window import block_window_quad, block_window_quad_plain
+
+    kron = importlib.import_module("asvgp_tpu_torch.models.kron")
+    x = map_request(device)
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(MAP_SHUFFLE_SEED))
+    perm = perm.to(device)
+    windows: dict = {}
+    core.reset_counters()
+    with capture(windows, kron, "block_window_quad"):
+        post.predict_f(x)
+        post.predict_f(x[perm])
+    launches = read_launches(device, "a map request and its shuffled copy",
+                             {"block_window_quad": 2})
+    ordered, shuffled = windows["block_window_quad"]
+    core.reset_counters()
+    got, again = block_window_quad(*ordered), block_window_quad(*ordered)
+    got_shuffled = block_window_quad(*shuffled)
+    read_launches(device, "K24 on the map's windows", {"block_window_quad": 3})
+    want = block_window_quad_plain(*ordered)
+    torch.cuda.synchronize(device)
+    return {"n": x.shape[0], "K": ordered[0].shape[0], "T": ordered[3].shape[1],
+            "launches": launches, "bit_equal": bool(torch.equal(got, again)),
+            "shuffled_bit_equal": bool(torch.equal(got_shuffled, got[perm])),
+            "errs": _errs("block_window_quad", (got,), (want,)),
+            "ordered": ordered, "shuffled": shuffled}
+
+
+def block_window_bound(windows) -> dict:
+    """K24's bound on one map request (D = 2): its useful operations, T²
+    products and sums a block pair and 3 to weigh and add it (795 a point at
+    K = T = 5, benchmark/arith/kron.py's quad_p), at the FP64 rate of its
+    scalar fma; against the band entries a window can reach (T − 1 either
+    side of the diagonal of each M2 × M2 block), the windows and the output,
+    each moved once."""
+    sp, v1, c1, v_t, r_t = windows
+    K, m1, M2 = sp.shape[:3]
+    n, T = v_t.shape
+    ops = n * K * (K + 1) // 2 * (2 * T * T + 3)
+    reach = K * m1 * M2 * (2 * T - 1) * sp.element_size()
+    return bound(ops, reach + tensor_bytes((v1, c1, v_t, r_t)) + n * sp.element_size())
+
+
 def synthetic_ssh(n: int, seed: int = KRON_SEED):
     """experiments/spatial_2d/ocean_ssh.py's field: long swirls and eddies
     on (0.02, 0.98)², noise 0.15."""
@@ -1410,8 +1492,8 @@ def kron_path(device, data, n_test: int, d: int, m: int, order: int, ell: float,
     statistics (built twice), one value-and-grad step (the arguments K16
     and K9-K12 got kept) held to ``step``, fit_lbfgs ``fit_reps`` + 1 times,
     the posterior at the fitted parameters held to ``posterior``,
-    predictions, MSE and NLPD, and the same predictions from a posterior
-    built by the plain versions on a CPU copy."""
+    predictions (K24 once a chunk), MSE and NLPD, and the same predictions
+    from a posterior built by the plain versions on a CPU copy."""
     from asvgp_tpu_torch.banded import block, core, single
     from asvgp_tpu_torch.basis import BSplineBasis
     from asvgp_tpu_torch.models import GPRKron, Matern32
@@ -1461,7 +1543,9 @@ def kron_path(device, data, n_test: int, d: int, m: int, order: int, ell: float,
     log_density = post.predict_log_density((Xte, yte), batch=PREDICT_BATCH)
     yte_d = torch.as_tensor(yte, device=device)
     score_mse, score_nlpd = float(mse(yte_d, mean)), float(nlpd(log_density))
-    predict_launches = read_launches(device, f"{where} predict", {})
+    # predict_f and predict_log_density, each in chunks of PREDICT_BATCH
+    predict_launches = read_launches(device, f"{where} predict",
+                                     {"block_window_quad": 2 * math.ceil(n_test / PREDICT_BATCH)})
     if not (mean.shape == var.shape == (n_test, 1)):
         raise AssertionError(f"{where} predict_f shapes {tuple(mean.shape)}, {tuple(var.shape)}")
     if not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())
@@ -1491,7 +1575,7 @@ def enatl_leg(device) -> dict:
     """Phase 6q: the eNATL60 protocol's torch leg (``ocean_ssh_torch.run``)
     at its defaults with ENATL_ITERS iterations, each stage on fresh
     counters: construction launches nothing, the fit KRON_STEP per
-    evaluation, the predict stage KRON_POSTERIOR (one posterior serves both
+    evaluation, the predict stage ENATL_PREDICT (one posterior serves both
     metrics).  Returns the artifact, the launches and host seconds per
     stage."""
     from asvgp_tpu_torch.banded import core
@@ -1517,7 +1601,7 @@ def enatl_leg(device) -> dict:
     art = leg.run(args, stage=stage)
     evals = art["opt_info"]["ls_evals"]
     want = {"precompute": {}, "optimize": {n: c * evals for n, c in KRON_STEP.items()},
-            "predict": KRON_POSTERIOR}
+            "predict": ENATL_PREDICT}
     for name, per in want.items():
         expected = {n: per.get(n, 0) for n in KERNELS}
         if launches[name] != expected:
@@ -3704,6 +3788,17 @@ def main() -> None:
     check_parity(k16_main, tol_k16_main, "of K16 on the Kron step's diagonal blocks")
     main_parity |= k16_main
     path_launches["chol_inv_dense"] = kfit["launches"]["chol_inv_dense"]
+    # K24 at the map cell's shape on this posterior's band of P⁻¹
+    bw = block_window_phase(device, kr["post"])
+    emit("6i_block_window", card=smi, n=bw["n"], K=bw["K"], T=bw["T"],
+         launches=bw["launches"], bit_equal=bw["bit_equal"],
+         shuffled_bit_equal=bw["shuffled_bit_equal"], **bw["errs"], tol=TOL_K24)
+    check_parity(bw["errs"], TOL_K24, "of K24 at the map cell's shape")
+    if not (bw["bit_equal"] and bw["shuffled_bit_equal"]):
+        raise AssertionError(f"K24 is not repeatable bit for bit: two launches equal "
+                             f"{bw['bit_equal']}, shuffled equal {bw['shuffled_bit_equal']}")
+    main_parity |= bw["errs"]
+    path_launches["block_window_quad"] = kr["launches"]["predict"]["block_window_quad"]
 
     # ---- phase 6j: the solves K13/K14 and the float32 kernels K17-K22 -------
     for k in range(1, 7):
@@ -4148,6 +4243,12 @@ def main() -> None:
                                lambda: dense_block.chol_inv_dense_plain(blk))
     blk_batch = torch.stack(k16_blocks)
     eye = torch.eye(blk.shape[0], dtype=blk.dtype, device=device)
+    # K24 on one map request's windows (phase 6i), in the map's order; its
+    # time on the same points shuffled is block_window_quad_shuffled
+    from asvgp_tpu_torch.banded.block_window import block_window_quad, block_window_quad_plain
+
+    calls["block_window_quad"] = (lambda: block_window_quad(*bw["ordered"]),
+                                  lambda: block_window_quad_plain(*bw["ordered"]))
     # K13/K14 on the arguments the north star's cholesky_solve_band gave
     # them; K17-K22 on the float32 step's (K17 on its P)
     new_args = {**{n: sol["args"][n][0] for n in ("solve_lower", "solve_upper_t")},
@@ -4292,6 +4393,7 @@ def main() -> None:
         "kron_posterior": cuda_ms(lambda: kmodel.posterior(kparams)),
         "kron_predict_1e5": cuda_ms(lambda: kpost.predict_f(kr["x_test"], batch=PREDICT_BATCH)),
         "chol_inv_dense_batch100": cuda_ms(lambda: dense_block.chol_inv_dense(blk_batch)),
+        "block_window_quad_shuffled": cuda_ms(lambda: block_window_quad(*bw["shuffled"])),
         "chol_inv_dense_library": cuda_ms(lambda: library_chol_inv(blk)),
         "chol_inv_dense_library_batch100": cuda_ms(lambda: library_chol_inv(blk_batch)),
         "f32_value_and_grad": cuda_ms(lambda: value_and_grad(f32_model)),
@@ -4364,7 +4466,9 @@ def main() -> None:
         (f"chol_inv_dense_b{ND_B}", calls[f"chol_inv_dense_b{ND_B}"][0]),
         (f"chol_inv_dense_b{ND_B}_batch{ND_M}", lambda: dense_block.chol_inv_dense(nblk_batch)),
         (f"chol_inv_dense_b{ND_B}_library", lambda: library_b400(nblk)),
-        ("kron_nd_block_cholesky", lambda: block.cholesky_block_banded(p_blocks_nd))]
+        ("kron_nd_block_cholesky", lambda: block.cholesky_block_banded(p_blocks_nd)),
+        ("block_window_quad", calls["block_window_quad"][0]),
+        ("block_window_quad_shuffled", lambda: block_window_quad(*bw["shuffled"]))]
     for name, fn in alone:
         dev_ms = kernel_device_ms(fn)
         if ((name in partitioned or name in stages)
@@ -4461,6 +4565,9 @@ def main() -> None:
         if name == "chol_inv_dense":
             shape = {"B": blk.shape[0]}
             bnd = dense_block_bound(blk.shape[0])
+        elif name == "block_window_quad":
+            shape = {"n": bw["n"], "K": bw["K"], "T": bw["T"]}
+            bnd = block_window_bound(bw["ordered"])
         else:
             shape = {"k": k, "m": m}
             ins, outs = io[name]
